@@ -6,8 +6,8 @@
 Phases, in order; any failure exits non-zero:
 
 - build: compiles every CUDA kernel of the port from the sources in this
-  checkout (one ``nvcc`` per source, started together) and prints the
-  build time and the compiler's register report;
+  checkout (one ``nvcc`` per source) and prints the build time and the
+  compiler's register report;
 - kernel: ``counters_merge`` on CUDA against its plain PyTorch version at
   P in {1, 16, 300, 32767}, with 2^32 carries, values at I64_MAX and
   zeros, exact equality; then its time at the scan's shape (P = 16)
@@ -279,7 +279,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    logs = _build.build()
+    logs = {name: _build.build(name) for name in _build.KERNEL_SOURCES}
     print(f"build: {time.perf_counter() - t0:.3f} s for {len(logs)} kernel(s)")
     for name, log in logs.items():
         for line in log.splitlines():

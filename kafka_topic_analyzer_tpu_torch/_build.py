@@ -1,12 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one ``csrc/<name>.cu`` file with a plain C interface,
-compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library and
-loaded with ``ctypes``.  Libraries are built at first use from the sources
-in the package, into ``build/torch_kernels/`` beside the package (listed in
-``.gitignore``), named by a hash of their source so an edited kernel is
-never served from a stale build.  `build` starts one ``nvcc`` per missing
-library, all at once, and waits for every one.
+compiled by ``nvcc`` (found on ``PATH``) for Hopper (``sm_90a``) into a
+shared library and loaded with ``ctypes``.  Libraries are built at first
+use from the sources in the package, into ``build/torch_kernels/`` beside
+the package (listed in ``.gitignore``), named by a hash of their source so
+an edited kernel is never served from a stale build.
 """
 
 from __future__ import annotations
@@ -41,60 +40,35 @@ def library_path(name: str) -> Path:
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    fallback = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(fallback):
-        return fallback
-    raise RuntimeError(
-        "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
-        "are built from source at first use"
-    )
-
-
-def build(names: "list[str] | None" = None) -> "dict[str, str]":
-    """Build every missing library among ``names`` (all kernels by
-    default) in parallel; returns name → compiler output (``-Xptxas -v``
-    register and spill report; empty for a library already built)."""
-    names = list(KERNEL_SOURCES) if names is None else names
-    todo = {n: library_path(n) for n in names if not library_path(n).exists()}
-    logs = {n: "" for n in names}
-    if not todo:
-        return logs
+def build(name: str) -> str:
+    """Build kernel ``name``'s library if it is missing; returns the
+    compiler output (``-Xptxas -v`` register and spill report; empty for a
+    library already built).  Raises if ``nvcc`` is absent or fails."""
+    out = library_path(name)
+    if out.exists():
+        return ""
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found on PATH: the CUDA kernels are built from source "
+            "at first use"
+        )
     build_dir().mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     try:
-        for name, out in todo.items():
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            procs[name] = (
-                subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                     str(_PKG / KERNEL_SOURCES[name])],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                ),
-                tmp,
-                out,
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_PKG / KERNEL_SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"CUDA kernel build failed: {name} (nvcc exit "
+                f"{proc.returncode}):\n{proc.stdout}"
             )
-        failed = []
-        for name, (proc, tmp, out) in procs.items():
-            logs[name], _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"{name} (nvcc exit {proc.returncode}):\n{logs[name]}")
-            else:
-                os.replace(tmp, out)
+        os.replace(tmp, out)
     finally:
-        for proc, tmp, _ in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if tmp.exists():
-                tmp.unlink()
-    if failed:
-        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
-    return logs
+        tmp.unlink(missing_ok=True)
+    return proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -102,7 +76,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            build([name])
+            build(name)
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib

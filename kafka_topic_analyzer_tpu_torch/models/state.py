@@ -22,7 +22,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from kafka_topic_analyzer_tpu_torch._torch_support import i32_to_u32, u32_to_i32
+from kafka_topic_analyzer_tpu_torch._torch_support import (
+    i32_to_u32,
+    resolve_device,
+    u32_to_i32,
+)
 from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
 from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_num_words
 from kafka_topic_analyzer_tpu_torch.ops.counters import I64_MAX, I64_MIN
@@ -140,10 +144,13 @@ def state_to_numpy(state: AnalyzerState) -> Dict[str, np.ndarray]:
 
 
 def state_from_numpy(
-    leaves: Dict[str, np.ndarray], device="cpu"
+    leaves: Dict[str, np.ndarray], device=None
 ) -> AnalyzerState:
     """Inverse of `state_to_numpy`: the sub-states present in ``leaves``
-    are built on ``device`` (each leaf copied into a tensor of its own)."""
+    are built on ``device`` (each leaf copied into a tensor of its own).
+    The device is CUDA unless the caller asks for the CPU; a missing CUDA
+    device raises (`resolve_device`)."""
+    device = resolve_device(device)
 
     def tensor(arr, dtype):
         return torch.from_numpy(np.array(arr, dtype=dtype)).to(device)

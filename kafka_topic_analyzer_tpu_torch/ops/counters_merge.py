@@ -17,7 +17,6 @@ fallback from one to the other.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
@@ -33,17 +32,24 @@ def counters_merge_plain(
     return per_partition + delta
 
 
-def _library() -> ctypes.CDLL:
+#: ``(kta_counters_merge, kta_cuda_error_string)``, bound on first launch.
+_bound = None
+
+
+def _bind():
+    """Load the kernel's library (building it if missing) and set the C
+    signatures, once per process."""
+    global _bound
     lib = _build.load("counters_merge")
     fn = lib.kta_counters_merge
-    if fn.argtypes is None:
-        # Without argtypes ctypes passes each pointer as a 32-bit int.
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.kta_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.kta_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    # Without argtypes ctypes passes each pointer as a 32-bit int.
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.kta_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.kta_cuda_error_string.restype = ctypes.c_char_p
+    _bound = (fn, lib.kta_cuda_error_string)
+    return _bound
 
 
 def counters_merge(
@@ -80,24 +86,19 @@ def counters_merge(
         raise ValueError(
             f"counters_merge runs on cuda or cpu, not {per_partition.device}"
         )
-    lib = _library()
-    device = per_partition.device
-    # The runtime launches on the calling thread's current device; switch
-    # only when the tables live elsewhere (the switch costs a few us).
-    switch = (
-        torch.cuda.device(device)
-        if device.index != torch.cuda.current_device()
-        else contextlib.nullcontext()
-    )
-    with switch:
-        err = lib.kta_counters_merge(
-            per_partition.data_ptr(), delta.data_ptr(), per_partition.numel(),
-            torch.cuda.current_stream(device).cuda_stream,
+    if per_partition.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"counters_merge launches on the current device "
+            f"cuda:{torch.cuda.current_device()}, not {per_partition.device}"
         )
+    launch, error_string = _bound or _bind()
+    err = launch(
+        per_partition.data_ptr(), delta.data_ptr(), per_partition.numel(),
+        torch.cuda.current_stream().cuda_stream,
+    )
     if err != 0:
         raise RuntimeError(
-            "counters_merge kernel launch failed: "
-            + lib.kta_cuda_error_string(err).decode()
+            "counters_merge kernel launch failed: " + error_string(err).decode()
         )
     counters_merge.launches += 1
     return per_partition

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``kafka_topic_analyzer_tpu_torch``
 (nor ``chip_smoke.py``) imports ``jax`` or the reference package, the
 port runs a scan in a process where both are unimportable, and asking for
-the GPU without one raises instead of falling back to the CPU."""
+the GPU without one (also by default, as the state loader does) raises
+instead of falling back to the CPU."""
 
 import ast
 import os
@@ -15,6 +16,11 @@ import torch
 from kafka_topic_analyzer_tpu_torch import _torch_support, cli
 from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
 from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
+from kafka_topic_analyzer_tpu_torch.models.state import (
+    AnalyzerState,
+    state_from_numpy,
+    state_to_numpy,
+)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "kafka_topic_analyzer_tpu_torch").rglob("*.py")) + [
@@ -74,3 +80,13 @@ def test_gpu_request_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         cli.main(["-t", "t", "--synthetic", "messages=10", "--backend", "gpu"])
     assert _torch_support.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_state_loader_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    leaves = state_to_numpy(AnalyzerState.init(AnalyzerConfig(num_partitions=2), "cpu"))
+    for device in (None, "gpu", "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA device requested"):
+            state_from_numpy(leaves, device=device)
+    state = state_from_numpy(leaves, device="cpu")
+    assert state.metrics.per_partition.device == torch.device("cpu")

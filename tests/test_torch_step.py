@@ -121,7 +121,7 @@ def test_state_round_trips_through_numpy_leaves():
     assert_same_leaves(AnalyzerState.init(AnalyzerConfig(**kw), "cpu"), ref_state)
     leaves = jax_leaves(ref_state)
     leaves["alive.words"][3] = 0x80000001  # bit 31 survives the int32 view
-    back = state_to_numpy(state_from_numpy(leaves))
+    back = state_to_numpy(state_from_numpy(leaves, device="cpu"))
     for name in leaves:
         np.testing.assert_array_equal(back[name], leaves[name], err_msg=name)
 
