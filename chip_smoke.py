@@ -6,21 +6,31 @@
 Phases, in order; any failure exits non-zero:
 
 - build: compiles every CUDA kernel of the port from the sources in this
-  checkout (one ``nvcc`` per source) and prints the build time and the
-  compiler's register report;
+  checkout (one ``nvcc`` per source, all started together) and prints the
+  build time and the compiler's register report;
 - kernel: ``counters_merge`` on CUDA against its plain PyTorch version at
   P in {1, 16, 300, 32767}, with 2^32 carries, values at I64_MAX and
   zeros, exact equality; then its time at the scan's shape (P = 16)
   beside the plain version, one ``torch.add`` (a yardstick the port never
-  calls) and the bound;
+  calls) and the bound.  Then ``counters_update`` against its plain
+  version at B = 2^18 with lengths up to 2^24 - 1 and a 10% invalid tail,
+  at P in {1, 16, 300, 877, 4096, 32767} (its shared-memory and its
+  global-atomic paths), exact equality; then its time at the scan's shape
+  (P = 16, B = 2^18, the scan's round-robin partition order) beside the
+  plain version, one ``index_add_`` of a prebuilt ``[B, 7]`` contribution
+  tensor (a yardstick the port never calls) and the bound;
 - identity: the port's CLI at partitions=4, messages=200000, keys=50000
-  with the 2^32-slot alive bitmap, once on ``cuda`` and once on ``cpu``:
-  the reports must be byte-identical apart from the two timing lines;
-- scan: the full-size v5 scan (partitions=16, messages=1000000,
+  with the 2^32-slot alive bitmap: wire v5 and wire v4, each on ``cuda``
+  and on ``cpu``, and v5 with ``--alive-compaction off`` on ``cuda``.
+  All five reports must be byte-identical apart from the two timing
+  lines, and each ``cuda`` run must launch its wire format's kernel;
+- scan: the full-size scan (partitions=16, messages=1000000,
   keys=3000000: 16M records, 512 MiB alive bitmap, per-partition HLL and
-  quantiles) on ``cuda`` through the CLI's own setup, engine and backend.
-  The kernel's launch counter is zeroed just before and read just after:
-  it must equal the number of dispatches.
+  quantiles) on ``cuda`` through the CLI's own setup, engine and backend,
+  once in wire v5 and once in wire v4.  Both kernels' launch counters are
+  zeroed just before each scan and read just after: the wire format's
+  kernel must have launched once per dispatch and the other kernel never.
+  The two reports must be byte-identical apart from the timing lines.
 
 Prints the card's name and power limit (``nvidia-smi``), a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``.
@@ -35,17 +45,21 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 #: Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the
 #: non-tensor-core fp32 rate as the rate of a CUDA-core integer add.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SIMT_OPS_PER_S = 67e12
 
-FULL_SPEC = "partitions=16,messages=1000000,keys=3000000"
+FULL_PARTITIONS = 16
+FULL_MESSAGES = 1_000_000
+FULL_SPEC = f"partitions={FULL_PARTITIONS},messages={FULL_MESSAGES},keys=3000000"
 IDENTITY_SPEC = "partitions=4,messages=200000,keys=50000"
+ALIVE_BITS = 32
 SKETCH_FLAGS = [
     "-c", "--distinct-keys-per-partition", "--quantiles-per-partition",
-    "--pallas", "--alive-bitmap-bits", "32",
+    "--pallas", "--alive-bitmap-bits", str(ALIVE_BITS),
 ]
 
 
@@ -137,6 +151,96 @@ def phase_kernel(torch, np, counters_merge, counters_merge_plain) -> dict:
     return row
 
 
+def update_inputs(torch, np, p: int, b: int, rng, round_robin: bool = False):
+    """The wire-v4 update's inputs on the card: int32 partition, key and
+    value lengths (key lengths over the whole u16 range, value lengths up
+    to the reference's 2^24 - 1 cap, some at it), bool flags, and a valid
+    prefix of 90% of the records (an invalid tail) unless ``round_robin``,
+    which gives the scan's own record order and a full batch."""
+    if round_robin:
+        partition = np.arange(b, dtype=np.int32) % p
+        valid = np.ones(b, dtype=bool)
+    else:
+        partition = rng.integers(0, p, size=b, dtype=np.int32)
+        valid = np.arange(b) < (b * 9) // 10
+    value_len = rng.integers(0, 1 << 24, size=b, dtype=np.int32)
+    value_len[:64] = (1 << 24) - 1
+    cols = [
+        partition,
+        rng.integers(0, 1 << 16, size=b, dtype=np.int32),
+        value_len,
+        rng.random(b) < 0.1,
+        rng.random(b) < 0.15,
+        valid,
+    ]
+    per = rng.integers(-(1 << 62), 1 << 62, size=(p, 7), dtype=np.int64)
+    return torch.from_numpy(per).cuda(), [torch.from_numpy(c).cuda() for c in cols]
+
+
+def phase_update_kernel(torch, np, counters_update, counters_update_plain) -> dict:
+    rng = np.random.default_rng(20261017)
+    b = 1 << 18
+    worst = 0
+    for p in (1, 16, 300, 877, 4096, 32767):
+        per, cols = update_inputs(torch, np, p, b, rng)
+        want = counters_update_plain(per, *cols, p)
+        got = counters_update(per.clone(), *cols, p)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max().item())
+        print(f"kernel: counters_update P={p} B={b}: max_abs_err={err}")
+        if not torch.equal(got, want):
+            fail(f"counters_update disagrees with its plain version at P={p}")
+        worst = max(worst, err)
+
+    p = 16  # the scan phase's shape and record order
+    per, cols = update_inputs(torch, np, p, b, rng, round_robin=True)
+    partition, key_len, value_len, key_null, value_null, valid = cols
+    # The library yardstick: one index_add_ of the prebuilt contributions
+    # (what the plain version computes before its add), never called by
+    # the port.
+    kn, vn = valid & ~key_null, valid & ~value_null
+    contrib = torch.stack(
+        [valid, valid & value_null, vn, valid & key_null, kn,
+         torch.zeros_like(valid), torch.zeros_like(valid)], dim=1,
+    ).to(torch.int64)
+    contrib[:, 5] = torch.where(kn, key_len, 0)
+    contrib[:, 6] = torch.where(vn, value_len, 0)
+    idx = torch.where(valid, partition.to(torch.int64), p)
+    acc = torch.zeros((p + 1, 7), dtype=torch.int64, device=per.device)
+    iters = 500
+    ms = cuda_ms(lambda: counters_update(per, *cols, p), iters)
+    plain_ms = cuda_ms(lambda: counters_update_plain(per, *cols, p), iters)
+    library_ms = cuda_ms(lambda: acc.index_add_(0, idx, contrib), iters)
+    _, shuffled = update_inputs(torch, np, p, b, rng)
+    random_ms = cuda_ms(lambda: counters_update(per, *shuffled, p), iters)
+    # Each column read once (three int32, three bool), the table read and
+    # written once; seven integer adds per record.
+    nbytes = b * (3 * 4 + 3 * 1) + 2 * 8 * 7 * p
+    ops = 7 * b
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_SIMT_OPS_PER_S * 1e3
+    row = {
+        "name": "counters_update",
+        "route": "cuda",
+        "source": "kafka_topic_analyzer_tpu_torch/csrc/counters_update.cu",
+        "replaces": "kafka_topic_analyzer_tpu/ops/pallas_counters.py:52",
+        "launches": 0,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    }
+    print(
+        f"kernel: counters_update P={p} B={b}: {ms:.6f} ms (random partition "
+        f"order {random_ms:.6f} ms), plain {plain_ms:.6f} ms, index_add_ "
+        f"{library_ms:.6f} ms, bound {row['bound_ms']:.9f} ms ({nbytes} B, "
+        f"{ops} adds)"
+    )
+    return row
+
+
 def run_cli(main, argv) -> str:
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -153,75 +257,104 @@ def drop_timing(text: str) -> str:
     )
 
 
-def phase_identity(torch, main, counters_merge) -> None:
+def zero(kernels) -> None:
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def phase_identity(main, kernels) -> None:
+    """Five CLI runs of one topic; every report must equal the first
+    (timing lines aside) and every gpu run must launch its wire format's
+    kernel and not the other."""
     argv = ["-t", "smoke", "--source", "synthetic", "--synthetic",
             IDENTITY_SPEC, *SKETCH_FLAGS]
-    counters_merge.launches = 0
-    t0 = time.perf_counter()
-    gpu = run_cli(main, argv + ["--backend", "gpu"])
-    gpu_s = time.perf_counter() - t0
-    launches = counters_merge.launches
-    t0 = time.perf_counter()
-    cpu = run_cli(main, argv + ["--backend", "cpu"])
-    cpu_s = time.perf_counter() - t0
-    print(f"identity: gpu {gpu_s:.3f} s ({launches} kernel launches), "
-          f"cpu {cpu_s:.3f} s")
-    if launches == 0:
-        fail("identity: the gpu run launched no counters_merge kernel")
-    if drop_timing(gpu) != drop_timing(cpu):
-        fail("identity: cuda and cpu reports differ:\n" + gpu + "\n" + cpu)
-    print("identity: cuda and cpu reports byte-identical (timing lines aside)")
+    runs = [
+        ("v5", [], "gpu", "counters_merge"),
+        ("v5", [], "cpu", None),
+        ("v4", ["--wire-format", "v4"], "gpu", "counters_update"),
+        ("v4", ["--wire-format", "v4"], "cpu", None),
+        ("v5 compaction off", ["--alive-compaction", "off"], "gpu",
+         "counters_merge"),
+    ]
+    first = None
+    for label, flags, backend, kernel in runs:
+        zero(kernels)
+        t0 = time.perf_counter()
+        out = drop_timing(run_cli(main, argv + flags + ["--backend", backend]))
+        secs = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        print(f"identity: {label} on {backend}: {secs:.3f} s, launches {launches}")
+        for name, n in launches.items():
+            if (name == kernel) != (n > 0):
+                fail(f"identity: {label} on {backend} launched {name} {n} times")
+        if first is None:
+            first = out
+        elif out != first:
+            fail(f"identity: the {label} report on {backend} differs from "
+                 f"the v5 gpu report:\n{first}\n{out}")
+    print("identity: v5, v4 and compaction-off reports byte-identical on cuda "
+          "and cpu (timing lines aside)")
 
 
-def phase_scan(torch, np, cli, counters_merge) -> int:
+def phase_scan(torch, np, cli, kernels, label, flags, kernel):
+    """One full-size scan on the card; returns (launches of ``kernel``,
+    the report without its timing lines)."""
     from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
     from kafka_topic_analyzer_tpu_torch.engine import run_scan
     from kafka_topic_analyzer_tpu_torch.report import render_report
 
     argv = ["-t", "scan", "--source", "synthetic", "--synthetic", FULL_SPEC,
-            *SKETCH_FLAGS, "--backend", "gpu"]
+            *SKETCH_FLAGS, *flags, "--backend", "gpu"]
     args = cli.build_parser().parse_args(argv)
     source, config = cli.setup(args)
     backend = TorchBackend(config, device=args.backend)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters_merge.launches = 0
+    zero(kernels)
     t0 = time.perf_counter()
     result = run_scan(args.topic, source, backend, args.batch_size)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = counters_merge.launches
+    launches = {name: fn.launches for name, fn in kernels.items()}
     m = result.metrics
     records = source.total_records()
     words = backend.state.alive.words
     dispatches = math.ceil(records / config.batch_size)
-    print(f"scan: {records} records in {wall:.3f} s = {records / wall:.1f} "
-          f"records/s; {backend.dispatches} dispatches, {launches} kernel "
-          f"launches; max_memory_allocated "
+    print(f"scan {label}: {records} records in {wall:.3f} s = "
+          f"{records / wall:.1f} records/s; {backend.dispatches} dispatches, "
+          f"kernel launches {launches}; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} B")
-    sys.stdout.write(render_report(
+    report = render_report(
         args.topic, m, result.start_offsets, result.end_offsets,
         result.duration_secs, show_alive_keys=True,
-    ))
-    if m.overall_count != 16_000_000 or records != 16_000_000:
-        fail(f"scan: overall_count {m.overall_count} != 16000000")
-    if any(m.total(p) != 1_000_000 for p in m.partitions):
-        fail("scan: a partition total is not 1000000")
-    if words.device.type != "cuda" or words.numel() != 1 << 27:
-        fail(f"scan: alive bitmap is {words.numel()} words on {words.device}")
-    if not (launches > 0 and launches == backend.dispatches == dispatches):
-        fail(f"scan: {launches} launches for {backend.dispatches} dispatches "
-             f"(expected {dispatches})")
+    )
+    sys.stdout.write(report)
+    want = FULL_PARTITIONS * FULL_MESSAGES
+    if m.overall_count != want or records != want:
+        fail(f"scan {label}: overall_count {m.overall_count} != {want}")
+    if any(m.total(p) != FULL_MESSAGES for p in m.partitions):
+        fail(f"scan {label}: a partition total is not {FULL_MESSAGES}")
+    if words.device.type != "cuda" or words.numel() != 1 << (ALIVE_BITS - 5):
+        fail(f"scan {label}: alive bitmap is {words.numel()} words on "
+             f"{words.device}")
+    n = launches[kernel]
+    if not (n > 0 and n == backend.dispatches == dispatches):
+        fail(f"scan {label}: {n} {kernel} launches for {backend.dispatches} "
+             f"dispatches (expected {dispatches})")
+    if any(v for name, v in launches.items() if name != kernel):
+        fail(f"scan {label}: launched a kernel of the other wire format: "
+             f"{launches}")
     hll = m.distinct_keys_hll_per_partition
     if not (m.alive_keys and all(math.isfinite(h) and h > 0 for h in hll)):
-        fail("scan: alive keys or HLL estimates missing")
+        fail(f"scan {label}: alive keys or HLL estimates missing")
     if int(np.sum(m.per_partition[:, 2])) < m.alive_keys:
-        fail("scan: more alive keys than alive records")
-    breakdown(torch, source, config, wall, backend.dispatches)
-    return launches
+        fail(f"scan {label}: more alive keys than alive records")
+    breakdown(torch, source, config, wall, backend.dispatches, label)
+    return n, drop_timing(report)
 
 
-def breakdown(torch, source, config, wall: float, dispatches: int) -> None:
+def breakdown(torch, source, config, wall: float, dispatches: int,
+              label: str) -> None:
     """Per-dispatch cost of each stage of the scan, over the scan's first
     batches: synthesis and packing on the host clock (mean of 4), the
     host→device copy and the device fold with CUDA events (on a second
@@ -247,7 +380,7 @@ def breakdown(torch, source, config, wall: float, dispatches: int) -> None:
     fold_ms = cuda_ms(lambda: backend.update(staged), 20, 2)
     per_dispatch_ms = wall * 1e3 / dispatches
     print(
-        f"breakdown: per dispatch of {config.batch_size} records: wall "
+        f"breakdown {label}: per dispatch of {config.batch_size} records: wall "
         f"{per_dispatch_ms:.3f} ms; host synth {synth_ms:.3f} ms, host pack "
         f"{prepare_ms:.3f} ms; device copy {copy_ms:.3f} ms "
         f"({host.numel()} B), device fold {fold_ms:.3f} ms; device busy "
@@ -266,6 +399,7 @@ def main() -> int:
     try:
         from kafka_topic_analyzer_tpu_torch import _build, cli
         from kafka_topic_analyzer_tpu_torch.ops import counters_merge as cm
+        from kafka_topic_analyzer_tpu_torch.ops import counters_update as cu
     except ImportError as e:
         fail(f"the port package is not importable here: {e}")
 
@@ -279,17 +413,32 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    logs = {name: _build.build(name) for name in _build.KERNEL_SOURCES}
+    names = list(_build.KERNEL_SOURCES)
+    with ThreadPoolExecutor(len(names)) as pool:
+        logs = dict(zip(names, pool.map(_build.build, names)))
     print(f"build: {time.perf_counter() - t0:.3f} s for {len(logs)} kernel(s)")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}")
 
-    row = phase_kernel(torch, np, cm.counters_merge, cm.counters_merge_plain)
-    phase_identity(torch, cli.main, cm.counters_merge)
-    row["launches"] = phase_scan(torch, np, cli, cm.counters_merge)
-    print(json.dumps({"kernels": [row]}))
+    kernels = {"counters_merge": cm.counters_merge,
+               "counters_update": cu.counters_update}
+    merge_row = phase_kernel(torch, np, cm.counters_merge, cm.counters_merge_plain)
+    update_row = phase_update_kernel(
+        torch, np, cu.counters_update, cu.counters_update_plain
+    )
+    phase_identity(cli.main, kernels)
+    merge_row["launches"], v5_report = phase_scan(
+        torch, np, cli, kernels, "v5", [], "counters_merge"
+    )
+    update_row["launches"], v4_report = phase_scan(
+        torch, np, cli, kernels, "v4", ["--wire-format", "v4"], "counters_update"
+    )
+    if v4_report != v5_report:
+        fail("scan: the v4 and v5 reports differ (timing lines aside)")
+    print("scan: v4 and v5 reports byte-identical (timing lines aside)")
+    print(json.dumps({"kernels": [merge_row, update_row]}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -20,7 +20,10 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 #: Kernel name → CUDA source, relative to the package.
-KERNEL_SOURCES = {"counters_merge": "csrc/counters_merge.cu"}
+KERNEL_SOURCES = {
+    "counters_merge": "csrc/counters_merge.cu",
+    "counters_update": "csrc/counters_update.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

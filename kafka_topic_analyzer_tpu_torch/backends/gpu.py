@@ -2,11 +2,13 @@
 device (port of the reference's ``TpuBackend`` at superbatch K=1).
 
 Per batch:
-- `prepare` packs the wire-v5 row and the batch's compacted alive-pair
-  table straight into a pinned host buffer and starts ONE asynchronous
-  host→device copy of both;
+- `prepare` packs the row (wire v5 or v4, per-row alive pairs inside it
+  when compaction is off) and, under compaction, the batch's compacted
+  alive-pair table straight into a pinned host buffer and starts ONE
+  asynchronous host→device copy of both;
 - `update` views the device bytes as typed tensors and folds them into the
-  state (backends/step.py), launching the counter-merge kernel on CUDA.
+  state (backends/step.py), launching the counter kernel of the row's wire
+  format on CUDA (`counters_merge` for v5, `counters_update` for v4).
 
 Nothing synchronizes until `finalize`, so packing the next batch overlaps
 the device's work on this one.  Pinned buffers form a small ring; a slot
@@ -23,7 +25,7 @@ import torch
 from kafka_topic_analyzer_tpu_torch._torch_support import resolve_device
 from kafka_topic_analyzer_tpu_torch.backends.finalize import metrics_from_state
 from kafka_topic_analyzer_tpu_torch.backends.step import (
-    analyzer_step_v5,
+    analyzer_step,
     apply_pair_table,
 )
 from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
@@ -52,9 +54,9 @@ RING_SLOTS = 3
 
 
 class StagedBatch:
-    """A batch packed and on its way to the device: ``row`` is the wire-v5
-    row, ``pairs`` the compacted pair table (None without ``-c``), both
-    device ``uint8`` tensors."""
+    """A batch packed and on its way to the device: ``row`` is the packed
+    row, ``pairs`` the compacted pair table (None unless the config
+    compacts alive pairs), both device ``uint8`` tensors."""
 
     __slots__ = ("row", "pairs")
 
@@ -71,8 +73,10 @@ def _host_view(t: torch.Tensor, dtype) -> np.ndarray:
 def self_check_unpack(device: torch.device) -> None:
     """Pack known batches on the host, unpack them on ``device`` and
     compare field by field: catches a byte-view mismatch before it could
-    corrupt results.  Covers both pair-table forms, both HLL pair forms,
-    the register table and an odd batch size (misaligned sections)."""
+    corrupt results.  Covers both wire formats, per-row and both
+    compacted pair forms, every HLL pair form, the register table and odd
+    batch sizes (misaligned sections: the v4 ``ts_minmax`` is 8-byte
+    aligned only when 9·B is a multiple of 8)."""
     from kafka_topic_analyzer_tpu_torch.io.synthetic import (
         SyntheticSource,
         SyntheticSpec,
@@ -93,17 +97,38 @@ def self_check_unpack(device: torch.device) -> None:
             alive_bitmap_bits=24, distinct_keys_per_partition=True, hll_p=8,
             quantiles_per_partition=True,
         ),
+        AnalyzerConfig(
+            num_partitions=3, batch_size=101, count_alive_keys=True,
+            alive_bitmap_bits=24, distinct_keys_per_partition=True, hll_p=8,
+            quantiles_per_partition=True, wire_format=4,
+        ),
+        AnalyzerConfig(
+            num_partitions=3, batch_size=128, count_alive_keys=True,
+            alive_bitmap_bits=16, enable_hll=True, hll_p=12,
+            enable_quantiles=True, wire_format=4,
+        ),
+        AnalyzerConfig(
+            num_partitions=3, batch_size=127, count_alive_keys=True,
+            alive_bitmap_bits=24, distinct_keys_per_partition=True, hll_p=8,
+            quantiles_per_partition=True, alive_compaction="off",
+        ),
     ]
     for config in configs:
-        cap = pair_table_capacity(config, config.batch_size)
         row = pack_batch(batch, config)
-        pairs, _, _ = pack_pair_table([batch_alive_pairs(batch, config)], config, cap)
         checks = [
             (unpack_numpy(row, config),
              unpack_device(torch.from_numpy(row).to(device), config)),
-            (unpack_pair_table_numpy(pairs, config, cap),
-             unpack_pair_table_device(torch.from_numpy(pairs).to(device), config, cap)),
         ]
+        if config.compact_alive:
+            cap = pair_table_capacity(config, config.batch_size)
+            pairs, _, _ = pack_pair_table(
+                [batch_alive_pairs(batch, config)], config, cap
+            )
+            checks.append(
+                (unpack_pair_table_numpy(pairs, config, cap),
+                 unpack_pair_table_device(
+                     torch.from_numpy(pairs).to(device), config, cap))
+            )
         for expected, got in checks:
             for name, exp in expected.items():
                 exp = np.asarray(exp)
@@ -132,11 +157,15 @@ class TorchBackend:
         self.state = AnalyzerState.init(config, self.device)
         b = config.batch_size
         self._pair_cap = pair_table_capacity(config, b) if config.compact_alive else 0
-        # Pair-list tables scatter through a persistent word accumulator.
+        # Pair lists (per row, or a compacted table in its list form)
+        # scatter through a persistent word accumulator.
+        pair_lists = config.count_alive_keys and (
+            not config.compact_alive
+            or alive_table_mode(config, self._pair_cap) == 1
+        )
         self._scratch = (
             bitmap_scratch(config.alive_bitmap_bits, self.device)
-            if config.compact_alive and alive_table_mode(config, self._pair_cap) == 1
-            else None
+            if pair_lists else None
         )
         self._row_nbytes = packed_nbytes(config, b)
         # The pair table starts on a 16-byte boundary of the staging row.
@@ -185,7 +214,10 @@ class TorchBackend:
         state.  Asynchronous on CUDA."""
         if isinstance(batch, RecordBatch):
             batch = self.prepare(batch)
-        analyzer_step_v5(self.state, unpack_device(batch.row, self.config), self.config)
+        analyzer_step(
+            self.state, unpack_device(batch.row, self.config), self.config,
+            scratch=self._scratch,
+        )
         if batch.pairs is not None:
             apply_pair_table(
                 self.state,

@@ -1,11 +1,13 @@
-"""The analyzer step: fold one wire-v5 batch and its pair table into the
-state (port of the reference's ``_analyzer_step_v5`` and
-``apply_pair_table``).
+"""The analyzer step: fold one batch and its pair table into the state
+(port of the reference's ``analyzer_step``, ``_analyzer_step_v5``,
+``_apply_alive`` and ``apply_pair_table``, without the mesh branches).
 
-Every fold is an elementwise table merge — integer adds for the counters
-and DDSketch buckets, min/max for the extremes, max for HLL registers —
-so the result is exact and order-free except for the alive bitmap, whose
-last-writer-wins order the host already resolved in the pair table.
+Under wire v5 every fold is an elementwise table merge — integer adds for
+the counters and DDSketch buckets, min/max for the extremes, max for HLL
+registers.  Under wire v4 the device scatters the records' columns into
+the same tables.  Either way the result is exact and order-free except
+for the alive bitmap, whose last-writer-wins order the host already
+resolved in the pairs (per row, or compacted per dispatch).
 
 The reference's step is pure (XLA donates its buffers); the port updates
 the caller's state in place and returns it.
@@ -24,8 +26,13 @@ from kafka_topic_analyzer_tpu_torch.ops.bitmap import (
 )
 from kafka_topic_analyzer_tpu_torch.ops.counters import extremes_update
 from kafka_topic_analyzer_tpu_torch.ops.counters_merge import counters_merge
-from kafka_topic_analyzer_tpu_torch.ops.ddsketch import ddsketch_merge
-from kafka_topic_analyzer_tpu_torch.ops.hll import hll_apply_flat, hll_merge_table
+from kafka_topic_analyzer_tpu_torch.ops.counters_update import counters_update
+from kafka_topic_analyzer_tpu_torch.ops.ddsketch import ddsketch_merge, ddsketch_update
+from kafka_topic_analyzer_tpu_torch.ops.hll import (
+    hll_apply,
+    hll_apply_flat,
+    hll_merge_table,
+)
 
 
 def apply_pair_table(
@@ -56,8 +63,30 @@ def apply_pair_table(
     return state
 
 
+def _apply_alive(
+    state: AnalyzerState,
+    arrays: dict,
+    config: AnalyzerConfig,
+    scratch: "torch.Tensor | None",
+) -> None:
+    """Apply a row's per-row alive pairs (compaction off, both wire
+    formats), in place."""
+    if state.alive is not None and "alive_slot" in arrays:
+        bitmap_apply_pairs(
+            state.alive.words,
+            arrays["alive_slot"],
+            arrays["alive_flag"],
+            arrays["n_pairs"],
+            bits=config.alive_bitmap_bits,
+            scratch=scratch,
+        )
+
+
 def analyzer_step_v5(
-    state: AnalyzerState, arrays: dict, config: AnalyzerConfig
+    state: AnalyzerState,
+    arrays: dict,
+    config: AnalyzerConfig,
+    scratch: "torch.Tensor | None" = None,
 ) -> AnalyzerState:
     """Wire-v5 fold of one unpacked batch (`packing.unpack_device`).  The
     counter-table merge always runs through `counters_merge` — the CUDA
@@ -73,6 +102,7 @@ def analyzer_step_v5(
     # key/value byte sums, channel 0 the record count.
     m.overall_size.add_((delta[:, 5] + delta[:, 6]).sum())
     m.overall_count.add_(delta[:, 0].sum())
+    _apply_alive(state, arrays, config, scratch)
 
     if state.hll is not None:
         regs = state.hll.regs
@@ -88,4 +118,72 @@ def analyzer_step_v5(
 
     if state.quantiles is not None:
         ddsketch_merge(state.quantiles.counts, arrays["qcounts"])
+    return state
+
+
+def analyzer_step(
+    state: AnalyzerState,
+    arrays: dict,
+    config: AnalyzerConfig,
+    scratch: "torch.Tensor | None" = None,
+) -> AnalyzerState:
+    """Fold one unpacked batch into the state, in place; returns it.
+    Wire-v5 rows (a ``counts`` table present) take `analyzer_step_v5`;
+    wire-v4 rows scatter their record columns here.  The v4 counter
+    update always runs through `counters_update` — the CUDA kernel on a
+    card, its plain version on the host.  ``scratch`` is the pair
+    scatter's accumulator (`ops.bitmap.bitmap_scratch`) for per-row
+    alive pairs."""
+    if "counts" in arrays:
+        return analyzer_step_v5(state, arrays, config, scratch)
+    valid = arrays["valid"]
+    key_null = arrays["key_null"]
+    value_null = arrays["value_null"]
+    key_len = arrays["key_len"]
+    value_len = arrays["value_len"]
+    partition = arrays["partition"]
+
+    m = state.metrics
+    counters_update(
+        m.per_partition, partition, key_len, value_len, key_null, value_null,
+        valid, config.num_partitions,
+    )
+    m.earliest_s, m.latest_s, m.smallest, m.largest = extremes_update(
+        m.earliest_s, m.latest_s, m.smallest, m.largest,
+        arrays["ts_min"], arrays["ts_max"], arrays["sz_min"], arrays["sz_max"],
+    )
+    kn = valid & ~key_null
+    vn = valid & ~value_null
+    msg_size = (
+        torch.where(kn, key_len, 0).to(torch.int64)
+        + torch.where(vn, value_len, 0).to(torch.int64)
+    )
+    m.overall_size.add_(msg_size.sum())
+    m.overall_count.add_(valid.sum())
+    _apply_alive(state, arrays, config, scratch)
+
+    if state.hll is not None:
+        regs = state.hll.regs
+        if "hll_regs" in arrays:
+            hll_merge_table(regs, arrays["hll_regs"])
+        else:
+            hll_apply(
+                regs,
+                arrays["hll_idx"].to(torch.int64) & 0xFFFF,
+                arrays["hll_rho"],
+                partition=(
+                    partition if config.distinct_keys_per_partition else None
+                ),
+            )
+
+    if state.quantiles is not None:
+        # Quantiles run over sized (non-tombstone) messages.
+        ddsketch_update(
+            state.quantiles.counts,
+            msg_size,
+            vn,
+            config.quantile_gamma,
+            config.quantile_buckets,
+            partition=partition if config.quantiles_per_partition else None,
+        )
     return state

@@ -1,10 +1,11 @@
 """Command line of the port: the synthetic batch scan (port of the
-reference's ``cli.py``, the flags of the v5 scan path).
+reference's ``cli.py``, the flags of the ported scan paths).
 
     python -m kafka_topic_analyzer_tpu_torch -t T --source synthetic \\
         --synthetic SPEC -c --distinct-keys-per-partition \\
         --quantiles-per-partition --pallas [--batch-size B] \\
-        [--alive-bitmap-bits N] [--backend gpu|cpu]
+        [--alive-bitmap-bits N] [--wire-format auto|v4|v5] \\
+        [--alive-compaction auto|off] [--backend gpu|cpu]
 
 Prints the same report bytes as the reference CLI for the same inputs
 (apart from the two timing lines).  ``--backend gpu`` (the default) runs
@@ -75,9 +76,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Message-size quantiles with one DDSketch per "
                         "partition")
     p.add_argument("--pallas", action="store_true",
-                   help="Accepted for parity with the reference; the port's "
-                        "counter merge always runs its CUDA kernel on a GPU")
+                   help="The reference's Pallas counter flag: under wire v4 "
+                        "it requires batch-size %% 1024 == 0 and rejects "
+                        "values over 16 MiB - 1, as the reference does. The "
+                        "port's counter folds run their CUDA kernels on a "
+                        "GPU with or without it")
+    p.add_argument("--wire-format", choices=["auto", "v4", "v5"],
+                   default="auto", metavar="auto|v4|v5",
+                   help="Packed host→device wire format: v5 (combiner rows "
+                        "— host pre-reduced per-partition fold tables, the "
+                        "default) or v4 (per-record columns). 'auto' "
+                        "resolves to v5. Results are byte-identical either "
+                        "way")
+    p.add_argument("--alive-compaction", choices=["auto", "off"],
+                   default="auto", metavar="auto|off",
+                   help="Host-side LWW compaction of the alive-key pairs "
+                        "into one bounded per-dispatch table (wire v5 "
+                        "only). 'auto' (default) compacts whenever -c runs "
+                        "under v5; 'off' keeps the per-row pair sections. "
+                        "Results are byte-identical either way")
     return p
+
+
+def resolve_wire_format(args) -> int:
+    """--wire-format → AnalyzerConfig.wire_format: 'auto' = 0 (the config
+    resolves it to v5), 'v4'/'v5' pin the format."""
+    return {"auto": 0, "v4": 4, "v5": 5}[args.wire_format]
 
 
 def setup(args) -> "tuple[SyntheticSource, AnalyzerConfig]":
@@ -92,6 +116,8 @@ def setup(args) -> "tuple[SyntheticSource, AnalyzerConfig]":
         distinct_keys_per_partition=args.distinct_keys_per_partition,
         quantiles_per_partition=args.quantiles_per_partition,
         use_pallas_counters=args.pallas,
+        wire_format=resolve_wire_format(args),
+        alive_compaction=args.alive_compaction,
     )
     return source, config
 

@@ -2,9 +2,12 @@
 ``AnalyzerConfig``).
 
 Same fields, defaults and validation as the reference, restricted to what
-the port runs: wire format 5 with alive-pair compaction on, one device.
-Asking for wire v4, for compaction off or for a mesh raises "not yet
-ported" instead of quietly running something else.
+the port runs: wire format 4 or 5, alive-pair compaction auto or off, one
+device.  Asking for a mesh raises "not yet ported" instead of quietly
+running something else.  The reference's ``KTA_WIRE_V4`` and
+``KTA_DISABLE_COMPACTION`` environment switches are not ported: the port
+reads no environment here, and the two fields below are its only way to
+choose.
 """
 
 from __future__ import annotations
@@ -40,15 +43,18 @@ class AnalyzerConfig:
     #: Number of log-gamma buckets.
     quantile_buckets: int = 2560
 
-    #: Kept for flag parity with the reference (``--pallas``).  In the
-    #: port the wire-v5 counter merge always runs through the hand-written
-    #: kernel on CUDA (ops/counters_merge.py), whatever this says.
+    #: Kept for flag parity with the reference (``--pallas``), whose v4
+    #: checks it gates (batch size here, value length at pack time).  In
+    #: the port every counter fold on CUDA runs through a hand-written
+    #: kernel whatever this says: the wire-v5 table merge through
+    #: ops/counters_merge.py, the wire-v4 per-record update through
+    #: ops/counters_update.py.
     use_pallas_counters: bool = False
-    #: ``auto`` compacts the alive pairs into one table per dispatch (the
-    #: only form the port runs); ``off`` is not yet ported.
+    #: ``auto`` compacts the alive pairs into one table per dispatch
+    #: (wire v5 with ``-c``); ``off`` keeps the per-row pair sections.
     alive_compaction: str = "auto"
-    #: ``0`` resolves to 5; ``5`` is the combiner format; ``4`` is not yet
-    #: ported.
+    #: ``0`` resolves to 5; ``5`` is the combiner format (per-partition
+    #: tables); ``4`` ships per-record columns.
     wire_format: int = 0
     #: Device mesh (data, space); only (1, 1) is ported.
     mesh_shape: Tuple[int, int] = (1, 1)
@@ -70,18 +76,33 @@ class AnalyzerConfig:
             raise ValueError("quantile_buckets must be >= 8")
         if self.wire_format == 0:
             object.__setattr__(self, "wire_format", 5)
-        elif self.wire_format == 4:
-            raise ValueError("wire_format 4 is not yet ported (use 5)")
-        elif self.wire_format != 5:
+        elif self.wire_format not in (4, 5):
             raise ValueError(
                 f"wire_format {self.wire_format!r} invalid (0=auto, 4, or 5)"
             )
-        if self.alive_compaction == "off":
-            raise ValueError("alive_compaction 'off' is not yet ported")
-        if self.alive_compaction != "auto":
+        if self.alive_compaction not in ("auto", "off"):
             raise ValueError(
                 f"alive_compaction {self.alive_compaction!r} invalid "
                 "(auto or off)"
+            )
+        # The compacted pair table is a v5 combiner section; v4 and
+        # compaction "off" keep the per-row pairs.
+        object.__setattr__(
+            self,
+            "_compact_alive",
+            self.count_alive_keys
+            and self.alive_compaction == "auto"
+            and self.wire_format == 5,
+        )
+        if (
+            self.use_pallas_counters
+            and self.wire_format == 4
+            and self.batch_size % 1024
+        ):
+            # The reference's v4 MXU kernel folds 1024-record blocks; the
+            # port keeps the refusal so both CLIs accept the same flags.
+            raise ValueError(
+                "use_pallas_counters requires batch_size % 1024 == 0"
             )
         if tuple(self.mesh_shape) != (1, 1):
             raise ValueError(
@@ -96,8 +117,9 @@ class AnalyzerConfig:
     @property
     def compact_alive(self) -> bool:
         """True when the alive pairs ship as one compacted table per
-        dispatch — always, for an alive-key scan in the port."""
-        return self.count_alive_keys
+        dispatch instead of per-row sections: ``-c`` under wire v5 with
+        compaction ``auto`` (resolved in ``__post_init__``)."""
+        return self._compact_alive
 
     @property
     def quantile_gamma(self) -> float:

@@ -5,7 +5,9 @@ The host half — the shared integer bucket-edge table, the packer's bucket
 rule and the quantile extraction — is copied from the reference, so the
 wire-v5 bucket counts and the reported quantiles are bit-identical.  The
 device half under wire v5 is a plain row add (`ddsketch_merge`): the host
-already reduced each batch to per-row bucket counts.
+already reduced each batch to per-row bucket counts.  Under wire v4 the
+device buckets each record on the same edge table and scatter-adds it
+(`ddsketch_update`).
 
 Bucket layout for non-negative integer sizes: bucket 0 holds size 0,
 buckets 1..nbuckets the log-gamma ranges, bucket nbuckets+1 the overflow.
@@ -47,6 +49,38 @@ def ddsketch_bucket_numpy(
         ddsketch_edges(gamma, nbuckets), sizes, side="left"
     ).astype(np.int64) + 1
     return np.where(sizes == 0, 0, idx)
+
+
+@functools.lru_cache(maxsize=8)
+def _edges_on(gamma: float, nbuckets: int, device: torch.device) -> torch.Tensor:
+    """The edge table as a tensor on ``device``, copied there once."""
+    return torch.from_numpy(ddsketch_edges(gamma, nbuckets).copy()).to(device)
+
+
+def ddsketch_update(
+    counts: torch.Tensor,      # int64[R, nbuckets + 2]
+    sizes: torch.Tensor,       # int64[B] message sizes
+    active: torch.Tensor,      # bool[B] records that count
+    gamma: float,
+    nbuckets: int,
+    partition: "torch.Tensor | None" = None,  # int32[B] row per record
+) -> torch.Tensor:
+    """Scatter-add one batch of sizes into the bucket counts, in place.
+    Buckets come from the shared integer edge table (``searchsorted``
+    left), so they equal the host packer's; masked records go to a
+    scratch slot that is dropped.  ``partition`` picks each record's row
+    (R = P); without it every record lands in the single row."""
+    nb = nbuckets + 2
+    rows = counts.shape[0]
+    idx = torch.searchsorted(
+        _edges_on(gamma, nbuckets, sizes.device), sizes, right=False
+    ) + 1
+    idx = torch.where(sizes == 0, 0, idx)
+    flat = idx if partition is None else partition.to(torch.int64) * nb + idx
+    flat = torch.where(active, flat, rows * nb)
+    scratch = torch.zeros(rows * nb + 1, dtype=torch.int64, device=counts.device)
+    scratch.index_add_(0, flat, torch.ones_like(flat))
+    return counts.add_(scratch[: rows * nb].view(rows, nb))
 
 
 def ddsketch_merge(counts: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:

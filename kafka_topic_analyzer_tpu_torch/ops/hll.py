@@ -2,8 +2,9 @@
 
 Device half: the register file is ``int32[R, 2^p]``; a batch arrives
 either as a host-reduced register table (merged by elementwise max) or as
-flat ``(index, rho)`` pairs (one scatter-max, ``scatter_reduce("amax")``).
-Masked records carry ``(0, 0)``, a no-op under max.
+``(index, rho)`` pairs (one scatter-max, ``scatter_reduce("amax")``),
+flat or with the row taken from the partition column (wire v4).  Masked
+records carry ``(0, 0)``, a no-op under max.
 
 Host half: Ertl's improved raw estimator (2017), copied from the
 reference so the estimates are bit-identical.
@@ -33,6 +34,21 @@ def hll_apply_flat(
         0, idx, rho.to(torch.int32), reduce="amax", include_self=True
     )
     return regs
+
+
+def hll_apply(
+    regs: torch.Tensor,
+    idx: torch.Tensor,
+    rho: torch.Tensor,
+    partition: "torch.Tensor | None" = None,
+) -> torch.Tensor:
+    """Scatter-max host pre-split HLL pairs into ``regs`` in place: with
+    ``partition`` given each record updates its partition's row (R = P),
+    otherwise the single row.  ``idx`` is the bucket index as int64 (the
+    u16 section's bit pattern already masked to 0..2^16-1)."""
+    if partition is not None:
+        idx = partition.to(torch.int64) * regs.shape[1] + idx
+    return hll_apply_flat(regs, idx, rho)
 
 
 def _sigma(x: float) -> float:

@@ -1,11 +1,10 @@
-"""Packed host→device batch transfer, wire format v5 (port of the
-reference's ``packing.py``, the v5 subset on its numpy path).
+"""Packed host→device batch transfer, wire formats v4 and v5 (port of
+the reference's ``packing.py``, its numpy path).
 
-Every metric is an associative per-partition fold, so the host reduces
-each batch to the tables the device would have scattered it into — the
-MapReduce-combiner move — and the device merges tables.  One batch is one
-contiguous ``uint8`` row, sections in order (B = batch size, P =
-partitions):
+One batch is one contiguous ``uint8`` row, sections in order (B = batch
+size, P = partitions).  Wire v5, the combiner: every metric is an
+associative per-partition fold, so the host reduces each batch to the
+tables the device would have scattered it into:
 
     header    u8[16]      n_valid i32 | n_pairs i32 | reserved
     counts    i64[7P]     per-partition counter deltas, row-major [P, 7]
@@ -13,25 +12,42 @@ partitions):
     ts_minmax i64[2P]     per-partition ts min then max, identity-filled
     sz_minmax i64[2P]     per-partition message-size min then max
                           (tombstones excluded; identities I64_MAX / 0)
+    [alive]   slot u32[B] + alive u8[B]   per-row pairs, compaction off
     [hll]     regs u8[R << p] host-reduced register table (R = 1 global,
               P per-partition) when R·2^p <= 3·B; else pairs: idx u16[B]
               + rho u8[B] globally, idx32 u32[B] (= partition << p |
               bucket) + rho u8[B] per-partition
     [quant]   i64[R·(nbuckets+2)]  DDSketch bucket-count deltas
 
-With ``-c`` the alive-key pairs do not ride the row: each dispatch carries
-ONE compacted pair-table buffer (`pack_pair_table`) — the host's
+Wire v4 ships the records' columns instead of the counts table, and the
+device scatters them (9 B/record):
+
+    header    u8[16]      as above
+    partition i16[B]
+    key_len   u16[B]      (keys > 64 KiB are rejected at pack time)
+    value_len u32[B]
+    flags     u8[B]       bit0 = key_null, bit1 = value_null
+    ts_minmax, sz_minmax  as above
+    [alive]   slot u32[B] + alive u8[B]   per-row pairs
+    [hll]     the table, or idx u16[B] + rho u8[B] pairs (the device
+              takes the row from the partition column)
+
+With ``-c`` under v5 and compaction ``auto`` (`AnalyzerConfig.
+compact_alive`) the alive pairs do not ride the row: each dispatch
+carries ONE compacted pair-table buffer (`pack_pair_table`) — the host's
 last-writer-wins merge of the dispatch's (slot, alive) pairs — as a
 bounded pair list or as set/clear word masks (`alive_table_mode`).
+Per-row pairs are the same last-writer-wins merge for one batch, with
+their count in the header's ``n_pairs``.
 
 The layout lives in one place, `_sections`: the packers and both
 unpackers derive from it, and the bytes are identical to the reference's
 packers for the same config (tests hold them together).  Device-side
 unpacking is ``Tensor.view(dtype)`` over byte slices; a section whose
-offset is not a multiple of its item size (possible after the 5 B/record
-HLL pairs at an odd batch size) is copied first, since ``view`` needs an
-aligned offset.  u32/u16 sections come out as int32/int16 bit patterns
-(`_torch_support`).
+offset is not a multiple of its item size (possible after a 1, 2 or 5
+B/record section at an odd batch size) is copied first, since ``view``
+needs an aligned offset.  u32/u16 sections come out as int32/int16 bit
+patterns (`_torch_support`).
 """
 
 from __future__ import annotations
@@ -54,10 +70,16 @@ MAX_KEY_LEN = 0xFFFF
 #: Dense partition indices must fit the reference's i16 section (and the
 #: idx32 HLL pair form's 15 bits).
 MAX_PARTITIONS = 0x7FFF
+#: 16 MiB - 1: the reference's ``--pallas`` v4 kernel splits byte sums
+#: into two 12-bit digits and rejects longer values at pack time.  The
+#: port keeps the refusal for CLI parity; its own kernel is exact for any
+#: int32 length.
+MAX_VALUE_LEN = (1 << 24) - 1
 
 #: numpy section dtype → the torch dtype its bytes are viewed as.
 _TORCH_VIEW = {
     np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.int16): torch.int16,
     np.dtype(np.uint16): torch.int16,
     np.dtype(np.uint32): torch.int32,
     np.dtype(np.int32): torch.int32,
@@ -85,11 +107,22 @@ def _sections(config: AnalyzerConfig, batch_size: int,
             ("alive_slot", np.uint32, b),
             ("alive_flag", np.uint8, b),
         ]
-    sec = [
-        ("counts", np.int64, 7 * p),
+    if config.wire_format == 5:
+        sec = [("counts", np.int64, 7 * p)]
+    else:
+        sec = [
+            ("partition", np.int16, b),
+            ("key_len", np.uint16, b),
+            ("value_len", np.uint32, b),
+            ("flags", np.uint8, b),
+        ]
+    sec += [
         ("ts_minmax", np.int64, 2 * p),
         ("sz_minmax", np.int64, 2 * p),
     ]
+    if config.count_alive_keys and not config.compact_alive:
+        sec.append(("alive_slot", np.uint32, b))
+        sec.append(("alive_flag", np.uint8, b))
     mode = hll_wire_mode(config, b)
     if mode == 2:
         sec.append(
@@ -101,7 +134,7 @@ def _sections(config: AnalyzerConfig, batch_size: int,
     elif mode == 1:
         sec.append(("hll_idx", np.uint16, b))
         sec.append(("hll_rho", np.uint8, b))
-    if config.enable_quantiles:
+    if config.wire_format == 5 and config.enable_quantiles:
         q_rows = p if config.quantiles_per_partition else 1
         sec.append(
             ("qcounts", np.int64,
@@ -123,12 +156,13 @@ def hll_table_rows(config: AnalyzerConfig, batch_size: int) -> int:
 def hll_wire_mode(config: AnalyzerConfig, batch_size: int) -> int:
     """The HLL section mode: ``0`` off, ``1`` u16 (bucket, rho) pairs,
     ``2`` register table, ``3`` flat u32 pairs (``partition << p |
-    bucket``) for per-partition registers."""
+    bucket``) for per-partition registers under wire v5, which has no
+    partition column to take the row from."""
     if not config.enable_hll:
         return 0
     if hll_table_rows(config, batch_size):
         return 2
-    if config.distinct_keys_per_partition:
+    if config.wire_format == 5 and config.distinct_keys_per_partition:
         return 3
     return 1
 
@@ -374,13 +408,56 @@ def sz_minmax_table(batch: RecordBatch, n_valid: int,
     return table
 
 
+def _combiner_tables(
+    batch: RecordBatch, n_valid: int, config: AnalyzerConfig
+) -> Dict[str, np.ndarray]:
+    """The wire-v5 combiner reduction: the per-partition delta tables the
+    device would have scattered the batch's records into."""
+    part = batch.partition[:n_valid]
+    kn = ~batch.key_null[:n_valid]
+    vn = ~batch.value_null[:n_valid]
+    k_bytes = np.where(kn, batch.key_len[:n_valid], 0).astype(np.int64)
+    v_bytes = np.where(vn, batch.value_len[:n_valid], 0).astype(np.int64)
+    counts = np.zeros((config.num_partitions, 7), dtype=np.int64)
+    if n_valid:
+        contrib = np.stack(
+            [
+                np.ones(n_valid, dtype=np.int64),
+                (~vn).astype(np.int64),  # tombstones
+                vn.astype(np.int64),     # alive
+                (~kn).astype(np.int64),  # key_null
+                kn.astype(np.int64),     # key_non_null
+                k_bytes,
+                v_bytes,
+            ],
+            axis=1,
+        )
+        np.add.at(counts, part, contrib)
+    out = {"counts": counts.reshape(-1)}
+    if config.enable_quantiles:
+        nb = ddsketch_num_buckets(config.quantile_buckets)
+        q_rows = config.num_partitions if config.quantiles_per_partition else 1
+        qtable = np.zeros(q_rows * nb, dtype=np.int64)
+        if n_valid and vn.any():
+            # Quantiles run over sized (non-tombstone) messages.
+            sizes = (k_bytes + v_bytes)[vn]
+            idx = ddsketch_bucket_numpy(
+                sizes, config.quantile_gamma, config.quantile_buckets
+            )
+            if q_rows > 1:
+                idx = part[vn].astype(np.int64) * nb + idx
+            np.add.at(qtable, idx, 1)
+        out["qcounts"] = qtable
+    return out
+
+
 def pack_batch(
     batch: RecordBatch,
     config: AnalyzerConfig,
     out: "np.ndarray | None" = None,
 ) -> np.ndarray:
-    """RecordBatch → one contiguous wire-v5 ``uint8`` row (the module
-    docstring is the layout).  Valid records must be a prefix of the
+    """RecordBatch → one contiguous ``uint8`` row in the config's wire
+    format (the module docstring is the layout).  Valid records must be a prefix of the
     batch.  ``out`` packs into a caller-provided ``uint8[packed_nbytes]``
     buffer (a pinned staging row); every byte of it is overwritten."""
     b = config.batch_size
@@ -408,6 +485,16 @@ def pack_batch(
         )
     if n and (batch.value_len.min() < 0 or batch.key_len.min() < 0):
         raise ValueError("negative key/value length in record batch")
+    if (
+        config.use_pallas_counters
+        and config.wire_format == 4
+        and batch.value_len.max(initial=0) > MAX_VALUE_LEN
+    ):
+        raise ValueError(
+            f"value length {int(batch.value_len.max())} exceeds the Pallas "
+            f"counter kernel's limit of {MAX_VALUE_LEN} bytes — disable "
+            f"use_pallas_counters for such topics"
+        )
 
     nbytes = packed_nbytes(config, b)
     if out is None:
@@ -424,43 +511,23 @@ def pack_batch(
         ),
         "sz_minmax": sz_minmax_table(batch, n_valid, config.num_partitions),
     }
-    # The combiner reduction: the per-partition delta tables the device
-    # would have scattered the records into.
-    part = batch.partition[:n_valid]
-    kn = ~batch.key_null[:n_valid]
-    vn = ~batch.value_null[:n_valid]
-    k_bytes = np.where(kn, batch.key_len[:n_valid], 0).astype(np.int64)
-    v_bytes = np.where(vn, batch.value_len[:n_valid], 0).astype(np.int64)
-    counts = np.zeros((config.num_partitions, 7), dtype=np.int64)
-    if n_valid:
-        contrib = np.stack(
-            [
-                np.ones(n_valid, dtype=np.int64),
-                (~vn).astype(np.int64),  # tombstones
-                vn.astype(np.int64),     # alive
-                (~kn).astype(np.int64),  # key_null
-                kn.astype(np.int64),     # key_non_null
-                k_bytes,
-                v_bytes,
-            ],
-            axis=1,
+    if config.wire_format == 5:
+        fields.update(_combiner_tables(batch, n_valid, config))
+    else:
+        # Integer columns go in uncast: the section write narrows them
+        # through a typed view (the range checks above make it lossless).
+        fields.update(
+            partition=batch.partition,
+            key_len=batch.key_len,
+            value_len=batch.value_len,
+            flags=(batch.key_null.astype(np.uint8)
+                   | (batch.value_null.astype(np.uint8) << 1)),
         )
-        np.add.at(counts, part, contrib)
-    fields["counts"] = counts.reshape(-1)
-    if config.enable_quantiles:
-        nb = ddsketch_num_buckets(config.quantile_buckets)
-        q_rows = config.num_partitions if config.quantiles_per_partition else 1
-        qtable = np.zeros(q_rows * nb, dtype=np.int64)
-        if n_valid and vn.any():
-            # Quantiles run over sized (non-tombstone) messages.
-            sizes = (k_bytes + v_bytes)[vn]
-            idx = ddsketch_bucket_numpy(
-                sizes, config.quantile_gamma, config.quantile_buckets
-            )
-            if q_rows > 1:
-                idx = part[vn].astype(np.int64) * nb + idx
-            np.add.at(qtable, idx, 1)
-        fields["qcounts"] = qtable
+    if config.count_alive_keys and not config.compact_alive:
+        slots, flags = batch_alive_pairs(batch, config)
+        header[1] = len(slots)
+        fields["alive_slot"] = slots
+        fields["alive_flag"] = flags
     if config.enable_hll:
         active = batch.valid & ~batch.key_null
         idx, rho = hll_idx_rho_numpy(batch.key_hash64, active, config.hll_p)
@@ -510,6 +577,13 @@ def unpack_numpy(buf: np.ndarray, config: AnalyzerConfig) -> Dict[str, np.ndarra
         nbytes = np.dtype(dtype).itemsize * count
         out[name] = buf[pos : pos + nbytes].view(dtype)
         pos += nbytes
+    if config.wire_format == 4:
+        flags = out.pop("flags")
+        out["key_null"] = (flags & 1).astype(bool)
+        out["value_null"] = (flags & 2).astype(bool)
+        out["valid"] = np.arange(config.batch_size, dtype=np.int32) < out["n_valid"]
+        for name in ("partition", "key_len", "value_len"):
+            out[name] = out[name].astype(np.int32)
     return _shape_tables(out, config)
 
 
@@ -529,7 +603,8 @@ def _view(section: torch.Tensor, dtype) -> torch.Tensor:
 
 def _shape_tables(out: dict, config: AnalyzerConfig) -> dict:
     p = config.num_partitions
-    out["counts"] = out["counts"].reshape(p, 7)
+    if "counts" in out:
+        out["counts"] = out["counts"].reshape(p, 7)
     if "qcounts" in out:
         out["qcounts"] = out["qcounts"].reshape(
             -1, ddsketch_num_buckets(config.quantile_buckets)
@@ -543,7 +618,10 @@ def _shape_tables(out: dict, config: AnalyzerConfig) -> dict:
 
 def unpack_device(buf: torch.Tensor, config: AnalyzerConfig) -> dict:
     """``uint8[packed_nbytes]`` tensor → dict of typed tensors on its
-    device (views where aligned)."""
+    device (views where aligned).  Wire-v4 columns come out as the
+    reference's: int32 partition, key and value lengths, bool flags, and
+    ``valid = arange(B) < n_valid`` against the header's device scalar
+    (no device→host sync)."""
     header = _view(buf[:HEADER_BYTES], np.int32)
     out = {"n_valid": header[0], "n_pairs": header[1]}
     pos = HEADER_BYTES
@@ -551,6 +629,16 @@ def unpack_device(buf: torch.Tensor, config: AnalyzerConfig) -> dict:
         nbytes = np.dtype(dtype).itemsize * count
         out[name] = _view(buf[pos : pos + nbytes], dtype)
         pos += nbytes
+    if config.wire_format == 4:
+        flags = out.pop("flags")
+        out["key_null"] = (flags & 1).to(torch.bool)
+        out["value_null"] = (flags & 2).to(torch.bool)
+        out["valid"] = (
+            torch.arange(config.batch_size, device=buf.device) < out["n_valid"]
+        )
+        out["partition"] = out["partition"].to(torch.int32)
+        # The u16 bit pattern read as int16 goes negative from 32 KiB up.
+        out["key_len"] = out["key_len"].to(torch.int32) & 0xFFFF
     return _shape_tables(out, config)
 
 

@@ -1,4 +1,5 @@
-"""The port's wire-v5 packers and unpackers against the reference's.
+"""The port's packers and unpackers (wire v5 with compacted or per-row
+alive pairs, and wire v4) against the reference's.
 
 The same records (from the synthetic generator, which must itself be
 bit-identical across the two packages) go through the reference's numpy
@@ -28,7 +29,8 @@ SPEC = dict(num_partitions=4, messages_per_partition=1300, keys_per_partition=90
             seed=7)
 
 #: Feature combinations: (config kwargs, expected HLL wire mode, expected
-#: alive table mode).  B = 2048 unless given.
+#: alive table mode, None where the pairs ride the row per batch).  B =
+#: 2048 unless given.
 CASES = {
     "hll-table-global_quant-global_masks": (
         dict(enable_hll=True, hll_p=12, enable_quantiles=True,
@@ -44,6 +46,23 @@ CASES = {
     "odd-batch_hll-flat-pairs_quant-pp": (
         dict(batch_size=1001, distinct_keys_per_partition=True, hll_p=10,
              quantiles_per_partition=True, alive_bitmap_bits=24), 3, 1),
+    "v4_hll-pp-pairs_quant-pp": (
+        dict(wire_format=4, distinct_keys_per_partition=True, hll_p=12,
+             quantiles_per_partition=True, alive_bitmap_bits=24), 1, None),
+    "v4_hll-table-global_quant-global": (
+        dict(wire_format=4, enable_hll=True, hll_p=10, enable_quantiles=True,
+             alive_bitmap_bits=20), 2, None),
+    "v4_odd-batch_hll-u16-pairs": (
+        dict(wire_format=4, batch_size=1001, use_pallas_counters=False,
+             enable_hll=True, hll_p=16, alive_bitmap_bits=24), 1, None),
+    "v5-compaction-off_hll-flat-pairs_quant-pp": (
+        dict(alive_compaction="off", distinct_keys_per_partition=True,
+             hll_p=12, quantiles_per_partition=True, alive_bitmap_bits=24),
+        3, None),
+    "v5-compaction-off_odd-batch_hll-table-pp": (
+        dict(alive_compaction="off", batch_size=999,
+             distinct_keys_per_partition=True, hll_p=8,
+             quantiles_per_partition=True, alive_bitmap_bits=32), 2, None),
 }
 
 
@@ -92,13 +111,16 @@ def test_packed_rows_and_pair_tables_are_byte_identical(case):
     cap = packing.pair_table_capacity(cfg, b)
     assert cap == ref_packing.pair_table_capacity(ref_cfg, b, 1)
     assert packing.hll_wire_mode(cfg, b) == ref_packing.hll_wire_mode(ref_cfg, b) == hll_mode
-    assert packing.alive_table_mode(cfg, cap) == alive_mode
+    assert cfg.compact_alive == ref_cfg.compact_alive == (alive_mode is not None)
     assert packing._sections(cfg, b) == ref_packing._sections(ref_cfg, b)
     batches = ref_batches(b) + [RefBatch.empty(0)]  # partial tail, then empty
     for batch in batches:
         row = packing.pack_batch(as_port(batch), cfg)
         ref_row = ref_packing.pack_batch(batch, ref_cfg, use_native=False)
         assert row.tobytes() == ref_row.tobytes()
+        if alive_mode is None:
+            continue  # the pairs rode the row, n_pairs in its header
+        assert packing.alive_table_mode(cfg, cap) == alive_mode
         pairs = [packing.batch_alive_pairs(as_port(batch), cfg)]
         ref_pairs = [ref_packing.batch_alive_pairs(batch, ref_cfg, use_native=False)]
         table, raw, emitted = packing.pack_pair_table(pairs, cfg, cap)
@@ -123,7 +145,7 @@ def test_pair_table_merges_lists_last_writer_wins():
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_device_unpack_matches_reference_host_unpack(case):
-    kwargs, _, _ = CASES[case]
+    kwargs, _, alive_mode = CASES[case]
     ref_cfg, cfg = configs(kwargs)
     cap = packing.pair_table_capacity(cfg, cfg.batch_size)
     batch = ref_batches(cfg.batch_size)[-1]  # the partial tail
@@ -134,6 +156,9 @@ def test_device_unpack_matches_reference_host_unpack(case):
     for name, exp in want.items():
         exp = np.asarray(exp)
         np.testing.assert_array_equal(host(got[name], exp.dtype), exp, err_msg=name)
+    if alive_mode is None:
+        assert int(got["n_pairs"]) > 0 and "alive_slot" in got
+        return
     table, _, _ = packing.pack_pair_table(
         [packing.batch_alive_pairs(as_port(batch), cfg)], cfg, cap
     )
@@ -166,3 +191,46 @@ def test_pack_rejects_what_the_layout_cannot_carry():
     gap = RecordBatch(**{**batch.as_dict(), "valid": np.arange(len(batch)) % 2 == 0})
     with pytest.raises(ValueError, match="prefix-valid"):
         packing.pack_batch(gap, cfg)
+
+
+def test_v4_odd_batch_misaligns_ts_minmax_and_unpack_copies_it():
+    """The v4 columns take 9 B/record, so ``ts_minmax`` is 8-byte aligned
+    only when 9·B is: at B = 1001 it is not, and long keys (u16 past
+    32 KiB, negative as int16) must still unpack to their u16 value."""
+    ref_cfg, cfg = configs(CASES["v4_odd-batch_hll-u16-pairs"][0])
+    offsets, pos = {}, packing.HEADER_BYTES
+    for name, dtype, count in packing._sections(cfg, cfg.batch_size):
+        offsets[name] = pos
+        pos += np.dtype(dtype).itemsize * count
+    assert offsets["ts_minmax"] % 8
+    batch = as_port(ref_batches(cfg.batch_size)[0])
+    batch.key_len[:50] = np.where(batch.key_null[:50], 0, 65535)
+    batch.key_len[50:60] = np.where(batch.key_null[50:60], 0, 40000)
+    row = packing.pack_batch(batch, cfg)
+    got = packing.unpack_device(torch.from_numpy(row), cfg)
+    want = ref_packing.unpack_numpy(row, ref_cfg)
+    np.testing.assert_array_equal(got["key_len"].numpy(), want["key_len"])
+    assert int(got["key_len"].max()) == 65535
+    np.testing.assert_array_equal(got["ts_min"].numpy(), want["ts_min"])
+    assert got["ts_min"].dtype == torch.int64
+
+
+@pytest.mark.parametrize("wire_format, pallas, rejected", [
+    (4, True, True), (4, False, False), (5, True, False),
+])
+def test_value_cap_applies_to_pallas_v4_only_like_the_reference(
+    wire_format, pallas, rejected
+):
+    kw = dict(wire_format=wire_format, use_pallas_counters=pallas,
+              alive_bitmap_bits=20)
+    ref_cfg, cfg = configs(kw)
+    batch = ref_batches(cfg.batch_size)[0]
+    batch.value_len[7] = packing.MAX_VALUE_LEN + 1
+    if rejected:
+        for pack, args in ((packing.pack_batch, (as_port(batch), cfg)),
+                           (ref_packing.pack_batch, (batch, ref_cfg))):
+            with pytest.raises(ValueError, match="exceeds the Pallas counter kernel"):
+                pack(*args)
+    else:
+        assert packing.pack_batch(as_port(batch), cfg).tobytes() == \
+            ref_packing.pack_batch(batch, ref_cfg, use_native=False).tobytes()

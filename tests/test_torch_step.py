@@ -1,7 +1,8 @@
-"""The port's wire-v5 step (``analyzer_step_v5`` + ``apply_pair_table``)
-against the reference's (``analyzer_step`` on v5 rows +
-``apply_pair_table``, with ``use_pallas_counters`` — the Pallas merge
-kernel in interpret mode on the CPU).
+"""The port's step (``analyzer_step`` + ``apply_pair_table``) against the
+reference's (``analyzer_step`` + ``apply_pair_table``, with
+``use_pallas_counters`` — the Pallas merge kernel on v5 rows and the
+Pallas counter kernel on v4 rows, both in interpret mode on the CPU), for
+wire v5 with compacted or per-row alive pairs and for wire v4.
 
 Each case starts both sides from the same non-trivial state: a reference
 state carried into the port with ``state_from_numpy``.  After every batch
@@ -26,7 +27,10 @@ from kafka_topic_analyzer_tpu.models.state import AnalyzerState as RefState
 from kafka_topic_analyzer_tpu.ops.bitmap import bitmap_apply_pairs as ref_apply_pairs
 from kafka_topic_analyzer_tpu.records import RecordBatch as RefBatch
 from kafka_topic_analyzer_tpu_torch import packing
-from kafka_topic_analyzer_tpu_torch.backends.step import analyzer_step_v5, apply_pair_table
+from kafka_topic_analyzer_tpu_torch.backends.step import (
+    analyzer_step as port_analyzer_step,
+    apply_pair_table,
+)
 from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
 from kafka_topic_analyzer_tpu_torch.models.state import (
     AnalyzerState,
@@ -45,6 +49,20 @@ CASES = {
         quantiles_per_partition=True, alive_bitmap_bits=24),
     "odd-batch_hll-u16-pairs": dict(
         batch_size=777, enable_hll=True, hll_p=16, alive_bitmap_bits=24),
+    "v4_hll-pp-pairs_quant-pp": dict(
+        wire_format=4, batch_size=1024, distinct_keys_per_partition=True,
+        hll_p=12, quantiles_per_partition=True, alive_bitmap_bits=24),
+    "v4_hll-table_quant-global": dict(
+        wire_format=4, batch_size=2048, enable_hll=True, hll_p=10,
+        enable_quantiles=True, alive_bitmap_bits=18),
+    "v4_odd-batch_hll-u16-pairs": dict(
+        wire_format=4, batch_size=777, use_pallas_counters=False,
+        enable_hll=True, hll_p=16, quantiles_per_partition=True,
+        alive_bitmap_bits=24),
+    "v5-compaction-off_hll-flat-pairs_quant-pp": dict(
+        alive_compaction="off", batch_size=1024,
+        distinct_keys_per_partition=True, hll_p=12,
+        quantiles_per_partition=True, alive_bitmap_bits=24),
 }
 
 
@@ -79,11 +97,13 @@ def test_v5_step_matches_reference_from_a_carried_state(case):
 
     def ref_step(st, batch):
         row = ref_packing.pack_batch(batch, ref_cfg, use_native=False)
+        st = analyzer_step(st, ref_packing.unpack_device(jnp.asarray(row), ref_cfg), ref_cfg)
+        if not ref_cfg.compact_alive:
+            return st
         pairs, _, _ = ref_packing.pack_pair_table(
             [ref_packing.batch_alive_pairs(batch, ref_cfg, use_native=False)],
             ref_cfg, cap, use_native=False,
         )
-        st = analyzer_step(st, ref_packing.unpack_device(jnp.asarray(row), ref_cfg), ref_cfg)
         return ref_apply_pair_table(
             st, ref_packing.unpack_pair_table_device(jnp.asarray(pairs), ref_cfg, cap),
             ref_cfg,
@@ -92,21 +112,28 @@ def test_v5_step_matches_reference_from_a_carried_state(case):
     ref_state = ref_step(ref_state, batches[0])
     state = state_from_numpy(jax_leaves(ref_state), device="cpu")
     assert_same_leaves(state, ref_state)
+    assert cfg.compact_alive == ref_cfg.compact_alive
     scratch = (
         bitmap_scratch(cfg.alive_bitmap_bits, "cpu")
-        if packing.alive_table_mode(cfg, cap) == 1 else None
+        if not cfg.compact_alive or packing.alive_table_mode(cfg, cap) == 1
+        else None
     )
     for batch in batches[1:] + [RefBatch.empty(0)]:
         port_batch = RecordBatch(**batch.as_dict())
         row = packing.pack_batch(port_batch, cfg)
-        pairs, _, _ = packing.pack_pair_table(
-            [packing.batch_alive_pairs(port_batch, cfg)], cfg, cap
+        port_analyzer_step(
+            state, packing.unpack_device(torch.from_numpy(row), cfg), cfg,
+            scratch=scratch,
         )
-        analyzer_step_v5(state, packing.unpack_device(torch.from_numpy(row), cfg), cfg)
-        apply_pair_table(
-            state, packing.unpack_pair_table_device(torch.from_numpy(pairs), cfg, cap),
-            cfg, scratch=scratch,
-        )
+        if cfg.compact_alive:
+            pairs, _, _ = packing.pack_pair_table(
+                [packing.batch_alive_pairs(port_batch, cfg)], cfg, cap
+            )
+            apply_pair_table(
+                state,
+                packing.unpack_pair_table_device(torch.from_numpy(pairs), cfg, cap),
+                cfg, scratch=scratch,
+            )
         ref_state = ref_step(ref_state, batch)
         assert_same_leaves(state, ref_state)
     if scratch is not None:
