@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # all phases, one card
+    python3 chip_smoke.py    # all phases, one card
 
 Phases, in order; any failure exits non-zero:
 
@@ -10,15 +10,23 @@ Phases, in order; any failure exits non-zero:
   build time and the compiler's register report;
 - kernel: ``counters_merge`` on CUDA against its plain PyTorch version at
   P in {1, 16, 300, 32767}, with 2^32 carries, values at I64_MAX and
-  zeros, exact equality; then its time at the scan's shape (P = 16)
-  beside the plain version, one ``torch.add`` (a yardstick the port never
-  calls) and the bound.  Then ``counters_update`` against its plain
-  version at B = 2^18 with lengths up to 2^24 - 1 and a 10% invalid tail,
-  at P in {1, 16, 300, 877, 4096, 32767} (its shared-memory and its
-  global-atomic paths), exact equality; then its time at the scan's shape
-  (P = 16, B = 2^18, the scan's round-robin partition order) beside the
-  plain version, one ``index_add_`` of a prebuilt ``[B, 7]`` contribution
-  tensor (a yardstick the port never calls) and the bound;
+  zeros, and its global sums (``overall_size``/``overall_count``) started
+  near I64_MAX so they wrap, exact equality.  Then ``counters_update``
+  against its plain version, sums included, at B = 2^18 with lengths up
+  to 2^24 - 1, at P in {1, 16, 300, 877, 4096, 32767} (its shared-memory
+  and its global-atomic paths), in three record orders: random partitions
+  with a 10% invalid tail, the scan's round-robin order, and runs of one
+  partition (what a Kafka fetch delivers); exact equality.  Then each
+  kernel and each yardstick at the scan's shape (P = 16, B = 2^18) gets
+  three times: back to back (CUDA events around calls issued one after
+  the other; where the host is slower than the device, this is the
+  host's rate), on the device (the same with the host ahead of the device
+  behind a spin kernel), and on the host (us per call, no synchronize).
+  The yardsticks, which the port never calls: the plain versions, one
+  ``torch.add``, the chain the fused merge replaces (``torch.add`` and the
+  five launches of the v5 step's global sums), one ``index_add_`` of a
+  prebuilt ``[B, 7]`` contribution tensor, and the two ways to get the
+  current stream's handle;
 - identity: the port's CLI at partitions=4, messages=200000, keys=50000
   with the 2^32-slot alive bitmap: wire v5 and wire v4, each on ``cuda``
   and on ``cpu``, and v5 with ``--alive-compaction off`` on ``cuda``.
@@ -33,7 +41,10 @@ Phases, in order; any failure exits non-zero:
   The two reports must be byte-identical apart from the timing lines.
 
 Prints the card's name and power limit (``nvidia-smi``), a ``kernels``
-JSON line, and as its last line ``{"ok": true, "device": {...}}``.
+JSON line (each kernel's back-to-back ``ms``, ``device_ms`` and
+``host_us`` beside its plain version, its library call and its bound, and
+for ``counters_merge`` the chain's ``chain_ms``), and as its last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ import contextlib
 import io
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -69,8 +81,10 @@ def fail(msg: str) -> "None":
 
 
 def cuda_ms(fn, iters: int, warmup: int = 20) -> float:
-    """Mean device time of ``fn()`` in ms, from CUDA events around
-    ``iters`` back-to-back calls."""
+    """Back-to-back time of ``fn()`` in ms: CUDA events around ``iters``
+    calls issued one after the other.  Where the host takes longer to
+    enqueue a call than the device takes to run it, this is the host's
+    enqueue rate."""
     import torch
 
     for _ in range(warmup):
@@ -84,6 +98,99 @@ def cuda_ms(fn, iters: int, warmup: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fns: dict, calls: dict, reps: int = 7) -> dict:
+    """Host cost of one call of each of ``fns`` (label → fn) in
+    microseconds: the host clock around ``calls[label]`` calls with no
+    synchronize, over the calls.  The functions take turns, ``reps`` times,
+    so that a drift of the shared host's speed falls on all of them; the
+    median of each function's runs."""
+    import torch
+
+    for fn in fns.values():
+        for _ in range(10):
+            fn()
+    runs = {label: [] for label in fns}
+    for _ in range(reps):
+        for label, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls[label]):
+                fn()
+            runs[label].append((time.perf_counter() - t0) * 1e6 / calls[label])
+    torch.cuda.synchronize()
+    return {label: statistics.median(r) for label, r in runs.items()}
+
+
+def device_ms(fn, iters: int) -> "tuple[float, int, int]":
+    """Device time of one call of ``fn()`` in ms, with the host ahead of
+    the device: a spin kernel (``torch.cuda._sleep``) is enqueued first, so
+    the host enqueues the start event, the ``iters`` calls and the end event
+    before the device reaches them; the events then time the kernels and
+    the gaps between them, with no host cost in it.  The spin starts at
+    four times the host's time for the calls (at 2 GHz).  Where the start
+    event has already passed when the host has enqueued everything, the
+    spin was too short or the launch queue was full: the spin is raised
+    fourfold and the calls halved, and said so.  Returns (ms, spin cycles,
+    calls)."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    cycles = int(4 * (time.perf_counter() - t0) * 2e9) + 1_000_000
+    torch.cuda.synchronize()
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()  # the spin had not ended
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters, cycles, iters
+        print(f"time: the spin of {cycles} cycles ended before the host had "
+              f"enqueued {iters} calls; raising it fourfold, halving the calls")
+        cycles *= 4
+        iters = max(2, iters // 2)
+    fail("device_ms: the host never got ahead of the device")
+
+
+def three_times(cases, b2b_iters: int) -> dict:
+    """Back-to-back ms, device ms and host us per call for each case
+    ``(label, fn, launches per call)``; one printed line each.  The device
+    and host runs make at most about 400 launches, well inside the
+    device's queue of pending launches."""
+    out = {}
+    for label, fn, launches in cases:
+        out[label] = t = {"ms": cuda_ms(fn, b2b_iters)}
+        t["device_ms"], t["spin"], t["calls"] = device_ms(
+            fn, max(4, 400 // launches)
+        )
+    hosts = host_us(
+        {label: fn for label, fn, _ in cases},
+        {label: max(10, 400 // launches) for label, _, launches in cases},
+    )
+    for label, t in out.items():
+        t["host_us"] = hosts[label]
+        print(f"time: {label}: back-to-back {t['ms']:.6f} ms, device "
+              f"{t['device_ms']:.6f} ms ({t['calls']} calls behind a spin of "
+              f"{t['spin']} cycles), host {t['host_us']:.3f} us/call")
+    return out
+
+
+def bound(nbytes: int, ops: int) -> "tuple[float, str]":
+    """The least time the card could take (ms) and what sets it."""
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_SIMT_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def merge_tables(p: int, rng):
@@ -101,20 +208,35 @@ def merge_tables(p: int, rng):
     return a, d
 
 
-def phase_kernel(torch, np, counters_merge, counters_merge_plain) -> dict:
+def scalars(torch):
+    """A pair of global-sum scalars on the card, started near I64_MAX so
+    the sums wrap."""
+    i64_max = (1 << 63) - 1
+    return [torch.tensor(i64_max - 12345, dtype=torch.int64, device="cuda")
+            for _ in range(2)]
+
+
+def phase_kernel(torch, np, cm) -> dict:
+    """``counters_merge`` against its plain version, global sums included,
+    then its times at the scan's shape."""
     rng = np.random.default_rng(20261016)
     worst = 0
     for p in (1, 16, 300, 32767):
         a, d = merge_tables(p, rng)
         acc = torch.from_numpy(a).cuda()
         delta = torch.from_numpy(d).cuda()
-        want = counters_merge_plain(acc, delta)
-        got = counters_merge(acc.clone(), delta)
+        want_sums, got_sums = scalars(torch), scalars(torch)
+        want = cm.counters_merge_plain(acc, delta, *want_sums)
+        got = cm.counters_merge(acc.clone(), delta, *got_sums)
         torch.cuda.synchronize()
         err = int((got - want).abs().max().item())
-        print(f"kernel: counters_merge P={p}: max_abs_err={err}")
+        sums = [(int(w), int(g)) for w, g in zip(want_sums, got_sums)]
+        print(f"kernel: counters_merge P={p}: max_abs_err={err}, sums "
+              f"(plain, kernel) {sums}")
         if not torch.equal(got, want):
             fail(f"counters_merge disagrees with its plain version at P={p}")
+        if any(w != g for w, g in sums):
+            fail(f"counters_merge's global sums disagree at P={p}: {sums}")
         worst = max(worst, err)
 
     p = 16  # the scan phase's shape
@@ -122,14 +244,38 @@ def phase_kernel(torch, np, counters_merge, counters_merge_plain) -> dict:
     acc = torch.from_numpy(a).cuda()
     delta = torch.from_numpy(d).cuda()
     out = torch.empty_like(acc)
-    iters = 2000
-    ms = cuda_ms(lambda: counters_merge(acc, delta), iters)
-    plain_ms = cuda_ms(lambda: counters_merge_plain(acc, delta), iters)
-    library_ms = cuda_ms(lambda: torch.add(acc, delta, out=out), iters)
-    nbytes = 3 * 8 * 7 * p
-    ops = 7 * p
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_SIMT_OPS_PER_S * 1e3
+    size, count = scalars(torch)
+    label = "counters_merge+sums"
+
+    def chain():
+        # The PyTorch calls the fused launch replaces: the add and the
+        # v5 step's five launches of global sums.
+        torch.add(acc, delta, out=out)
+        size.add_(torch.sum(delta[:, 5] + delta[:, 6]))
+        count.add_(torch.sum(delta[:, 0]))
+
+    raw = torch._C._cuda_getCurrentRawStream
+    cases = [
+        (label, lambda: cm.counters_merge(acc, delta, overall_size=size,
+                                          overall_count=count), 1),
+        (f"{label} plain",
+         lambda: cm.counters_merge_plain(acc, delta, size, count), 6),
+        ("torch.add", lambda: torch.add(acc, delta, out=out), 1),
+        ("chain: torch.add + 5 sum launches", chain, 6),
+        ("stream handle: torch.cuda.current_stream().cuda_stream",
+         lambda: torch.cuda.current_stream().cuda_stream, 1),
+        ("stream handle: torch._C._cuda_getCurrentRawStream(0)",
+         lambda: raw(0), 1),
+    ]
+    t = three_times([(f"{c[0]} P={p}",) + c[1:] for c in cases], 2000)
+    kernel, plain = t[f"{label} P={p}"], t[f"{label} plain P={p}"]
+    library = t[f"torch.add P={p}"]
+    chain_t = t[f"chain: torch.add + 5 sum launches P={p}"]
+    # Two tables read, one written, two scalars read and written.  One add
+    # per cell, and the sums' three adds per row.
+    nbytes = 3 * 8 * 7 * p + 2 * 2 * 8
+    ops = 7 * p + 3 * p
+    bound_ms, bound_by = bound(nbytes, ops)
     row = {
         "name": "counters_merge",
         "route": "cuda",
@@ -137,32 +283,41 @@ def phase_kernel(torch, np, counters_merge, counters_merge_plain) -> dict:
         "replaces": "kafka_topic_analyzer_tpu/ops/pallas_counters.py:216",
         "launches": 0,
         "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        "ms": kernel["ms"],
+        "plain_ms": plain["ms"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library["ms"],
+        "device_ms": kernel["device_ms"],
+        "host_us": kernel["host_us"],
+        "chain_ms": chain_t["ms"],
     }
     print(
-        f"kernel: counters_merge P={p}: {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-        f"torch.add {library_ms:.6f} ms, bound {row['bound_ms']:.9f} ms "
-        f"({nbytes} B)"
+        f"kernel: {label} P={p}: {kernel['ms']:.6f} ms, plain "
+        f"{plain['ms']:.6f} ms, torch.add {library['ms']:.6f} ms, chain "
+        f"{chain_t['ms']:.6f} ms, bound {bound_ms:.9f} ms ({nbytes} B); host "
+        f"{kernel['host_us']:.3f} us/call against torch.add's "
+        f"{library['host_us']:.3f} ({kernel['host_us'] / library['host_us']:.3f}x)"
     )
     return row
 
 
-def update_inputs(torch, np, p: int, b: int, rng, round_robin: bool = False):
+def update_inputs(torch, np, p: int, b: int, rng, order: str = "random"):
     """The wire-v4 update's inputs on the card: int32 partition, key and
     value lengths (key lengths over the whole u16 range, value lengths up
-    to the reference's 2^24 - 1 cap, some at it), bool flags, and a valid
-    prefix of 90% of the records (an invalid tail) unless ``round_robin``,
-    which gives the scan's own record order and a full batch."""
-    if round_robin:
-        partition = np.arange(b, dtype=np.int32) % p
-        valid = np.ones(b, dtype=bool)
-    else:
+    to the reference's 2^24 - 1 cap, some at it), bool flags.  ``order``:
+    ``random`` partitions with a valid prefix of 90% of the records (an
+    invalid tail); ``round-robin``, the scan's own record order, and
+    ``runs``, runs of one partition as a Kafka fetch delivers them, both
+    with a full batch."""
+    if order == "random":
         partition = rng.integers(0, p, size=b, dtype=np.int32)
         valid = np.arange(b) < (b * 9) // 10
+    else:
+        partition = (
+            np.arange(b) % p if order == "round-robin" else np.arange(b) * p // b
+        ).astype(np.int32)
+        valid = np.ones(b, dtype=bool)
     value_len = rng.integers(0, 1 << 24, size=b, dtype=np.int32)
     value_len[:64] = (1 << 24) - 1
     cols = [
@@ -177,23 +332,40 @@ def update_inputs(torch, np, p: int, b: int, rng, round_robin: bool = False):
     return torch.from_numpy(per).cuda(), [torch.from_numpy(c).cuda() for c in cols]
 
 
-def phase_update_kernel(torch, np, counters_update, counters_update_plain) -> dict:
+ORDERS = ("random", "round-robin", "runs")
+
+
+def phase_update_kernel(torch, np, cu) -> dict:
+    """``counters_update`` against its plain version, global sums included,
+    in every record order, then its times at the scan's shape."""
     rng = np.random.default_rng(20261017)
     b = 1 << 18
     worst = 0
     for p in (1, 16, 300, 877, 4096, 32767):
-        per, cols = update_inputs(torch, np, p, b, rng)
-        want = counters_update_plain(per, *cols, p)
-        got = counters_update(per.clone(), *cols, p)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max().item())
-        print(f"kernel: counters_update P={p} B={b}: max_abs_err={err}")
-        if not torch.equal(got, want):
-            fail(f"counters_update disagrees with its plain version at P={p}")
-        worst = max(worst, err)
+        for order in ORDERS:
+            per, cols = update_inputs(torch, np, p, b, rng, order)
+            want_sums, got_sums = scalars(torch), scalars(torch)
+            want = cu.counters_update_plain(per, *cols, p, *want_sums)
+            got = cu.counters_update(per.clone(), *cols, p, *got_sums)
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max().item())
+            sums = [(int(w), int(g)) for w, g in zip(want_sums, got_sums)]
+            print(f"kernel: counters_update P={p} B={b} {order}: "
+                  f"max_abs_err={err}, sums (plain, kernel) {sums}")
+            if not torch.equal(got, want):
+                fail(f"counters_update disagrees with its plain version at "
+                     f"P={p} in {order} order")
+            if any(w != g for w, g in sums):
+                fail(f"counters_update's global sums disagree at P={p} in "
+                     f"{order} order: {sums}")
+            worst = max(worst, err)
 
     p = 16  # the scan phase's shape and record order
-    per, cols = update_inputs(torch, np, p, b, rng, round_robin=True)
+    size, count = scalars(torch)
+    label = "counters_update+sums"
+    inputs = {order: update_inputs(torch, np, p, b, rng, order)
+              for order in ("round-robin", "runs", "random")}
+    per, cols = inputs["round-robin"]
     partition, key_len, value_len, key_null, value_null, valid = cols
     # The library yardstick: one index_add_ of the prebuilt contributions
     # (what the plain version computes before its add), never called by
@@ -207,18 +379,35 @@ def phase_update_kernel(torch, np, counters_update, counters_update_plain) -> di
     contrib[:, 6] = torch.where(vn, value_len, 0)
     idx = torch.where(valid, partition.to(torch.int64), p)
     acc = torch.zeros((p + 1, 7), dtype=torch.int64, device=per.device)
-    iters = 500
-    ms = cuda_ms(lambda: counters_update(per, *cols, p), iters)
-    plain_ms = cuda_ms(lambda: counters_update_plain(per, *cols, p), iters)
-    library_ms = cuda_ms(lambda: acc.index_add_(0, idx, contrib), iters)
-    _, shuffled = update_inputs(torch, np, p, b, rng)
-    random_ms = cuda_ms(lambda: counters_update(per, *shuffled, p), iters)
-    # Each column read once (three int32, three bool), the table read and
-    # written once; seven integer adds per record.
-    nbytes = b * (3 * 4 + 3 * 1) + 2 * 8 * 7 * p
-    ops = 7 * b
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_SIMT_OPS_PER_S * 1e3
+
+    def kernel_on(order):
+        # Explicit arguments, as the step passes them.
+        per, (c0, c1, c2, c3, c4, c5) = inputs[order]
+        return lambda: cu.counters_update(
+            per, c0, c1, c2, c3, c4, c5, p,
+            overall_size=size, overall_count=count,
+        )
+
+    t = three_times([
+        (f"{label} P={p} B={b} round-robin", kernel_on("round-robin"), 1),
+        (f"{label} P={p} B={b} runs", kernel_on("runs"), 1),
+        (f"{label} P={p} B={b} random", kernel_on("random"), 1),
+        (f"{label} plain P={p} B={b} round-robin",
+         lambda: cu.counters_update_plain(per, *cols, p, size, count), 25),
+        (f"index_add_ of a prebuilt [B, 7] P={p} B={b}",
+         lambda: acc.index_add_(0, idx, contrib), 1),
+    ], 500)
+    times = {order: t[f"{label} P={p} B={b} {order}"]
+             for order in ("round-robin", "runs", "random")}
+    plain = t[f"{label} plain P={p} B={b} round-robin"]
+    library = t[f"index_add_ of a prebuilt [B, 7] P={p} B={b}"]
+    # Each column read once (three int32, three bool), the table and the
+    # two scalars read and written once; seven integer adds per record, and
+    # three more for the sums.
+    nbytes = b * (3 * 4 + 3 * 1) + 2 * 8 * 7 * p + 2 * 2 * 8
+    ops = 7 * b + 3 * b
+    bound_ms, bound_by = bound(nbytes, ops)
+    kernel = times["round-robin"]
     row = {
         "name": "counters_update",
         "route": "cuda",
@@ -226,17 +415,21 @@ def phase_update_kernel(torch, np, counters_update, counters_update_plain) -> di
         "replaces": "kafka_topic_analyzer_tpu/ops/pallas_counters.py:52",
         "launches": 0,
         "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        "ms": kernel["ms"],
+        "plain_ms": plain["ms"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library["ms"],
+        "device_ms": kernel["device_ms"],
+        "host_us": kernel["host_us"],
     }
     print(
-        f"kernel: counters_update P={p} B={b}: {ms:.6f} ms (random partition "
-        f"order {random_ms:.6f} ms), plain {plain_ms:.6f} ms, index_add_ "
-        f"{library_ms:.6f} ms, bound {row['bound_ms']:.9f} ms ({nbytes} B, "
-        f"{ops} adds)"
+        f"kernel: {label} P={p} B={b}: {kernel['ms']:.6f} ms (runs of one "
+        f"partition {times['runs']['ms']:.6f} ms, random order "
+        f"{times['random']['ms']:.6f} ms), plain {plain['ms']:.6f} ms, "
+        f"index_add_ {library['ms']:.6f} ms, bound {bound_ms:.9f} ms ({nbytes} "
+        f"B, {ops} adds); device {kernel['device_ms']:.6f} ms = "
+        f"{bound_ms / kernel['device_ms']:.4f} of the bound"
     )
     return row
 
@@ -424,10 +617,8 @@ def main() -> int:
 
     kernels = {"counters_merge": cm.counters_merge,
                "counters_update": cu.counters_update}
-    merge_row = phase_kernel(torch, np, cm.counters_merge, cm.counters_merge_plain)
-    update_row = phase_update_kernel(
-        torch, np, cu.counters_update, cu.counters_update_plain
-    )
+    merge_row = phase_kernel(torch, np, cm)
+    update_row = phase_update_kernel(torch, np, cu)
     phase_identity(cli.main, kernels)
     merge_row["launches"], v5_report = phase_scan(
         torch, np, cli, kernels, "v5", [], "counters_merge"

@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_loaded: "dict[str, ctypes.CDLL]" = {}
+_loaded: "dict[str, ctypes.PyDLL]" = {}
 
 
 def build_dir() -> Path:
@@ -74,12 +74,14 @@ def build(name: str) -> str:
     return proc.stdout
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if missing."""
+def load(name: str) -> ctypes.PyDLL:
+    """The loaded library of kernel ``name``, built first if missing.  It
+    is loaded as a ``PyDLL``: its calls keep the GIL, which a launch of a
+    few microseconds does not need released and taken again."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             build(name)
-            lib = ctypes.CDLL(str(library_path(name)))
+            lib = ctypes.PyDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib

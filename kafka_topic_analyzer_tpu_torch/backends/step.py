@@ -90,18 +90,18 @@ def analyzer_step_v5(
 ) -> AnalyzerState:
     """Wire-v5 fold of one unpacked batch (`packing.unpack_device`).  The
     counter-table merge always runs through `counters_merge` — the CUDA
-    kernel on a card, its plain version on the host."""
+    kernel on a card, its plain version on the host — and adds the global
+    sums (column sums of the delta table: channels 5/6 are the key/value
+    byte sums, channel 0 the record count) in the same call."""
     m = state.metrics
-    delta = arrays["counts"]  # int64[P, 7], COUNTER_CHANNELS order
-    counters_merge(m.per_partition, delta)
+    counters_merge(
+        m.per_partition, arrays["counts"],  # int64[P, 7], COUNTER_CHANNELS order
+        overall_size=m.overall_size, overall_count=m.overall_count,
+    )
     m.earliest_s, m.latest_s, m.smallest, m.largest = extremes_update(
         m.earliest_s, m.latest_s, m.smallest, m.largest,
         arrays["ts_min"], arrays["ts_max"], arrays["sz_min"], arrays["sz_max"],
     )
-    # Global sums are column sums of the delta table: channels 5/6 are the
-    # key/value byte sums, channel 0 the record count.
-    m.overall_size.add_((delta[:, 5] + delta[:, 6]).sum())
-    m.overall_count.add_(delta[:, 0].sum())
     _apply_alive(state, arrays, config, scratch)
 
     if state.hll is not None:
@@ -131,7 +131,8 @@ def analyzer_step(
     Wire-v5 rows (a ``counts`` table present) take `analyzer_step_v5`;
     wire-v4 rows scatter their record columns here.  The v4 counter
     update always runs through `counters_update` — the CUDA kernel on a
-    card, its plain version on the host.  ``scratch`` is the pair
+    card, its plain version on the host — and adds the global sums in the
+    same call.  ``scratch`` is the pair
     scatter's accumulator (`ops.bitmap.bitmap_scratch`) for per-row
     alive pairs."""
     if "counts" in arrays:
@@ -147,19 +148,12 @@ def analyzer_step(
     counters_update(
         m.per_partition, partition, key_len, value_len, key_null, value_null,
         valid, config.num_partitions,
+        overall_size=m.overall_size, overall_count=m.overall_count,
     )
     m.earliest_s, m.latest_s, m.smallest, m.largest = extremes_update(
         m.earliest_s, m.latest_s, m.smallest, m.largest,
         arrays["ts_min"], arrays["ts_max"], arrays["sz_min"], arrays["sz_max"],
     )
-    kn = valid & ~key_null
-    vn = valid & ~value_null
-    msg_size = (
-        torch.where(kn, key_len, 0).to(torch.int64)
-        + torch.where(vn, value_len, 0).to(torch.int64)
-    )
-    m.overall_size.add_(msg_size.sum())
-    m.overall_count.add_(valid.sum())
     _apply_alive(state, arrays, config, scratch)
 
     if state.hll is not None:
@@ -178,6 +172,12 @@ def analyzer_step(
 
     if state.quantiles is not None:
         # Quantiles run over sized (non-tombstone) messages.
+        kn = valid & ~key_null
+        vn = valid & ~value_null
+        msg_size = (
+            torch.where(kn, key_len, 0).to(torch.int64)
+            + torch.where(vn, value_len, 0).to(torch.int64)
+        )
         ddsketch_update(
             state.quantiles.counts,
             msg_size,

@@ -77,6 +77,95 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(acc, delta, err):
         counters_merge(acc, delta)
 
 
+def jax_step_sums(d, size0, count0):
+    """The JAX step's global sums for one delta table
+    (kafka_topic_analyzer_tpu/backends/step.py:227-228)."""
+    delta = jnp.asarray(d)
+    size = jnp.int64(size0) + jnp.sum(delta[:, 5] + delta[:, 6])
+    count = jnp.int64(count0) + jnp.sum(delta[:, 0])
+    return int(size), int(count)
+
+
+def sum_tables(p: int, seed: int):
+    """`tables` whose byte columns sum past I64_MAX, so the global sums
+    wrap, with starting scalars near the int64 limits."""
+    a, d = tables(p, seed)
+    rng = np.random.default_rng(seed + 1000)
+    d[:, 5] = rng.integers(1 << 61, 1 << 62, size=p)
+    d[:, 6] = I64_MAX - rng.integers(0, 1 << 20, size=p)
+    return a, d, I64_MAX - 5, -(1 << 63) + 7
+
+
+@pytest.mark.parametrize("p", [1, 3, 16, 300])
+def test_plain_and_cpu_wrapper_global_sums_match_jax_step(p):
+    a, d, size0, count0 = sum_tables(p, seed=p)
+    want_table = np.asarray(
+        pallas_counters_merge(jnp.asarray(a), jnp.asarray(d), interpret=True)
+    )
+    want_sums = jax_step_sums(d, size0, count0)
+    size = torch.tensor(size0, dtype=torch.int64)
+    count = torch.tensor(count0, dtype=torch.int64)
+    plain = counters_merge_plain(
+        torch.from_numpy(a), torch.from_numpy(d),
+        overall_size=size, overall_count=count,
+    )
+    np.testing.assert_array_equal(plain.numpy(), want_table)
+    assert (int(size), int(count)) == want_sums
+    acc = torch.from_numpy(a.copy())
+    size = torch.tensor(size0, dtype=torch.int64)
+    count = torch.tensor(count0, dtype=torch.int64)
+    before = counters_merge.launches
+    out = counters_merge(
+        acc, torch.from_numpy(d), overall_size=size, overall_count=count
+    )
+    assert out is acc
+    np.testing.assert_array_equal(acc.numpy(), want_table)
+    assert (int(size), int(count)) == want_sums
+    assert counters_merge.launches == before
+
+
+def test_global_sums_wrap_past_i64_max():
+    d = np.zeros((2, 7), dtype=np.int64)
+    d[:, 5] = I64_MAX
+    d[:, 6] = 1
+    d[:, 0] = 3
+    size = torch.tensor(1, dtype=torch.int64)
+    count = torch.tensor(I64_MAX, dtype=torch.int64)
+    counters_merge(torch.zeros(2, 7, dtype=torch.int64), torch.from_numpy(d),
+                   overall_size=size, overall_count=count)
+    # 1 + 2 * (I64_MAX + 1) = 1 mod 2^64; I64_MAX + 6 wraps negative.
+    assert (int(size), int(count)) == jax_step_sums(d, 1, I64_MAX)
+    assert (int(size), int(count)) == (1, -(1 << 63) + 5)
+
+
+def _scalars():
+    return torch.zeros((), dtype=torch.int64), torch.zeros((), dtype=torch.int64)
+
+
+@pytest.mark.parametrize(
+    "size, count, err",
+    [
+        (torch.zeros((), dtype=torch.int32), torch.zeros((), dtype=torch.int64), TypeError),
+        (torch.zeros((), dtype=torch.int64), torch.zeros((), dtype=torch.float64), TypeError),
+        (torch.zeros(1, dtype=torch.int64), torch.zeros((), dtype=torch.int64), ValueError),
+        (torch.zeros((), dtype=torch.int64), torch.zeros(2, 1, dtype=torch.int64), ValueError),
+        (torch.zeros((), dtype=torch.int64, device="meta"),
+         torch.zeros((), dtype=torch.int64), ValueError),
+        (torch.zeros((), dtype=torch.int64), None, ValueError),
+        (None, torch.zeros((), dtype=torch.int64), ValueError),
+        (0, torch.zeros((), dtype=torch.int64), TypeError),
+    ],
+    ids=["size-dtype", "count-dtype", "size-shape", "count-shape",
+         "size-device", "count-missing", "size-missing", "size-not-a-tensor"],
+)
+def test_wrapper_refuses_a_scalar_the_kernel_does_not_take(size, count, err):
+    acc = torch.zeros(2, 7, dtype=torch.int64)
+    with pytest.raises(err):
+        counters_merge(acc, torch.ones(2, 7, dtype=torch.int64),
+                       overall_size=size, overall_count=count)
+    assert acc.abs().sum() == 0  # refused before any add
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """On a card: the kernel against its plain version at the slice's
@@ -93,3 +182,28 @@ def test_cuda_kernel_matches_plain_version():
         torch.cuda.synchronize()
         assert counters_merge.launches == before + 1
         assert torch.equal(acc, want)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_global_sums_match_plain_version():
+    """On a card: the launch with the global sums against the plain
+    version, one launch per call, sums wrapping past I64_MAX."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    for p in (1, 16, 300, 32767):
+        a, d, size0, count0 = sum_tables(p, seed=p)
+        acc = torch.from_numpy(a).cuda()
+        delta = torch.from_numpy(d).cuda()
+        want_size = torch.tensor(size0, dtype=torch.int64, device="cuda")
+        want_count = torch.tensor(count0, dtype=torch.int64, device="cuda")
+        want = counters_merge_plain(
+            acc, delta, overall_size=want_size, overall_count=want_count
+        )
+        size, count = want_size.new_tensor(size0), want_count.new_tensor(count0)
+        before = counters_merge.launches
+        counters_merge(acc, delta, overall_size=size, overall_count=count)
+        torch.cuda.synchronize()
+        assert counters_merge.launches == before + 1
+        assert torch.equal(acc, want)
+        assert (int(size), int(count)) == (int(want_size), int(want_count))
+        assert (int(size), int(count)) == jax_step_sums(d, size0, count0)

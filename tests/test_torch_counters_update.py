@@ -149,6 +149,90 @@ def test_wrapper_refuses_a_strided_column():
         counters_update(table, strided, *cols[1:], 2)
 
 
+I64_MAX = np.iinfo(np.int64).max
+
+
+def jax_step_sums(cols, size0, count0):
+    """The JAX step's global sums for one batch's columns
+    (kafka_topic_analyzer_tpu/backends/step.py:331-342)."""
+    partition, key_len, value_len, key_null, value_null, valid = ref_args(cols)
+    kn = valid & ~key_null
+    vn = valid & ~value_null
+    k_bytes = jnp.where(kn, key_len, 0).astype(jnp.int64)
+    v_bytes = jnp.where(vn, value_len, 0).astype(jnp.int64)
+    size = jnp.int64(size0) + jnp.sum(k_bytes + v_bytes)
+    count = jnp.int64(count0) + jnp.sum(valid.astype(jnp.int64))
+    return int(size), int(count)
+
+
+def check_port_sums(table, cols, p, want, size0, count0):
+    """The plain version and the CPU wrapper with the global sums: the
+    table as ``want``, the sums as the JAX step's."""
+    want_sums = jax_step_sums(cols, size0, count0)
+    size = torch.tensor(size0, dtype=torch.int64)
+    count = torch.tensor(count0, dtype=torch.int64)
+    plain = counters_update_plain(
+        torch.from_numpy(table), *port_args(cols), p,
+        overall_size=size, overall_count=count,
+    )
+    np.testing.assert_array_equal(plain.numpy(), want)
+    assert (int(size), int(count)) == want_sums
+    acc = torch.from_numpy(table.copy())
+    size = torch.tensor(size0, dtype=torch.int64)
+    count = torch.tensor(count0, dtype=torch.int64)
+    before = counters_update.launches
+    out = counters_update(acc, *port_args(cols), p,
+                          overall_size=size, overall_count=count)
+    assert out is acc
+    np.testing.assert_array_equal(acc.numpy(), want)
+    assert (int(size), int(count)) == want_sums
+    assert counters_update.launches == before
+
+
+@pytest.mark.parametrize("p", [1, 3, 16, 300])
+def test_plain_and_cpu_wrapper_global_sums_match_jax_step(p):
+    table, cols = inputs(4 * BLOCK, p, seed=100 + p, value_max=VALUE_CAP)
+    pallas, _ = references(table, cols, p)
+    check_port_sums(table, cols, p, pallas, 12345, 678)
+
+
+def test_global_sums_wrap_past_i64_max():
+    """Starting scalars near I64_MAX: the key and value bytes and the
+    record count carry past it and wrap, as the JAX int64 sums do."""
+    table, cols = inputs(2 * BLOCK, 5, seed=33, value_max=(1 << 31) - 1,
+                         valid_prefix=1800)
+    want = np.asarray(
+        ref_counters_update(jnp.asarray(table), *ref_args(cols), 5)
+    )
+    check_port_sums(table, cols, 5, want, I64_MAX - 1000, I64_MAX - 10)
+    size, count = jax_step_sums(cols, I64_MAX - 1000, I64_MAX - 10)
+    assert size < 0 and count < 0  # both wrapped
+
+
+@pytest.mark.parametrize(
+    "size, count, err",
+    [
+        (torch.zeros((), dtype=torch.int32), torch.zeros((), dtype=torch.int64), TypeError),
+        (torch.zeros((), dtype=torch.int64), torch.zeros((), dtype=torch.bool), TypeError),
+        (torch.zeros(1, dtype=torch.int64), torch.zeros((), dtype=torch.int64), ValueError),
+        (torch.zeros((), dtype=torch.int64), torch.zeros(3, dtype=torch.int64), ValueError),
+        (torch.zeros((), dtype=torch.int64),
+         torch.zeros((), dtype=torch.int64, device="meta"), ValueError),
+        (torch.zeros((), dtype=torch.int64), None, ValueError),
+        (None, torch.zeros((), dtype=torch.int64), ValueError),
+        (torch.zeros((), dtype=torch.int64), 7, TypeError),
+    ],
+    ids=["size-dtype", "count-dtype", "size-shape", "count-shape",
+         "count-device", "count-missing", "size-missing", "count-not-a-tensor"],
+)
+def test_wrapper_refuses_a_scalar_the_kernel_does_not_take(size, count, err):
+    table, cols = _ok()
+    before = table.clone()
+    with pytest.raises(err):
+        counters_update(table, *cols, 2, overall_size=size, overall_count=count)
+    assert torch.equal(table, before)  # refused before any add
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """On a card: the kernel against its plain version on both of its
@@ -167,3 +251,36 @@ def test_cuda_kernel_matches_plain_version():
         torch.cuda.synchronize()
         assert counters_update.launches == before + 1
         assert torch.equal(acc, want)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_global_sums_match_plain_version():
+    """On a card: the launch with the global sums against the plain
+    version on both paths, in random, round-robin and one-partition-run
+    record orders, sums wrapping past I64_MAX."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    b = 1 << 14
+    for p in (1, 16, 300, 877, 4096, 32767):
+        table, cols = inputs(b, p, seed=p, value_max=VALUE_CAP, valid_prefix=b - 999)
+        for order in ("random", "round-robin", "runs"):
+            if order == "round-robin":
+                cols["partition"] = (np.arange(b) % p).astype(np.int32)
+            elif order == "runs":
+                cols["partition"] = np.sort(cols["partition"])
+            size0, count0 = I64_MAX - 1000, I64_MAX - 10
+            acc = torch.from_numpy(table).cuda()
+            args = [c.cuda() for c in port_args(cols)]
+            want_size = torch.tensor(size0, dtype=torch.int64, device="cuda")
+            want_count = torch.tensor(count0, dtype=torch.int64, device="cuda")
+            want = counters_update_plain(
+                acc, *args, p, overall_size=want_size, overall_count=want_count
+            )
+            size, count = want_size.new_tensor(size0), want_count.new_tensor(count0)
+            before = counters_update.launches
+            counters_update(acc, *args, p, overall_size=size, overall_count=count)
+            torch.cuda.synchronize()
+            assert counters_update.launches == before + 1
+            assert torch.equal(acc, want), (p, order)
+            assert (int(size), int(count)) == (int(want_size), int(want_count))
+            assert (int(size), int(count)) == jax_step_sums(cols, size0, count0)
