@@ -5,9 +5,11 @@
 
 Phases, in order; any failure exits non-zero:
 
-- build: compiles every CUDA kernel of the port from the sources in this
-  checkout (one ``nvcc`` per source, all started together) and prints the
-  build time and the compiler's register report;
+- build: compiles every CUDA kernel of the port and its native ingest
+  shim from the sources in this checkout (one ``nvcc`` per kernel and one
+  ``g++``, all started together), prints each build's time, the
+  compiler's register report, the host's CPU count and the shim's
+  ``native_status()``;
 - kernel: ``counters_merge`` on CUDA against its plain PyTorch version at
   P in {1, 16, 300, 32767}, with 2^32 carries, values at I64_MAX and
   zeros, and its global sums (``overall_size``/``overall_count``) started
@@ -28,23 +30,40 @@ Phases, in order; any failure exits non-zero:
   prebuilt ``[B, 7]`` contribution tensor, and the two ways to get the
   current stream's handle;
 - identity: the port's CLI at partitions=4, messages=200000, keys=50000
-  with the 2^32-slot alive bitmap: wire v5 and wire v4, each on ``cuda``
-  and on ``cpu``, and v5 with ``--alive-compaction off`` on ``cuda``.
-  All five reports must be byte-identical apart from the two timing
-  lines, and each ``cuda`` run must launch its wire format's kernel;
-- scan: the full-size scan (partitions=16, messages=1000000,
+  with the 2^32-slot alive bitmap: the synthetic source in wire v5 and
+  wire v4, each on ``cuda`` and on ``cpu``, and v5 with
+  ``--alive-compaction off`` on ``cuda``, each with ``--native on`` and
+  ``--native off``; then a segment-file dump of the same spec written by
+  the port's ``make_segments``, scanned fused (``--native on``) and
+  chained (``--native off``), in v5 and v4, on ``cuda`` and ``cpu``.
+  All reports must be byte-identical apart from the two timing lines, and
+  each ``cuda`` run must launch its wire format's kernel and not the
+  other;
+- scan: the full-size synthetic scan (partitions=16, messages=1000000,
   keys=3000000: 16M records, 512 MiB alive bitmap, per-partition HLL and
-  quantiles) on ``cuda`` through the CLI's own setup, engine and backend,
-  once in wire v5 and once in wire v4.  Both kernels' launch counters are
-  zeroed just before each scan and read just after: the wire format's
-  kernel must have launched once per dispatch and the other kernel never.
-  The two reports must be byte-identical apart from the timing lines.
+  quantiles) on ``cuda`` with ``--native on``, through the CLI's own
+  setup, engine and backend, once in wire v5 and once in wire v4; then
+  the same spec dumped to ``.ktaseg`` files (480 MB of columns, under
+  ``build/``, deleted at the end) and scanned the same way with
+  ``--source segfile`` (the fused path).  Both kernels' launch counters
+  are zeroed just before each scan and read just after: the wire
+  format's kernel must have launched once per dispatch of the backend
+  and the other kernel never.  The alive-key count of each scan must
+  equal a numpy replay of the spec's records, last writer wins per
+  bitmap slot, in the scan's record order: the synthetic source
+  interleaves the partitions, the segment files come one partition after
+  the other, and keys of different partitions whose 32-bit hashes collide
+  make the two counts differ (by 2 at this size).  All other report lines
+  must be byte-identical across the four scans, timing lines aside.
+  Each scan prints a ``breakdown`` line of its per-dispatch host and
+  device costs.
 
 Prints the card's name and power limit (``nvidia-smi``), a ``kernels``
 JSON line (each kernel's back-to-back ``ms``, ``device_ms`` and
 ``host_us`` beside its plain version, its library call and its bound, and
-for ``counters_merge`` the chain's ``chain_ms``), and as its last line
-``{"ok": true, "device": {...}}``.
+for ``counters_merge`` the chain's ``chain_ms``; ``launches`` counts the
+segment-file scan, this slice's path, and ``launches_by_path`` every
+scan), and as its last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -53,11 +72,14 @@ import contextlib
 import io
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 #: Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the
 #: non-tensor-core fp32 rate as the rate of a CUDA-core integer add.
@@ -73,6 +95,9 @@ SKETCH_FLAGS = [
     "-c", "--distinct-keys-per-partition", "--quantiles-per-partition",
     "--pallas", "--alive-bitmap-bits", str(ALIVE_BITS),
 ]
+#: Segment dumps are written here (``build/`` is ignored by git) and
+#: deleted at the end.
+DUMP_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke_segments"
 
 
 def fail(msg: str) -> "None":
@@ -455,52 +480,118 @@ def zero(kernels) -> None:
         fn.launches = 0
 
 
+def spec_of(text: str):
+    from kafka_topic_analyzer_tpu_torch.cli import parse_kv_pairs
+    from kafka_topic_analyzer_tpu_torch.io.synthetic import SyntheticSpec
+
+    return SyntheticSpec.from_kv(parse_kv_pairs(text))
+
+
+def write_dump(topic: str, spec_text: str) -> str:
+    """A ``.ktaseg`` dump of ``spec_text`` for ``topic``, written by the
+    port's ``make_segments`` with the native shim; returns its
+    directory."""
+    from kafka_topic_analyzer_tpu_torch.tools.make_segments import make_segments
+
+    out = DUMP_ROOT / f"{topic}-{os.getpid()}"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths = make_segments(str(out), topic, spec_of(spec_text), use_native=True)
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    print(f"dump: {spec_text}: {len(paths)} files, {nbytes} B in "
+          f"{time.perf_counter() - t0:.3f} s")
+    return str(out)
+
+
 def phase_identity(main, kernels) -> None:
-    """Five CLI runs of one topic; every report must equal the first
+    """CLI runs of one topic, synthetic and from a segment dump, fused
+    and chained, native on and off; every report must equal the first
     (timing lines aside) and every gpu run must launch its wire format's
     kernel and not the other."""
-    argv = ["-t", "smoke", "--source", "synthetic", "--synthetic",
-            IDENTITY_SPEC, *SKETCH_FLAGS]
-    runs = [
-        ("v5", [], "gpu", "counters_merge"),
-        ("v5", [], "cpu", None),
-        ("v4", ["--wire-format", "v4"], "gpu", "counters_update"),
-        ("v4", ["--wire-format", "v4"], "cpu", None),
-        ("v5 compaction off", ["--alive-compaction", "off"], "gpu",
-         "counters_merge"),
-    ]
+    synthetic = ["-t", "smoke", "--source", "synthetic", "--synthetic",
+                 IDENTITY_SPEC, *SKETCH_FLAGS]
+    dump = write_dump("smoke", IDENTITY_SPEC)
+    segments = ["-t", "smoke", "--source", "segfile", "--segment-dir", dump,
+                *SKETCH_FLAGS]
+    v4 = ["--wire-format", "v4"]
+    runs = []
+    for native in ("on", "off"):
+        nat = ["--native", native]
+        runs += [
+            (f"synthetic v5 native {native}", synthetic + nat, "gpu", "counters_merge"),
+            (f"synthetic v5 native {native}", synthetic + nat, "cpu", None),
+            (f"synthetic v4 native {native}", synthetic + v4 + nat, "gpu",
+             "counters_update"),
+            (f"synthetic v4 native {native}", synthetic + v4 + nat, "cpu", None),
+            (f"synthetic v5 compaction off native {native}",
+             synthetic + ["--alive-compaction", "off"] + nat, "gpu", "counters_merge"),
+        ]
+    for native, path in (("on", "fused"), ("off", "chained")):
+        nat = ["--native", native]
+        runs += [
+            (f"segfile v5 {path}", segments + nat, "gpu", "counters_merge"),
+            (f"segfile v5 {path}", segments + nat, "cpu", None),
+            (f"segfile v4 {path}", segments + v4 + nat, "gpu", "counters_update"),
+            (f"segfile v4 {path}", segments + v4 + nat, "cpu", None),
+        ]
     first = None
-    for label, flags, backend, kernel in runs:
-        zero(kernels)
-        t0 = time.perf_counter()
-        out = drop_timing(run_cli(main, argv + flags + ["--backend", backend]))
-        secs = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in kernels.items()}
-        print(f"identity: {label} on {backend}: {secs:.3f} s, launches {launches}")
-        for name, n in launches.items():
-            if (name == kernel) != (n > 0):
-                fail(f"identity: {label} on {backend} launched {name} {n} times")
-        if first is None:
-            first = out
-        elif out != first:
-            fail(f"identity: the {label} report on {backend} differs from "
-                 f"the v5 gpu report:\n{first}\n{out}")
-    print("identity: v5, v4 and compaction-off reports byte-identical on cuda "
-          "and cpu (timing lines aside)")
+    try:
+        for label, argv, backend, kernel in runs:
+            zero(kernels)
+            t0 = time.perf_counter()
+            out = drop_timing(run_cli(main, argv + ["--backend", backend]))
+            secs = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in kernels.items()}
+            print(f"identity: {label} on {backend}: {secs:.3f} s, launches {launches}")
+            for name, n in launches.items():
+                if (name == kernel) != (n > 0):
+                    fail(f"identity: {label} on {backend} launched {name} {n} times")
+            if first is None:
+                first = out
+            elif out != first:
+                fail(f"identity: the {label} report on {backend} differs from "
+                     f"the synthetic v5 gpu report:\n{first}\n{out}")
+    finally:
+        shutil.rmtree(dump, ignore_errors=True)
+    print(f"identity: {len(runs)} reports byte-identical (synthetic and segfile, "
+          "fused and chained, native on and off, v5, v4 and compaction off, "
+          "cuda and cpu; timing lines aside)")
 
 
-def phase_scan(torch, np, cli, kernels, label, flags, kernel):
+def host_alive_keys(np, spec_text: str, partition_order: bool) -> int:
+    """Alive keys of the spec's records replayed last-writer-wins per
+    2^32-slot bitmap slot (the key's fnv32) with numpy, in the synthetic
+    source's interleaved order or one partition after the other."""
+    from kafka_topic_analyzer_tpu_torch.io.synthetic import SyntheticSource
+
+    src = SyntheticSource(spec_of(spec_text))
+    start_at = {p: 0 for p in src.partitions()} if partition_order else None
+    slots, alive = [], []
+    for b in src.batches(1 << 20, start_at=start_at):
+        keyed = ~b.key_null
+        slots.append(b.key_hash32[keyed])
+        alive.append(~b.value_null[keyed])
+    _, last = np.unique(np.concatenate(slots)[::-1], return_index=True)
+    return int(np.count_nonzero(np.concatenate(alive)[::-1][last]))
+
+
+def drop_alive_keys(report: str) -> str:
+    return "".join(line for line in report.splitlines(keepends=True)
+                   if not line.startswith("Alive keys:"))
+
+
+def phase_scan(torch, np, cli, kernels, label, argv, kernel):
     """One full-size scan on the card; returns (launches of ``kernel``,
-    the report without its timing lines)."""
+    the report without its timing lines, the alive-key count)."""
     from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
     from kafka_topic_analyzer_tpu_torch.engine import run_scan
     from kafka_topic_analyzer_tpu_torch.report import render_report
 
-    argv = ["-t", "scan", "--source", "synthetic", "--synthetic", FULL_SPEC,
-            *SKETCH_FLAGS, *flags, "--backend", "gpu"]
-    args = cli.build_parser().parse_args(argv)
-    source, config = cli.setup(args)
-    backend = TorchBackend(config, device=args.backend)
+    args = cli.build_parser().parse_args(
+        ["-t", "scan", *argv, *SKETCH_FLAGS, "--native", "on", "--backend", "gpu"]
+    )
+    source, config, use_native = cli.setup(args)
+    backend = TorchBackend(config, device=args.backend, use_native=use_native)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero(kernels)
@@ -512,28 +603,28 @@ def phase_scan(torch, np, cli, kernels, label, flags, kernel):
     m = result.metrics
     records = source.total_records()
     words = backend.state.alive.words
-    dispatches = math.ceil(records / config.batch_size)
     print(f"scan {label}: {records} records in {wall:.3f} s = "
-          f"{records / wall:.1f} records/s; {backend.dispatches} dispatches, "
-          f"kernel launches {launches}; max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated()} B")
+          f"{records / wall:.1f} records/s; {backend.dispatches} dispatches "
+          f"(fused rows: {result.fused}), kernel launches {launches}; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
     report = render_report(
         args.topic, m, result.start_offsets, result.end_offsets,
         result.duration_secs, show_alive_keys=True,
     )
     sys.stdout.write(report)
     want = FULL_PARTITIONS * FULL_MESSAGES
-    if m.overall_count != want or records != want:
-        fail(f"scan {label}: overall_count {m.overall_count} != {want}")
+    if m.overall_count != want or records != want or result.records != want:
+        fail(f"scan {label}: overall_count {m.overall_count}, folded "
+             f"{result.records}, expected {want}")
     if any(m.total(p) != FULL_MESSAGES for p in m.partitions):
         fail(f"scan {label}: a partition total is not {FULL_MESSAGES}")
     if words.device.type != "cuda" or words.numel() != 1 << (ALIVE_BITS - 5):
         fail(f"scan {label}: alive bitmap is {words.numel()} words on "
              f"{words.device}")
     n = launches[kernel]
-    if not (n > 0 and n == backend.dispatches == dispatches):
+    if not (n > 0 and n == backend.dispatches):
         fail(f"scan {label}: {n} {kernel} launches for {backend.dispatches} "
-             f"dispatches (expected {dispatches})")
+             "dispatches")
     if any(v for name, v in launches.items() if name != kernel):
         fail(f"scan {label}: launched a kernel of the other wire format: "
              f"{launches}")
@@ -542,41 +633,101 @@ def phase_scan(torch, np, cli, kernels, label, flags, kernel):
         fail(f"scan {label}: alive keys or HLL estimates missing")
     if int(np.sum(m.per_partition[:, 2])) < m.alive_keys:
         fail(f"scan {label}: more alive keys than alive records")
-    breakdown(torch, source, config, wall, backend.dispatches, label)
-    return n, drop_timing(report)
+    breakdown(torch, source, config, wall, backend.dispatches, label, result.fused)
+    return n, drop_timing(report), m.alive_keys
 
 
 def breakdown(torch, source, config, wall: float, dispatches: int,
-              label: str) -> None:
+              label: str, fused: bool) -> None:
     """Per-dispatch cost of each stage of the scan, over the scan's first
-    batches: synthesis and packing on the host clock (mean of 4), the
-    host→device copy and the device fold with CUDA events (on a second
-    backend, so the scan's state is untouched)."""
+    rows: host stages on the host clock (mean of 4), the host→device copy
+    and the device fold with CUDA events (on a second backend, so the
+    scan's state is untouched), after one row or batch of warm-up.  The
+    synthetic scan's host stages are
+    generation and packing (``prepare``: pack, pair table, copy start);
+    the fused segment-file scan's is one: reading the mapped columns and
+    packing them into a row (the pages are in the page cache, written by
+    this run), timed on freshly mapped files and on files already mapped,
+    and under compaction the stage's pair table after it."""
     from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
+    from kafka_topic_analyzer_tpu_torch.engine import PartitionIndex
+    from kafka_topic_analyzer_tpu_torch.packing import FusedPackSink
 
-    backend = TorchBackend(config, device="gpu")
-    batches = source.batches(config.batch_size)
-    synth_s = prepare_s = 0.0
-    for _ in range(4):
-        t0 = time.perf_counter()
-        batch = next(batches)
-        t1 = time.perf_counter()
-        staged = backend.prepare(batch)
-        t2 = time.perf_counter()
-        synth_s += t1 - t0
-        prepare_s += t2 - t1
-    synth_ms, prepare_ms = synth_s * 1e3 / 4, prepare_s * 1e3 / 4
+    backend = TorchBackend(config, device="gpu", use_native=True)
+    b = config.batch_size
+    if fused:
+        from kafka_topic_analyzer_tpu_torch.io.segfile import SegmentFileSource
+
+        dense_of = PartitionIndex(source.partitions()).dense_of
+        times = {}
+        # The scan's own source has its files mapped already; a fresh
+        # source maps them anew, so its reads fault every page in (from
+        # the page cache), as the scan's first pass did.
+        for mapping, src in (("fresh mapping", SegmentFileSource(source.store, source.topic)),
+                             ("mapped", source)):
+            rows = src.batches(b, sink=FusedPackSink(config, b, dense_of))
+            next(rows)
+            t0 = time.perf_counter()
+            for _ in range(4):
+                row = next(rows)
+            times[mapping] = (time.perf_counter() - t0) * 1e3 / 4
+            rows.close()
+        host = "host read+pack " + ", ".join(
+            f"{ms:.3f} ms ({mapping})" for mapping, ms in times.items())
+        if config.compact_alive:
+            # What the stage callback adds on the worker: the row's pairs
+            # merged into the slot's pair table.
+            from kafka_topic_analyzer_tpu_torch.packing import pack_pair_table
+
+            t0 = time.perf_counter()
+            for _ in range(4):
+                pack_pair_table([row.pairs], config, backend._pair_cap, use_native=True)
+            host += (f", pair table {(time.perf_counter() - t0) * 1e3 / 4:.3f} ms "
+                     f"({len(row.pairs[0])} pairs)")
+        staged_rows = source.batches(b, sink=backend.make_fused_sink(dense_of))
+        staged = next(staged_rows).staged
+        staged_rows.close()
+    else:
+        batches = source.batches(b)
+        backend.prepare(next(batches))
+        synth_s = prepare_s = 0.0
+        for _ in range(4):
+            t0 = time.perf_counter()
+            batch = next(batches)
+            t1 = time.perf_counter()
+            staged = backend.prepare(batch)
+            synth_s += t1 - t0
+            prepare_s += time.perf_counter() - t1
+        host = (f"host synth {synth_s * 1e3 / 4:.3f} ms, host pack "
+                f"{prepare_s * 1e3 / 4:.3f} ms")
+        if config.compact_alive:
+            # The pack's two halves on the same batch: the row, and the
+            # dedupe + pair table.
+            from kafka_topic_analyzer_tpu_torch.packing import (
+                batch_alive_pairs,
+                pack_batch,
+                pack_pair_table,
+            )
+
+            t0 = time.perf_counter()
+            for _ in range(4):
+                pack_batch(batch, config, use_native=True)
+            t1 = time.perf_counter()
+            for _ in range(4):
+                pack_pair_table([batch_alive_pairs(batch, config, True)], config,
+                                backend._pair_cap, use_native=True)
+            host += (f" (row {(t1 - t0) * 1e3 / 4:.3f} ms, dedupe + pair table "
+                     f"{(time.perf_counter() - t1) * 1e3 / 4:.3f} ms)")
     torch.cuda.synchronize()
-    host = backend._ring[0]
-    dev = torch.empty_like(host, device="cuda")
-    copy_ms = cuda_ms(lambda: dev.copy_(host, non_blocking=True), 20, 2)
+    slot = backend._ring[0]
+    dev = torch.empty_like(slot, device="cuda")
+    copy_ms = cuda_ms(lambda: dev.copy_(slot, non_blocking=True), 20, 2)
     fold_ms = cuda_ms(lambda: backend.update(staged), 20, 2)
     per_dispatch_ms = wall * 1e3 / dispatches
     print(
-        f"breakdown {label}: per dispatch of {config.batch_size} records: wall "
-        f"{per_dispatch_ms:.3f} ms; host synth {synth_ms:.3f} ms, host pack "
-        f"{prepare_ms:.3f} ms; device copy {copy_ms:.3f} ms "
-        f"({host.numel()} B), device fold {fold_ms:.3f} ms; device busy "
+        f"breakdown {label}: per dispatch of {b} records: wall "
+        f"{per_dispatch_ms:.3f} ms; {host}; device copy {copy_ms:.3f} ms "
+        f"({slot.numel()} B), device fold {fold_ms:.3f} ms; device busy "
         f"share ~{(copy_ms + fold_ms) / per_dispatch_ms:.4f}"
     )
 
@@ -591,6 +742,7 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     try:
         from kafka_topic_analyzer_tpu_torch import _build, cli
+        from kafka_topic_analyzer_tpu_torch.io import native
         from kafka_topic_analyzer_tpu_torch.ops import counters_merge as cm
         from kafka_topic_analyzer_tpu_torch.ops import counters_update as cu
     except ImportError as e:
@@ -603,32 +755,73 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda} numpy "
           f"{np.__version__} python {sys.version.split()[0]}; device "
-          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+          f"host os.cpu_count() {os.cpu_count()}")
+
+    def timed(build, *args):
+        t = time.perf_counter()
+        log = build(*args)
+        return log, time.perf_counter() - t
 
     t0 = time.perf_counter()
-    names = list(_build.KERNEL_SOURCES)
-    with ThreadPoolExecutor(len(names)) as pool:
-        logs = dict(zip(names, pool.map(_build.build, names)))
-    print(f"build: {time.perf_counter() - t0:.3f} s for {len(logs)} kernel(s)")
-    for name, log in logs.items():
+    jobs = {name: (_build.build, name) for name in _build.KERNEL_SOURCES}
+    jobs["native ingest shim (g++)"] = (_build.build_native,)
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {name: pool.submit(timed, *job) for name, job in jobs.items()}
+        built = {name: f.result() for name, f in futures.items()}
+    print(f"build: {time.perf_counter() - t0:.3f} s for {len(built)} libraries, "
+          "started together")
+    for name, (log, secs) in built.items():
+        print(f"build: {name}: {secs:.3f} s")
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}")
+    native.load_library()
+    print(f"build: native_status() {native.native_status()}, "
+          f"{_build.native_library_path()}")
 
     kernels = {"counters_merge": cm.counters_merge,
                "counters_update": cu.counters_update}
     merge_row = phase_kernel(torch, np, cm)
     update_row = phase_update_kernel(torch, np, cu)
     phase_identity(cli.main, kernels)
-    merge_row["launches"], v5_report = phase_scan(
-        torch, np, cli, kernels, "v5", [], "counters_merge"
-    )
-    update_row["launches"], v4_report = phase_scan(
-        torch, np, cli, kernels, "v4", ["--wire-format", "v4"], "counters_update"
-    )
-    if v4_report != v5_report:
-        fail("scan: the v4 and v5 reports differ (timing lines aside)")
-    print("scan: v4 and v5 reports byte-identical (timing lines aside)")
+    synthetic = ["--source", "synthetic", "--synthetic", FULL_SPEC]
+    v4 = ["--wire-format", "v4"]
+    launches = {"counters_merge": {}, "counters_update": {}}
+    reports, alive = {}, {}
+    for label, argv, kernel in (("v5", synthetic, "counters_merge"),
+                                ("v4", synthetic + v4, "counters_update")):
+        launches[kernel]["synthetic"], reports[label], alive[label] = phase_scan(
+            torch, np, cli, kernels, label, argv, kernel)
+    dump = write_dump("scan", FULL_SPEC)
+    try:
+        segments = ["--source", "segfile", "--segment-dir", dump]
+        for label, argv, kernel in (("segfile v5", segments, "counters_merge"),
+                                    ("segfile v4", segments + v4, "counters_update")):
+            launches[kernel]["segfile"], reports[label], alive[label] = phase_scan(
+                torch, np, cli, kernels, label, argv, kernel)
+    finally:
+        shutil.rmtree(dump, ignore_errors=True)
+    t0 = time.perf_counter()
+    want = {order: host_alive_keys(np, FULL_SPEC, order == "partition")
+            for order in ("interleaved", "partition")}
+    print(f"scan: numpy last-writer-wins replay of the {FULL_SPEC} records: "
+          f"{want['interleaved']} alive keys interleaved, {want['partition']} "
+          f"one partition after the other ({time.perf_counter() - t0:.3f} s)")
+    for label, report in reports.items():
+        order = "partition" if label.startswith("segfile") else "interleaved"
+        if alive[label] != want[order]:
+            fail(f"scan {label}: {alive[label]} alive keys, the {order} replay "
+                 f"{want[order]}")
+        if drop_alive_keys(report) != drop_alive_keys(reports["v5"]):
+            fail(f"scan: the {label} report differs from the synthetic v5 "
+                 "report beyond the alive keys (timing lines aside)")
+    print("scan: alive keys equal the replay in each scan's order; every other "
+          "report line byte-identical across synthetic and segfile, v5 and v4 "
+          "(timing lines aside)")
+    for row in (merge_row, update_row):
+        row["launches"] = launches[row["name"]]["segfile"]
+        row["launches_by_path"] = launches[row["name"]]
     print(json.dumps({"kernels": [merge_row, update_row]}))
     print(json.dumps({
         "ok": True,

@@ -1,16 +1,22 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's native code.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface,
+Each CUDA kernel is one ``csrc/<name>.cu`` file with a plain C interface,
 compiled by ``nvcc`` (found on ``PATH``) for Hopper (``sm_90a``) into a
-shared library and loaded with ``ctypes``.  Libraries are built at first
-use from the sources in the package, into ``build/torch_kernels/`` beside
-the package (listed in ``.gitignore``), named by a hash of their source so
-an edited kernel is never served from a stale build.
+shared library and loaded with ``ctypes``.  The host ingest shim,
+``native/ingest.cpp``, is compiled by ``g++`` (found on ``PATH``) with the
+flags of the reference's ``native/Makefile``; ``io/native.py`` loads it.
+Libraries are built at first use from the sources in the package, into
+``build/torch_kernels/`` and ``build/torch_native/`` beside the package
+(both under ``build/``, listed in ``.gitignore``), named by a hash of
+their source and flags so an edited source is never served from a stale
+build.  A build writes a temporary file and renames it into place, so
+processes building at once never load a half-written library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -29,6 +35,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: The ingest shim's source, relative to the package, and its g++ flags.
+NATIVE_SOURCE = "native/ingest.cpp"
+GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-shared", "-pthread")
+
 _lock = threading.Lock()
 _loaded: "dict[str, ctypes.PyDLL]" = {}
 
@@ -43,35 +53,85 @@ def library_path(name: str) -> Path:
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> str:
-    """Build kernel ``name``'s library if it is missing; returns the
-    compiler output (``-Xptxas -v`` register and spill report; empty for a
-    library already built).  Raises if ``nvcc`` is absent or fails."""
-    out = library_path(name)
+class BuildError(RuntimeError):
+    """A compiler is missing or failed."""
+
+
+def _compile(compiler: str, flags, src: Path, out: Path, what: str) -> str:
+    """Compile ``src`` into ``out`` unless it exists; returns the
+    compiler's output (empty for a library already built).  Writes a file
+    named for this process and thread, then renames it into place."""
     if out.exists():
         return ""
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        raise RuntimeError(
-            "nvcc not found on PATH: the CUDA kernels are built from source "
-            "at first use"
+    exe = shutil.which(compiler)
+    if exe is None:
+        raise BuildError(
+            f"{compiler} not found on PATH: {what} is built from source at "
+            "first use"
         )
-    build_dir().mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     try:
         proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_PKG / KERNEL_SOURCES[name])],
+            [exe, *flags, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"CUDA kernel build failed: {name} (nvcc exit "
-                f"{proc.returncode}):\n{proc.stdout}"
+            raise BuildError(
+                f"{what} build failed ({compiler} exit {proc.returncode}):"
+                f"\n{proc.stdout}"
             )
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
     return proc.stdout
+
+
+def build(name: str) -> str:
+    """Build kernel ``name``'s library if it is missing; returns the
+    compiler output (``-Xptxas -v`` register and spill report; empty for a
+    library already built).  Raises `BuildError` if ``nvcc`` is absent or
+    fails."""
+    return _compile("nvcc", NVCC_FLAGS, _PKG / KERNEL_SOURCES[name],
+                    library_path(name), f"CUDA kernel {name}")
+
+
+def native_build_dir() -> Path:
+    return _PKG.parent / "build" / "torch_native"
+
+
+@functools.lru_cache(maxsize=1)
+def _native_target() -> bytes:
+    """What ``-march=native`` selects on this host (g++'s resolved target
+    options; empty without g++, when no build can exist), so a build
+    directory carried to another CPU rebuilds instead of loading code
+    that may use instructions this CPU lacks."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return b""
+    return subprocess.run(
+        [gxx, "-march=native", "-Q", "--help=target"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+    ).stdout
+
+
+def native_library_path() -> Path:
+    """The ingest shim's library, named by a hash of its source, its flags
+    and the host's native target, and under a file name of its own (not
+    the reference shim's), so ``dlopen`` never hands back the reference's
+    copy when both are loaded in one process."""
+    src = (_PKG / NATIVE_SOURCE).read_bytes()
+    digest = hashlib.sha256(
+        src + " ".join(GXX_FLAGS).encode() + _native_target()
+    ).hexdigest()
+    return native_build_dir() / f"libkta_ingest_torch-{digest[:16]}.so"
+
+
+def build_native() -> str:
+    """Build the ingest shim if it is missing; returns g++'s output.
+    Raises `BuildError` if ``g++`` is absent or fails."""
+    return _compile("g++", GXX_FLAGS, _PKG / NATIVE_SOURCE,
+                    native_library_path(), "the native ingest shim")
 
 
 def load(name: str) -> ctypes.PyDLL:

@@ -5,19 +5,31 @@ Per batch:
 - `prepare` packs the row (wire v5 or v4, per-row alive pairs inside it
   when compaction is off) and, under compaction, the batch's compacted
   alive-pair table straight into a pinned host buffer and starts ONE
-  asynchronous host→device copy of both;
+  asynchronous host→device copy of both (numpy packers, or the native
+  shim with ``use_native``);
+- `make_fused_sink` gives a `packing.FusedPackSink` whose rows are packed
+  straight into the same pinned slots; a completed row (and, under
+  compaction, its pairs packed into the slot's pair region) leaves
+  through the same single copy;
 - `update` views the device bytes as typed tensors and folds them into the
   state (backends/step.py), launching the counter kernel of the row's wire
   format on CUDA (`counters_merge` for v5, `counters_update` for v4).
 
 Nothing synchronizes until `finalize`, so packing the next batch overlaps
-the device's work on this one.  Pinned buffers form a small ring; a slot
-is refilled only after the CUDA event recorded behind its last copy has
-completed.  A one-time pack→unpack self-check at construction holds the
-device-side byte views against the host layout.
+the device's work on this one, on the main thread or on a prefetch
+worker (engine.py): `prepare` and the sink may run on one thread while
+`update` runs on another.  The copy, its event and the fold all run on
+the stream the backend holds (``self.stream``, the creating thread's
+current stream), whichever thread issues them.  Pinned buffers form a
+ring sized from the prefetch depth; a slot is refilled only after the
+CUDA event recorded behind its last copy has completed.  A one-time
+pack→unpack self-check at construction holds the device-side byte views
+against the host layout.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -32,6 +44,7 @@ from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
 from kafka_topic_analyzer_tpu_torch.models.state import AnalyzerState, state_to_numpy
 from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_scratch
 from kafka_topic_analyzer_tpu_torch.packing import (
+    FusedPackSink,
     alive_table_mode,
     batch_alive_pairs,
     pack_batch,
@@ -48,9 +61,13 @@ from kafka_topic_analyzer_tpu_torch.records import RecordBatch
 from kafka_topic_analyzer_tpu_torch.results import TopicMetrics
 from kafka_topic_analyzer_tpu_torch.utils.timefmt import utc_now_seconds
 
-#: Pinned staging buffers per backend: one being filled, up to two copies
-#: in flight behind it.
-RING_SLOTS = 3
+def ring_slots(prefetch_depth: int) -> int:
+    """Pinned staging slots for a prefetch depth: the item being folded,
+    ``depth`` queued behind it and the one the worker holds or fills (at
+    least 3: one filled, two copies in flight).  A slot whose copy is
+    still in flight is waited for, never overwritten, so a short ring only
+    stalls the producer."""
+    return max(3, prefetch_depth + 2)
 
 
 class StagedBatch:
@@ -149,9 +166,17 @@ class TorchBackend:
         config: AnalyzerConfig,
         init_now_s: "int | None" = None,
         device: "str | torch.device | None" = None,
+        use_native: bool = False,
+        prefetch_depth: int = 2,
     ):
         self.config = config
         self.device = resolve_device(device)
+        #: Pack through the native shim when it loads (``--native``).
+        self.use_native = use_native
+        self.stream = (
+            torch.cuda.current_stream(self.device)
+            if self.device.type == "cuda" else None
+        )
         self.init_now_s = utc_now_seconds() if init_now_s is None else init_now_s
         self_check_unpack(self.device)
         self.state = AnalyzerState.init(config, self.device)
@@ -176,37 +201,83 @@ class TorchBackend:
         pin = self.device.type == "cuda"
         self._ring = [
             torch.empty(self._nbytes, dtype=torch.uint8, pin_memory=pin)
-            for _ in range(RING_SLOTS)
+            for _ in range(ring_slots(prefetch_depth))
         ]
-        self._events: "list[torch.cuda.Event | None]" = [None] * RING_SLOTS
+        self._ring_np = [host.numpy() for host in self._ring]
+        self._events: "list[torch.cuda.Event | None]" = [None] * len(self._ring)
         self._next = 0
         #: Batches folded into the state (one dispatch each at K=1).
         self.dispatches = 0
 
-    def prepare(self, batch: RecordBatch) -> StagedBatch:
-        """Pack a batch into the next pinned staging slot and start its
-        copy to the device."""
+    def _on_stream(self):
+        """Make the backend's stream current on the calling thread."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def _claim_slot(self) -> int:
+        """The next pinned slot, once its last copy has completed."""
         slot = self._next
-        self._next = (slot + 1) % RING_SLOTS
+        self._next = (slot + 1) % len(self._ring)
         if self._events[slot] is not None:
-            self._events[slot].synchronize()  # the slot's last copy is done
-        host = self._ring[slot]
-        host_np = host.numpy()
-        pack_batch(batch, self.config, out=host_np[: self._row_nbytes])
-        if self.config.compact_alive:
-            pack_pair_table(
-                [batch_alive_pairs(batch, self.config)], self.config,
-                self._pair_cap, out=host_np[self._pair_off :],
-            )
-        dev = torch.empty(self._nbytes, dtype=torch.uint8, device=self.device)
-        dev.copy_(host, non_blocking=True)
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-            self._events[slot] = event
+            self._events[slot].synchronize()
+        return slot
+
+    def _send(self, slot: int) -> StagedBatch:
+        """Start the one asynchronous copy of a filled slot to the device,
+        and record the event that frees the slot."""
+        with self._on_stream():
+            dev = torch.empty(self._nbytes, dtype=torch.uint8, device=self.device)
+            dev.copy_(self._ring[slot], non_blocking=True)
+            if self.stream is not None:
+                event = torch.cuda.Event()
+                event.record(self.stream)
+                self._events[slot] = event
         return StagedBatch(
             dev[: self._row_nbytes],
             dev[self._pair_off :] if self.config.compact_alive else None,
+        )
+
+    def _pack_pairs(self, pairs, slot: int) -> None:
+        """Pack one dispatch's compacted pair table into ``slot``'s pair
+        region."""
+        pack_pair_table(
+            [pairs], self.config, self._pair_cap, use_native=self.use_native,
+            out=self._ring_np[slot][self._pair_off :],
+        )
+
+    def prepare(self, batch: RecordBatch) -> StagedBatch:
+        """Pack a batch into the next pinned staging slot and start its
+        copy to the device."""
+        slot = self._claim_slot()
+        pack_batch(
+            batch, self.config, use_native=self.use_native,
+            out=self._ring_np[slot][: self._row_nbytes],
+        )
+        if self.config.compact_alive:
+            self._pack_pairs(
+                batch_alive_pairs(batch, self.config, self.use_native), slot
+            )
+        return self._send(slot)
+
+    def make_fused_sink(self, dense_of) -> FusedPackSink:
+        """A sink whose rows are packed straight into the pinned slots and
+        come out staged exactly like `prepare`'s (call only when the
+        native shim is loaded; one sink per ingest stream)."""
+        ptrs = [host.ctypes.data for host in self._ring_np]
+
+        def alloc() -> np.ndarray:
+            return self._ring_np[self._claim_slot()][: self._row_nbytes]
+
+        def stage(row: np.ndarray, pairs=None) -> StagedBatch:
+            slot = ptrs.index(row.ctypes.data)
+            if self.config.compact_alive:
+                self._pack_pairs(pairs, slot)
+            return self._send(slot)
+
+        return FusedPackSink(
+            self.config, self.config.batch_size, dense_of,
+            stage=stage, alloc=alloc,
         )
 
     def update(self, batch: "RecordBatch | StagedBatch") -> None:
@@ -214,17 +285,18 @@ class TorchBackend:
         state.  Asynchronous on CUDA."""
         if isinstance(batch, RecordBatch):
             batch = self.prepare(batch)
-        analyzer_step(
-            self.state, unpack_device(batch.row, self.config), self.config,
-            scratch=self._scratch,
-        )
-        if batch.pairs is not None:
-            apply_pair_table(
-                self.state,
-                unpack_pair_table_device(batch.pairs, self.config, self._pair_cap),
-                self.config,
+        with self._on_stream():
+            analyzer_step(
+                self.state, unpack_device(batch.row, self.config), self.config,
                 scratch=self._scratch,
             )
+            if batch.pairs is not None:
+                apply_pair_table(
+                    self.state,
+                    unpack_pair_table_device(batch.pairs, self.config, self._pair_cap),
+                    self.config,
+                    scratch=self._scratch,
+                )
         self.dispatches += 1
 
     def get_state(self) -> AnalyzerState:
@@ -233,6 +305,6 @@ class TorchBackend:
     def finalize(self) -> TopicMetrics:
         """Copy the state to the host (waiting for the device) and derive
         the metrics there."""
-        return metrics_from_state(
-            state_to_numpy(self.state), self.config, self.init_now_s
-        )
+        with self._on_stream():
+            leaves = state_to_numpy(self.state)
+        return metrics_from_state(leaves, self.config, self.init_now_s)

@@ -1,17 +1,22 @@
-"""Command line of the port: the synthetic batch scan (port of the
-reference's ``cli.py``, the flags of the ported scan paths).
+"""Command line of the port: the synthetic and segment-file batch scans
+(port of the reference's ``cli.py``, the flags of the ported scan paths).
 
-    python -m kafka_topic_analyzer_tpu_torch -t T --source synthetic \\
-        --synthetic SPEC -c --distinct-keys-per-partition \\
+    python -m kafka_topic_analyzer_tpu_torch -t T \\
+        (--source synthetic --synthetic SPEC | --source segfile \\
+         --segment-dir DIR) -c --distinct-keys-per-partition \\
         --quantiles-per-partition --pallas [--batch-size B] \\
         [--alive-bitmap-bits N] [--wire-format auto|v4|v5] \\
-        [--alive-compaction auto|off] [--backend gpu|cpu]
+        [--alive-compaction auto|off] [--native auto|on|off] \\
+        [--backend gpu|cpu]
 
 Prints the same report bytes as the reference CLI for the same inputs
 (apart from the two timing lines).  ``--backend gpu`` (the default) runs
 on the first CUDA device and fails when there is none; ``--backend cpu``
-runs the same code on the host.  An empty topic exits 254, the
-reference's ``exit(-2)``.
+runs the same code on the host.  ``--native`` chooses the native ingest
+shim: ``auto`` (the default) uses it when it builds and falls back to
+numpy otherwise, ``on`` raises when it cannot be built, ``off`` runs
+numpy only (and so the chained, not the fused, segment-file path).  An
+empty topic exits 254, the reference's ``exit(-2)``.
 """
 
 from __future__ import annotations
@@ -24,6 +29,10 @@ from kafka_topic_analyzer_tpu_torch import __version__
 from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
 from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
 from kafka_topic_analyzer_tpu_torch.engine import run_scan
+from kafka_topic_analyzer_tpu_torch.io import native
+from kafka_topic_analyzer_tpu_torch.io.kafka_codec import KafkaProtocolError
+from kafka_topic_analyzer_tpu_torch.io.segfile import SegmentFileSource
+from kafka_topic_analyzer_tpu_torch.io.source import RecordSource
 from kafka_topic_analyzer_tpu_torch.io.synthetic import SyntheticSource, SyntheticSpec
 from kafka_topic_analyzer_tpu_torch.report import render_report
 
@@ -59,12 +68,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", choices=["gpu", "cpu"], default="gpu",
                    help="Device the scan runs on: the first CUDA device "
                         "(gpu) or the host (cpu). Default: gpu")
-    p.add_argument("--source", choices=["synthetic"], default="synthetic",
-                   help="Record source (only 'synthetic' is ported)")
+    p.add_argument("--source", choices=["synthetic", "segfile"],
+                   default="synthetic",
+                   help="Record source: a synthetic topic, or .ktaseg "
+                        "segment dumps (the Kafka wire source is not yet "
+                        "ported)")
     p.add_argument("--synthetic", metavar="SPEC",
                    help="Synthetic workload spec, comma separated k=v: "
                         "partitions,messages,keys,key_null,tombstones,vmin,"
                         "vmax,seed")
+    p.add_argument("--segment-dir", metavar="DIR",
+                   help="Local directory (or file://DIR) of .ktaseg dumps "
+                        "(--source segfile); remote stores are not yet "
+                        "ported")
     p.add_argument("--batch-size", type=int, default=1 << 18,
                    help="Records per device step")
     p.add_argument("--alive-bitmap-bits", type=int, default=32,
@@ -95,6 +111,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "only). 'auto' (default) compacts whenever -c runs "
                         "under v5; 'off' keeps the per-row pair sections. "
                         "Results are byte-identical either way")
+    p.add_argument("--native", choices=["auto", "on", "off"], default="auto",
+                   help="Use the native C++ ingest shim when available "
+                        "(auto), always (on: fail if it cannot be built) "
+                        "or never (off)")
     return p
 
 
@@ -104,10 +124,35 @@ def resolve_wire_format(args) -> int:
     return {"auto": 0, "v4": 4, "v5": 5}[args.wire_format]
 
 
-def setup(args) -> "tuple[SyntheticSource, AnalyzerConfig]":
-    """Source and config from parsed flags; raises ValueError on a bad
-    flag value."""
-    source = SyntheticSource(SyntheticSpec.from_kv(parse_kv_pairs(args.synthetic)))
+def resolve_native(args) -> bool:
+    """--native → whether to use the shim: ``on`` loads it or raises,
+    ``auto`` uses it when it loads."""
+    if args.native == "on":
+        native.load_library()
+        return True
+    return args.native == "auto" and native.native_available()
+
+
+def make_source(args, use_native: bool) -> RecordSource:
+    if args.source == "segfile":
+        if not args.segment_dir:
+            raise SystemExit(
+                "--source segfile requires --segment-dir (a local "
+                "directory of .ktaseg dumps, or a remote store spec like "
+                "http(s)://host:port/bucket or s3://bucket/prefix)"
+            )
+        return SegmentFileSource(args.segment_dir, topic=args.topic)
+    spec = SyntheticSpec.from_kv(parse_kv_pairs(args.synthetic))
+    if use_native:
+        return native.NativeSyntheticSource(spec)
+    return SyntheticSource(spec)
+
+
+def setup(args) -> "tuple[RecordSource, AnalyzerConfig, bool]":
+    """Source, config and the resolved ``--native`` from parsed flags;
+    raises ValueError on a bad flag value."""
+    use_native = resolve_native(args)
+    source = make_source(args, use_native)
     config = AnalyzerConfig(
         num_partitions=len(source.partitions()),
         batch_size=args.batch_size,
@@ -119,14 +164,14 @@ def setup(args) -> "tuple[SyntheticSource, AnalyzerConfig]":
         wire_format=resolve_wire_format(args),
         alive_compaction=args.alive_compaction,
     )
-    return source, config
+    return source, config, use_native
 
 
 def main(argv: "list[str] | None" = None) -> int:
     args = build_parser().parse_args(argv)
     try:
-        source, config = setup(args)
-    except ValueError as e:
+        source, config, use_native = setup(args)
+    except (ValueError, OSError, KafkaProtocolError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
     if source.is_empty():
@@ -135,10 +180,16 @@ def main(argv: "list[str] | None" = None) -> int:
             file=sys.stderr,
         )
         return EXIT_EMPTY_TOPIC
-    backend = TorchBackend(config, device=args.backend)
+    backend = TorchBackend(config, device=args.backend, use_native=use_native)
     print(f"Subscribing to {args.topic}")
     print("Starting message consumption...")
-    result = run_scan(args.topic, source, backend, args.batch_size)
+    try:
+        result = run_scan(args.topic, source, backend, args.batch_size)
+    except (OSError, KafkaProtocolError) as e:
+        # A damaged dump or an unreadable file: one line, as the
+        # reference prints it.
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     sys.stdout.write(
         render_report(
             args.topic,

@@ -1,1 +1,1 @@
-"""Record sources (synthetic)."""
+"""Record sources (synthetic, segment files) and the native ingest shim."""

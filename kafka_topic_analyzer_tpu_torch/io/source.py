@@ -2,13 +2,14 @@
 ``io/source.py``, the batch-scan subset).
 
 A source fixes per-partition watermarks at scan start and then yields
-`RecordBatch`es covering ``[start, end)`` in per-partition offset order.
+`RecordBatch`es covering ``[start, end)`` in per-partition offset order,
+for all partitions or a subset, from the start offsets or from given ones.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 from kafka_topic_analyzer_tpu_torch.records import RecordBatch
 
@@ -24,9 +25,25 @@ class RecordSource(abc.ABC):
         [start, end) per partition."""
 
     @abc.abstractmethod
-    def batches(self, batch_size: int) -> Iterator[RecordBatch]:
-        """Yield unpadded batches covering [start, end) of every
-        partition, per-partition offset order."""
+    def batches(
+        self,
+        batch_size: int,
+        partitions: Optional[List[int]] = None,
+        start_at: Optional[Dict[int, int]] = None,
+    ) -> Iterator[RecordBatch]:
+        """Yield unpadded batches covering [start, end) of the given
+        partitions (all by default), per-partition offset order.
+        ``start_at`` overrides the start offsets of the partitions it
+        names."""
+
+    #: True for sources whose ``batches`` takes ``sink=`` and can feed a
+    #: `packing.FusedPackSink` instead of yielding decoded batches.
+    supports_fused_sink = False
+
+    def partition_record_counts(self) -> "Dict[int, int] | None":
+        """Records per partition when the source knows them up front
+        (segment catalogs), else None."""
+        return None
 
     def total_records(self) -> int:
         start, end = self.watermarks()

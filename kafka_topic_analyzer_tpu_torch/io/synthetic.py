@@ -11,7 +11,7 @@ fixed-width decimal strings ``k%0*d`` of a per-partition disjoint key id
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -185,10 +185,30 @@ class SyntheticSource(RecordSource):
         end = {p: self.spec.messages_per_partition for p in self.partitions()}
         return start, end
 
-    def batches(self, batch_size: int) -> Iterator[RecordBatch]:
-        parts = np.array(self.partitions(), dtype=np.int64)
+    def batches(
+        self,
+        batch_size: int,
+        partitions: Optional[List[int]] = None,
+        start_at: Optional[Dict[int, int]] = None,
+    ) -> Iterator[RecordBatch]:
+        parts = np.array(
+            sorted(partitions) if partitions is not None else self.partitions(),
+            dtype=np.int64,
+        )
         s = len(parts)
-        total = self.spec.messages_per_partition * s
+        if s == 0:
+            return
+        n = self.spec.messages_per_partition
+        if start_at:
+            # Resumed scans run partition-sequential (the order contract
+            # is per partition only).
+            for p in parts.tolist():
+                for lo in range(min(start_at.get(p, 0), n), n, batch_size):
+                    offset = np.arange(lo, min(lo + batch_size, n), dtype=np.int64)
+                    partition = np.full(len(offset), p, dtype=np.int64)
+                    yield RecordBatch(**synth_fields(self.spec, partition, offset))
+            return
+        total = n * s
         for lo in range(0, total, batch_size):
             g = np.arange(lo, min(lo + batch_size, total), dtype=np.int64)
             yield RecordBatch(**synth_fields(self.spec, parts[g % s], g // s))

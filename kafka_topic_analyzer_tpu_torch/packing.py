@@ -1,5 +1,6 @@
 """Packed host→device batch transfer, wire formats v4 and v5 (port of
-the reference's ``packing.py``, its numpy path).
+the reference's ``packing.py``: its numpy path, its native path through
+the ingest shim, and the single-device fused sink).
 
 One batch is one contiguous ``uint8`` row, sections in order (B = batch
 size, P = partitions).  Wire v5, the combiner: every metric is an
@@ -42,11 +43,18 @@ their count in the header's ``n_pairs``.
 
 The layout lives in one place, `_sections`: the packers and both
 unpackers derive from it, and the bytes are identical to the reference's
-packers for the same config (tests hold them together).  Device-side
-unpacking is ``Tensor.view(dtype)`` over byte slices; a section whose
-offset is not a multiple of its item size (possible after a 1, 2 or 5
-B/record section at an odd batch size) is copied first, since ``view``
-needs an aligned offset.  u32/u16 sections come out as int32/int16 bit
+packers for the same config (tests hold them together).  ``use_native``
+packs through the shim (`io.native`) when it loads; its rows equal the
+numpy rows except for the ORDER of alive pairs, which the native dedupe
+emits first-touch and numpy by slot (the device result is order-free:
+slots are unique), and for the columns of an invalid tail, which the shim
+zeroes.  `FusedPackSink` appends single-partition column runs straight
+into a row, with the same rows as the chained ``pack_batch``.
+
+Device-side unpacking is ``Tensor.view(dtype)`` over byte slices; a
+section whose offset is not a multiple of its item size (possible after a
+1, 2 or 5 B/record section at an odd batch size) is copied first, since
+``view`` needs an aligned offset.  u32/u16 sections come out as int32/int16 bit
 patterns (`_torch_support`).
 """
 
@@ -58,6 +66,7 @@ import numpy as np
 import torch
 
 from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
+from kafka_topic_analyzer_tpu_torch.io import native as _native
 from kafka_topic_analyzer_tpu_torch.ops.ddsketch import (
     ddsketch_bucket_numpy,
     ddsketch_num_buckets,
@@ -191,6 +200,12 @@ def dedupe_slots_numpy(
     return uniq.astype(np.uint32), alive[::-1][first_rev].astype(np.uint8)
 
 
+def _dedupe_slots(h32, active, alive, bits, use_native=False):
+    if use_native and _native.native_available():
+        return _native.dedupe_slots_native(h32, active, alive, bits)
+    return dedupe_slots_numpy(h32, active, alive, bits)
+
+
 def hll_idx_rho_numpy(
     h64: np.ndarray, active: np.ndarray, p: int
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -257,13 +272,13 @@ def pair_table_nbytes(config: AnalyzerConfig, capacity: int) -> int:
 
 
 def batch_alive_pairs(
-    batch: RecordBatch, config: AnalyzerConfig
+    batch: RecordBatch, config: AnalyzerConfig, use_native: bool = False
 ) -> Tuple[np.ndarray, np.ndarray]:
     """One batch's LWW-deduped (slot, alive) pairs."""
     active = batch.valid & ~batch.key_null
     alive = batch.valid & ~batch.value_null
-    return dedupe_slots_numpy(
-        batch.key_hash32, active, alive, config.alive_bitmap_bits
+    return _dedupe_slots(
+        batch.key_hash32, active, alive, config.alive_bitmap_bits, use_native
     )
 
 
@@ -293,11 +308,15 @@ def pack_pair_table(
     pair_lists,
     config: AnalyzerConfig,
     capacity: int,
+    use_native: bool = False,
     out: "np.ndarray | None" = None,
 ) -> "tuple[np.ndarray, int, int]":
     """LWW-merge per-batch pair lists, in stream order, into one packed
     pair-table buffer (header + the ``pair_table`` sections of
-    `_sections`).  Returns ``(buffer, raw_pairs, emitted_pairs)``."""
+    `_sections`).  Returns ``(buffer, raw_pairs, emitted_pairs)``; in the
+    mask form "emitted" counts the distinct slots touched.  With
+    ``use_native`` the shim applies the raw stream straight to the masks,
+    or dedupes the list form (first-touch order)."""
     parts = [
         (np.ascontiguousarray(s, dtype=np.uint32),
          np.ascontiguousarray(f, dtype=np.uint8))
@@ -322,28 +341,32 @@ def pack_pair_table(
         nb = np.dtype(dtype).itemsize * count
         secs[name] = out[pos : pos + nb].view(dtype)
         pos += nb
-    if raw:
-        merged_slots, merged_flags = dedupe_slots_numpy(
-            slots, np.ones(raw, dtype=bool), flags, config.alive_bitmap_bits
+    bits = config.alive_bitmap_bits
+    if alive_table_mode(config, capacity) == 2 and raw and use_native \
+            and _native.native_available():
+        # Mask form from the raw stream in one native pass.
+        n = _native.pairs_to_masks_native(
+            slots, flags, bits, secs["alive_set"], secs["alive_clear"]
         )
     else:
-        merged_slots, merged_flags = slots, flags
-    n = len(merged_slots)
-    if alive_table_mode(config, capacity) == 2:
-        set_w, clear_w = _pairs_to_masks_numpy(
-            merged_slots, merged_flags, config.alive_bitmap_bits
+        merged_slots, merged_flags = (
+            _dedupe_slots(slots, np.ones(raw, dtype=bool), flags, bits, use_native)
+            if raw else (slots, flags)
         )
-        secs["alive_set"][:] = set_w
-        secs["alive_clear"][:] = clear_w
-    else:
-        if n > capacity:
-            raise AssertionError(
-                f"pair-table overflow: {n} merged pairs > capacity {capacity}"
+        n = len(merged_slots)
+        if alive_table_mode(config, capacity) == 2:
+            secs["alive_set"][:], secs["alive_clear"][:] = _pairs_to_masks_numpy(
+                merged_slots, merged_flags, bits
             )
-        secs["alive_slot"][:n] = merged_slots
-        secs["alive_slot"][n:] = 0
-        secs["alive_flag"][:n] = merged_flags
-        secs["alive_flag"][n:] = 0
+        else:
+            if n > capacity:
+                raise AssertionError(
+                    f"pair-table overflow: {n} merged pairs > capacity {capacity}"
+                )
+            secs["alive_slot"][:n] = merged_slots
+            secs["alive_slot"][n:] = 0
+            secs["alive_flag"][:n] = merged_flags
+            secs["alive_flag"][n:] = 0
     header = np.zeros(4, dtype=np.int32)
     header[1] = n
     out[:HEADER_BYTES] = header.view(np.uint8)
@@ -454,12 +477,15 @@ def _combiner_tables(
 def pack_batch(
     batch: RecordBatch,
     config: AnalyzerConfig,
+    use_native: bool = False,
     out: "np.ndarray | None" = None,
 ) -> np.ndarray:
     """RecordBatch → one contiguous ``uint8`` row in the config's wire
-    format (the module docstring is the layout).  Valid records must be a prefix of the
-    batch.  ``out`` packs into a caller-provided ``uint8[packed_nbytes]``
-    buffer (a pinned staging row); every byte of it is overwritten."""
+    format (the module docstring is the layout).  Valid records must be a
+    prefix of the batch.  ``use_native`` packs in one C++ pass when the
+    shim loads.  ``out`` packs into a caller-provided
+    ``uint8[packed_nbytes]`` buffer (a pinned staging row); every byte of
+    it is overwritten."""
     b = config.batch_size
     n = len(batch)
     if n > b:
@@ -495,6 +521,12 @@ def pack_batch(
             f"counter kernel's limit of {MAX_VALUE_LEN} bytes — disable "
             f"use_pallas_counters for such topics"
         )
+
+    if use_native and _native.native_available():
+        packed = _native.pack_batch_native(batch, config, out=out)
+        if packed is not None:
+            return packed
+        # The shim rejected a value; the numpy path below says which.
 
     nbytes = packed_nbytes(config, b)
     if out is None:
@@ -654,3 +686,203 @@ def unpack_pair_table_device(
         out[name] = _view(buf[pos : pos + nb], dtype)
         pos += nb
     return out
+
+
+# ---------------------------------------------------------------------------
+# fused sink: columns appended straight into rows (single device)
+
+
+#: Decoded bytes per record (the RecordBatch column widths): a PackedRow
+#: reports the size of the decoded batch it stands for.
+_RECORD_NBYTES = sum(np.dtype(dt).itemsize for _, dt in RecordBatch.FIELDS)
+
+
+def fused_ingest_enabled() -> bool:
+    """True when the shim loads: fused rows need its incremental packer."""
+    return _native.native_available()
+
+
+class PackedRow:
+    """One completed row from a `FusedPackSink`, with what the engine
+    would otherwise read off the decoded batch: its record count, each
+    partition's progress (one past the last offset for sources that carry
+    offsets, else a count), and the last record's identity.  ``staged``
+    is the backend's staged form when the sink has a stage callback (it
+    runs on the producing thread, as ``prepare`` does on the chained
+    path); ``pairs`` are the row's compacted alive pairs in stream order
+    (None unless the config compacts them)."""
+
+    __slots__ = (
+        "buf", "staged", "n_valid", "next_offsets", "counts",
+        "last_partition", "last_offset", "last_ts_s", "pairs",
+    )
+
+    def __init__(self, buf, staged, n_valid, next_offsets, counts,
+                 last_partition, last_offset, last_ts_s, pairs=None):
+        self.buf = buf
+        self.staged = staged
+        self.n_valid = n_valid
+        self.next_offsets = next_offsets
+        self.counts = counts
+        self.last_partition = last_partition
+        self.last_offset = last_offset
+        self.last_ts_s = last_ts_s
+        self.pairs = pairs
+
+    @property
+    def num_valid(self) -> int:
+        return self.n_valid
+
+    @property
+    def nbytes(self) -> int:
+        return self.n_valid * _RECORD_NBYTES
+
+
+class FusedPackSink:
+    """Incremental row assembly for one ingest stream (the reference's
+    single-device form: flat ``uint8[packed_nbytes]`` rows of
+    ``chunk_records`` records).
+
+    Rows fill greedily across appends and partitions, so a row equals
+    ``pack_batch`` over the same records cut at ``chunk_records``
+    boundaries.  ``dense_of`` maps a true partition id to its state row.
+    ``alloc`` returns the buffer the next row is packed into (a pinned
+    staging slot; a fresh array by default); ``stage(row[, pairs])`` turns
+    a completed row into the backend's staged form.  Not thread-safe: one
+    sink per stream, fed in per-partition offset order."""
+
+    def __init__(self, pack_config: AnalyzerConfig, chunk_records: int,
+                 dense_of, stage=None, alloc=None):
+        self.pack_config = pack_config
+        self.chunk_records = int(chunk_records)
+        self._dense_of = dense_of
+        self._stage = stage
+        self._nbytes = packed_nbytes(pack_config, self.chunk_records)
+        self._alloc = alloc or (lambda: np.empty(self._nbytes, dtype=np.uint8))
+        self._scratch = np.zeros(
+            _native.pack_scratch_len(pack_config, self.chunk_records),
+            dtype=np.int64,
+        )
+        self._row: "np.ndarray | None" = None
+        self._count = 0
+        self._next_offsets: "dict[int, int]" = {}
+        self._counts: "dict[int, int]" = {}
+        self._last = (-1, -1, 0)
+        self._done: "list[PackedRow]" = []
+        #: Under compaction the native pass diverts each row's LWW pairs
+        #: to the scratch's emission region; they are copied out before
+        #: any re-init of the scratch.
+        self._compact = pack_config.compact_alive
+        self._row_pairs: "list[tuple[np.ndarray, np.ndarray]]" = []
+
+    def _ensure_row(self) -> None:
+        if self._row is None:
+            self._row = self._alloc()
+            self._count = 0
+            self._next_offsets = {}
+            self._counts = {}
+            _native.pack_row_init(
+                self._row, self._scratch, self.pack_config, self.chunk_records
+            )
+
+    def _harvest_pairs(self) -> None:
+        if self._compact and int(self._scratch[1]):
+            self._row_pairs.append(_native.pack_take_pairs(
+                self._scratch, self.pack_config, self.chunk_records
+            ))
+
+    def _take_row_pairs(self) -> "tuple[np.ndarray, np.ndarray] | None":
+        if not self._compact:
+            return None
+        pairs, self._row_pairs = self._row_pairs, []
+        if not pairs:
+            return np.empty(0, dtype=np.uint32), np.empty(0, dtype=np.uint8)
+        return (np.concatenate([p[0] for p in pairs]),
+                np.concatenate([p[1] for p in pairs]))
+
+    def _complete_row(self) -> None:
+        self._harvest_pairs()  # before the next row's init resets the scratch
+        row, self._row = self._row, None
+        pairs = self._take_row_pairs()
+        if self._stage is None:
+            staged = None
+        elif self._compact:
+            staged = self._stage(row, pairs)
+        else:
+            staged = self._stage(row)
+        self._done.append(PackedRow(
+            row, staged, self._count, self._next_offsets, self._counts,
+            *self._last, pairs=pairs,
+        ))
+
+    def _note(self, partition: int, count: int, last_off: "int | None",
+              last_ts: int) -> None:
+        if last_off is not None and last_off >= 0:
+            self._next_offsets[partition] = last_off + 1
+            self._last = (partition, last_off, last_ts)
+        else:
+            self._counts[partition] = self._counts.get(partition, 0) + count
+            self._last = (partition, -1, last_ts)
+
+    def append_columns(self, partition: int, key_len, value_len, key_null,
+                       value_null, ts, key_hash32, key_hash64, n: int,
+                       ts_mode: int = 0, offsets=None) -> int:
+        """Append ``n`` records of one partition's columns (``ts`` in the
+        unit ``ts_mode`` names: see `io.native.pack_append_columns_native`),
+        completing rows as they fill.  Returns ``n``."""
+        dense = self._dense_of(partition)
+        start = 0
+        while start < n:
+            self._ensure_row()
+            took = _native.pack_append_columns_native(
+                self._row, self._scratch, self.pack_config,
+                self.chunk_records, dense, key_len, value_len, key_null,
+                value_null, ts, key_hash32, key_hash64, start, n,
+                ts_mode=ts_mode,
+            )
+            if took == 0:
+                raise RuntimeError("fused append made no progress")
+            self._count += took
+            start += took
+            last_ts = int(ts[start - 1])
+            if ts_mode == 1:
+                last_ts //= 1000
+            elif ts_mode == 2:
+                last_ts = max(last_ts, 0) // 1000
+            self._note(
+                partition, took,
+                int(offsets[start - 1]) if offsets is not None else None,
+                last_ts,
+            )
+            if int(self._scratch[0]) == self.chunk_records:
+                self._complete_row()
+        return n
+
+    def append_batch(self, batch: RecordBatch) -> int:
+        """`append_columns` of a single-partition batch (``ts_s`` seconds)."""
+        n = len(batch)
+        if n == 0:
+            return 0
+        p = int(batch.partition[0])
+        if not bool((batch.partition == p).all()):
+            raise ValueError("fused sink chunks must be single-partition")
+        return self.append_columns(
+            p, batch.key_len, batch.value_len, batch.key_null,
+            batch.value_null, batch.ts_s, batch.key_hash32, batch.key_hash64,
+            n, ts_mode=0, offsets=batch.offsets,
+        )
+
+    def flush(self) -> None:
+        """Complete the partial row at stream end (a row with no records
+        is dropped, as the chained path yields no empty batch)."""
+        if self._row is None:
+            return
+        if self._count == 0:
+            self._row = None
+            self._row_pairs = []
+            return
+        self._complete_row()
+
+    def take_completed(self) -> "list[PackedRow]":
+        done, self._done = self._done, []
+        return done

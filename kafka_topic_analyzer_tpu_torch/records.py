@@ -5,6 +5,8 @@ A source pre-extracts exactly what the reducers need (lengths, null-ness,
 timestamps, key hashes) into fixed-width numpy columns; one `RecordBatch`
 is the unit the packer turns into a wire row.  Within a partition records
 appear in offset order, and valid records form a prefix of the batch.
+Sources whose offsets have gaps (a compacted segment dump) attach the
+optional host-only ``offsets`` column; it never crosses to the device.
 """
 
 from __future__ import annotations
@@ -39,6 +41,9 @@ class RecordBatch:
     key_hash64: np.ndarray
     #: False for padding records.
     valid: np.ndarray
+    #: Optional host-only per-record Kafka offsets (int64); None for
+    #: gapless sources, whose progress is tracked by counting.
+    offsets: "np.ndarray | None" = None
 
     FIELDS = (
         ("partition", np.int32),
@@ -61,6 +66,10 @@ class RecordBatch:
             if arr.shape != (n,):
                 raise ValueError(f"{name}: expected shape ({n},), got {arr.shape}")
             setattr(self, name, arr)
+        if self.offsets is not None:
+            self.offsets = np.asarray(self.offsets, dtype=np.int64)
+            if self.offsets.shape != (n,):
+                raise ValueError("offsets: wrong shape")
 
     def __len__(self) -> int:
         return len(self.partition)
@@ -69,5 +78,42 @@ class RecordBatch:
     def num_valid(self) -> int:
         return int(np.count_nonzero(self.valid))
 
+    @classmethod
+    def empty(cls, n: int = 0) -> "RecordBatch":
+        return cls(**{name: np.zeros(n, dtype=dt) for name, dt in cls.FIELDS})
+
+    def _map(self, fn) -> "RecordBatch":
+        """A batch of ``fn(column)`` for every column, offsets included."""
+        out = RecordBatch(**{name: fn(getattr(self, name)) for name, _ in self.FIELDS})
+        if self.offsets is not None:
+            out.offsets = fn(self.offsets)
+        return out
+
+    @classmethod
+    def concat(cls, batches: "list[RecordBatch]") -> "RecordBatch":
+        if not batches:
+            return cls.empty()
+        if len(batches) == 1:
+            return batches[0]
+        out = cls(**{
+            name: np.concatenate([getattr(b, name) for b in batches])
+            for name, _ in cls.FIELDS
+        })
+        if all(b.offsets is not None for b in batches):
+            out.offsets = np.concatenate([b.offsets for b in batches])
+        return out
+
+    def slice(self, lo: int, hi: int) -> "RecordBatch":
+        """Zero-copy view of rows ``[lo, hi)``."""
+        return self._map(lambda a: a[lo:hi])
+
+    def copy(self) -> "RecordBatch":
+        """Deep copy of every column (detaches views of a file mapping)."""
+        return self._map(np.copy)
+
     def as_dict(self) -> "dict[str, np.ndarray]":
         return {name: getattr(self, name) for name, _ in self.FIELDS}
+
+    @property
+    def nbytes(self) -> int:
+        return sum(getattr(self, name).nbytes for name, _ in self.FIELDS)
