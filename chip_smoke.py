@@ -56,14 +56,39 @@ Phases, in order; any failure exits non-zero:
   make the two counts differ (by 2 at this size).  All other report lines
   must be byte-identical across the four scans, timing lines aside.
   Each scan prints a ``breakdown`` line of its per-dispatch host and
-  device costs.
+  device costs;
+- kafka: the port's Kafka wire source against the port's template broker
+  (``tools/bench_e2e.BrokerProcess``, a child process serving base-offset
+  patched template batches over loopback TCP).  Identity: a topic of 4
+  partitions x 50 windows of 1,000 records (200,000 records, values
+  100-300 B, one record in ten a tombstone, 16 templates), scanned
+  through ``cli.run`` (``--source kafka`` is the default) in wire v5, v4
+  and compaction off, on ``cuda`` and ``cpu``, fused (``--native on``)
+  and chained (``--native off``), at batch 65,536 (four rows); the same
+  topic from an lz4 and a zstd broker (fused, so every frame takes the
+  decoded-batch fallback, counted by reason on the sink); one scan with
+  ``--dump-segments`` and the segment-file scan of that dump.  Every
+  report must be byte-identical (timing lines aside), each ``cuda`` run
+  must launch its format's kernel and not the other, the fused
+  uncompressed runs must count no fallback and the compressed ones one
+  per record.  Scan: 16 partitions x 250 windows of 4,000 records (16M
+  records, 64 templates: 256,000 keys), on ``cuda`` with ``--native on``,
+  batch 2^18 and the 2^32-slot bitmap, in v5 and in v4: the format's
+  kernel must launch once per dispatch (62) and the other never; every
+  exact metric (per-partition counters, byte sums, size and time
+  extremes, totals, alive keys) must equal numpy's values from the
+  decoded templates; the two reports must be byte-identical.  Each scan
+  prints a ``breakdown kafka`` line: the worker's host ms per row (fetch
+  wait, fused decode→pack, the stage's pair table), device copy and fold
+  ms (CUDA events), the busy share.
 
 Prints the card's name and power limit (``nvidia-smi``), a ``kernels``
 JSON line (each kernel's back-to-back ``ms``, ``device_ms`` and
 ``host_us`` beside its plain version, its library call and its bound, and
 for ``counters_merge`` the chain's ``chain_ms``; ``launches`` counts the
-segment-file scan, this slice's path, and ``launches_by_path`` every
-scan), and as its last line ``{"ok": true, "device": {...}}``.
+16M-record Kafka scan of the kernel's format, the slice's main path, and
+``launches_by_path`` every full-size scan), and as its last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -98,6 +123,14 @@ SKETCH_FLAGS = [
 #: Segment dumps are written here (``build/`` is ignored by git) and
 #: deleted at the end.
 DUMP_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke_segments"
+#: Template-broker topics (`tools/bench_e2e.BrokerProcess` keywords): the
+#: identity size, and the full-width scan from ``BASELINE.json`` config 2
+#: (16 partitions) with config 1's ~200 B values, cut to 16M records.
+KAFKA_IDENTITY = dict(topic="smoke-kafka", partitions=4, windows=50, R=1000,
+                      n_templates=16, vmin=100, vmax=300, tombstone_every=10)
+KAFKA_FULL = dict(topic="scan", partitions=16, windows=250, R=4000,
+                  n_templates=64, vmin=100, vmax=300, tombstone_every=10)
+KAFKA_IDENTITY_BATCH = 1 << 16
 
 
 def fail(msg: str) -> "None":
@@ -459,13 +492,15 @@ def phase_update_kernel(torch, np, cu) -> dict:
     return row
 
 
-def run_cli(main, argv) -> str:
+def run_cli(cli, argv):
+    """The port's CLI on ``argv`` (``cli.run``, what ``main`` runs):
+    (stdout, the scan's result); fails on a non-zero exit."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = main(argv)
+        rc, result = cli.run(cli.build_parser().parse_args(argv))
     if rc != 0:
         fail(f"CLI {' '.join(argv)} exited {rc}")
-    return buf.getvalue()
+    return buf.getvalue(), result
 
 
 def drop_timing(text: str) -> str:
@@ -478,6 +513,24 @@ def drop_timing(text: str) -> str:
 def zero(kernels) -> None:
     for fn in kernels.values():
         fn.launches = 0
+
+
+def identity_run(cli, kernels, phase: str, label: str, argv, backend: str,
+                 kernel) -> "tuple[str, object]":
+    """One identity run of the port's CLI: (the report without its timing
+    lines, the scan's result); fails when a gpu run did not launch exactly
+    its format's kernel."""
+    zero(kernels)
+    t0 = time.perf_counter()
+    out, result = run_cli(cli, argv + ["--backend", backend])
+    secs = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"{phase}: {label} on {backend}: {secs:.3f} s, launches {launches}, "
+          f"fused {result.fused}, fallbacks {result.fallbacks}")
+    for name, n in launches.items():
+        if (name == kernel) != (n > 0):
+            fail(f"{phase}: {label} on {backend} launched {name} {n} times")
+    return drop_timing(out), result
 
 
 def spec_of(text: str):
@@ -503,7 +556,7 @@ def write_dump(topic: str, spec_text: str) -> str:
     return str(out)
 
 
-def phase_identity(main, kernels) -> None:
+def phase_identity(cli, kernels) -> None:
     """CLI runs of one topic, synthetic and from a segment dump, fused
     and chained, native on and off; every report must equal the first
     (timing lines aside) and every gpu run must launch its wire format's
@@ -537,15 +590,7 @@ def phase_identity(main, kernels) -> None:
     first = None
     try:
         for label, argv, backend, kernel in runs:
-            zero(kernels)
-            t0 = time.perf_counter()
-            out = drop_timing(run_cli(main, argv + ["--backend", backend]))
-            secs = time.perf_counter() - t0
-            launches = {name: fn.launches for name, fn in kernels.items()}
-            print(f"identity: {label} on {backend}: {secs:.3f} s, launches {launches}")
-            for name, n in launches.items():
-                if (name == kernel) != (n > 0):
-                    fail(f"identity: {label} on {backend} launched {name} {n} times")
+            out, _ = identity_run(cli, kernels, "identity", label, argv, backend, kernel)
             if first is None:
                 first = out
             elif out != first:
@@ -580,9 +625,11 @@ def drop_alive_keys(report: str) -> str:
                    if not line.startswith("Alive keys:"))
 
 
-def phase_scan(torch, np, cli, kernels, label, argv, kernel):
-    """One full-size scan on the card; returns (launches of ``kernel``,
-    the report without its timing lines, the alive-key count)."""
+def phase_scan(torch, np, cli, kernels, label, argv, kernel,
+               per_partition=FULL_MESSAGES, kind="synthetic"):
+    """One full-size scan on the card of ``per_partition`` records in each
+    partition; returns (launches of ``kernel``, the report without its
+    timing lines, the scan's result)."""
     from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
     from kafka_topic_analyzer_tpu_torch.engine import run_scan
     from kafka_topic_analyzer_tpu_torch.report import render_report
@@ -612,12 +659,12 @@ def phase_scan(torch, np, cli, kernels, label, argv, kernel):
         result.duration_secs, show_alive_keys=True,
     )
     sys.stdout.write(report)
-    want = FULL_PARTITIONS * FULL_MESSAGES
+    want = len(m.partitions) * per_partition
     if m.overall_count != want or records != want or result.records != want:
         fail(f"scan {label}: overall_count {m.overall_count}, folded "
              f"{result.records}, expected {want}")
-    if any(m.total(p) != FULL_MESSAGES for p in m.partitions):
-        fail(f"scan {label}: a partition total is not {FULL_MESSAGES}")
+    if any(m.total(p) != per_partition for p in m.partitions):
+        fail(f"scan {label}: a partition total is not {per_partition}")
     if words.device.type != "cuda" or words.numel() != 1 << (ALIVE_BITS - 5):
         fail(f"scan {label}: alive bitmap is {words.numel()} words on "
              f"{words.device}")
@@ -633,12 +680,14 @@ def phase_scan(torch, np, cli, kernels, label, argv, kernel):
         fail(f"scan {label}: alive keys or HLL estimates missing")
     if int(np.sum(m.per_partition[:, 2])) < m.alive_keys:
         fail(f"scan {label}: more alive keys than alive records")
-    breakdown(torch, source, config, wall, backend.dispatches, label, result.fused)
-    return n, drop_timing(report), m.alive_keys
+    breakdown(torch, source, config, wall, backend.dispatches, label, kind, records)
+    if hasattr(source, "close"):
+        source.close()
+    return n, drop_timing(report), result
 
 
 def breakdown(torch, source, config, wall: float, dispatches: int,
-              label: str, fused: bool) -> None:
+              label: str, kind: str, records: int) -> None:
     """Per-dispatch cost of each stage of the scan, over the scan's first
     rows: host stages on the host clock (mean of 4), the host→device copy
     and the device fold with CUDA events (on a second backend, so the
@@ -648,14 +697,21 @@ def breakdown(torch, source, config, wall: float, dispatches: int,
     the fused segment-file scan's is one: reading the mapped columns and
     packing them into a row (the pages are in the page cache, written by
     this run), timed on freshly mapped files and on files already mapped,
-    and under compaction the stage's pair table after it."""
+    and under compaction the stage's pair table after it.  The fused Kafka
+    scan's are the wait for each fetch response (`kafka_timings`), the
+    fused decode→pack of its record sets into rows, the rest of the
+    worker's loop (response parsing, the send-ahead's header scan,
+    bookkeeping), and under compaction the stage's pair table."""
     from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
     from kafka_topic_analyzer_tpu_torch.engine import PartitionIndex
     from kafka_topic_analyzer_tpu_torch.packing import FusedPackSink
 
     backend = TorchBackend(config, device="gpu", use_native=True)
     b = config.batch_size
-    if fused:
+    if kind == "kafka":
+        dense_of = PartitionIndex(source.partitions()).dense_of
+        host, row = kafka_timings(source, config, dense_of)
+    elif kind == "segfile":
         from kafka_topic_analyzer_tpu_torch.io.segfile import SegmentFileSource
 
         dense_of = PartitionIndex(source.partitions()).dense_of
@@ -674,6 +730,7 @@ def breakdown(torch, source, config, wall: float, dispatches: int,
             rows.close()
         host = "host read+pack " + ", ".join(
             f"{ms:.3f} ms ({mapping})" for mapping, ms in times.items())
+    if kind in ("kafka", "segfile"):
         if config.compact_alive:
             # What the stage callback adds on the worker: the row's pairs
             # merged into the slot's pair table.
@@ -728,8 +785,225 @@ def breakdown(torch, source, config, wall: float, dispatches: int,
         f"breakdown {label}: per dispatch of {b} records: wall "
         f"{per_dispatch_ms:.3f} ms; {host}; device copy {copy_ms:.3f} ms "
         f"({slot.numel()} B), device fold {fold_ms:.3f} ms; device busy "
-        f"share ~{(copy_ms + fold_ms) / per_dispatch_ms:.4f}"
+        f"share ~{(copy_ms + fold_ms) / per_dispatch_ms:.4f}; "
+        f"{records / wall:.1f} records/s"
     )
+
+
+def kafka_timings(source, config, dense_of) -> "tuple[str, object]":
+    """The fused Kafka scan's worker, row by row, on a fresh stream of the
+    scan's source (one leader, so the worker reads, decodes and packs in
+    turn): the host ms per row spent waiting for fetch responses
+    (``BrokerConnection.read_response``), in the fused decode→pack of
+    their record sets (``FusedPackSink.append_record_set``) and in the
+    rest of the loop, over 4 rows after one of warm-up.  Returns the text
+    and the last row."""
+    from kafka_topic_analyzer_tpu_torch.io.kafka_wire import BrokerConnection
+    from kafka_topic_analyzer_tpu_torch.packing import FusedPackSink
+
+    spent = {"wait": 0.0, "pack": 0.0}
+    read = BrokerConnection.read_response
+
+    def timed_read(self, corr):
+        t0 = time.perf_counter()
+        try:
+            return read(self, corr)
+        finally:
+            spent["wait"] += time.perf_counter() - t0
+
+    class TimedSink(FusedPackSink):
+        def append_record_set(self, *args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return super().append_record_set(*args, **kw)
+            finally:
+                spent["pack"] += time.perf_counter() - t0
+
+    b = config.batch_size
+    BrokerConnection.read_response = timed_read
+    try:
+        rows = source.batches(b, sink=TimedSink(config, b, dense_of))
+        next(rows)
+        spent.update(wait=0.0, pack=0.0)
+        t0 = time.perf_counter()
+        for _ in range(4):
+            row = next(rows)
+        total = (time.perf_counter() - t0) * 1e3 / 4
+        rows.close()
+    finally:
+        BrokerConnection.read_response = read
+    wait, pack = spent["wait"] * 1e3 / 4, spent["pack"] * 1e3 / 4
+    return (f"host worker {total:.3f} ms per row: fetch wait {wait:.3f} ms, "
+            f"decode→pack {pack:.3f} ms, rest {total - wait - pack:.3f} ms"), row
+
+
+def template_expectations(np, spec: dict) -> dict:
+    """What a scan of a `tools.bench_e2e` template topic must report,
+    computed with numpy from the templates' records (decoded by the
+    codec's Python decoder, not the native one the scan runs): each
+    partition's counters, time and size extremes, and the alive keys of
+    a last-writer-wins replay of one partition's records over the 2^32
+    slots of the keys' fnv32.  Every partition holds the same records
+    (window ``w`` is template ``w % n_templates``), so each key's last
+    write is the same in every partition and the count does not depend
+    on the order in which fetches of different partitions arrive."""
+    from kafka_topic_analyzer_tpu_torch.io import kafka_codec as kc
+    from kafka_topic_analyzer_tpu_torch.ops.fnv import fnv1a32_ref_batch
+    from kafka_topic_analyzer_tpu_torch.tools.bench_e2e import build_templates
+
+    templates = build_templates(spec["R"], spec["n_templates"], spec["vmin"],
+                                spec["vmax"], tombstone_every=spec["tombstone_every"])
+    cols = []
+    for t in templates:
+        recs = [r for _, r in kc.decode_record_batches(t)]
+        keys = [k for _, k, _ in recs]
+        lengths = np.array([len(k) for k in keys])
+        padded = np.zeros((len(keys), lengths.max()), dtype=np.uint8)
+        for i, k in enumerate(keys):
+            padded[i, : len(k)] = np.frombuffer(k, dtype=np.uint8)
+        cols.append(dict(
+            ts_s=np.array([ts for ts, _, _ in recs]) // 1000,
+            key_len=lengths,
+            value_len=np.array([len(v or b"") for _, _, v in recs]),
+            tombstone=np.array([v is None for _, _, v in recs]),
+            slot=fnv1a32_ref_batch(padded, lengths),
+        ))
+    window = [cols[w % len(cols)] for w in range(spec["windows"])]
+    cat = {k: np.concatenate([c[k] for c in window]) for k in window[0]}
+    alive = ~cat["tombstone"]
+    size = (cat["key_len"] + cat["value_len"])[alive]
+    _, last = np.unique(cat["slot"][::-1], return_index=True)
+    return dict(
+        total=len(alive), tombstones=int(cat["tombstone"].sum()),
+        alive=int(alive.sum()), key_null=0, key_non_null=len(alive),
+        key_size_sum=int(cat["key_len"].sum()),
+        value_size_sum=int(cat["value_len"].sum()),
+        earliest=int(cat["ts_s"].min()), latest=int(cat["ts_s"].max()),
+        smallest=int(size.min()), largest=int(size.max()),
+        alive_keys=int(np.count_nonzero(alive[::-1][last])),
+    )
+
+
+def check_template_scan(np, label: str, m, want: dict) -> None:
+    """Every exact line of a template-topic scan against numpy's values."""
+    from kafka_topic_analyzer_tpu_torch.results import COUNTER_CHANNELS
+
+    def avg(total, alive):
+        return total // alive if total > 0 and alive > 0 else 0
+
+    got = {}
+    for i, name in enumerate(COUNTER_CHANNELS):
+        col = {int(v) for v in m.per_partition[:, i]}
+        got[name] = col.pop() if len(col) == 1 else col
+    ext = m.per_partition_extremes
+    for i, name in enumerate(("earliest", "latest", "smallest", "largest")):
+        col = {int(v) for v in ext[:, i]}
+        got[name] = col.pop() if len(col) == 1 else col
+    got["alive_keys"] = m.alive_keys
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    p = len(m.partitions)
+    for name, value, expect in (
+        ("overall_count", m.overall_count, p * want["total"]),
+        ("earliest message", m.earliest_ts_s, want["earliest"]),
+        ("latest message", m.latest_ts_s, want["latest"]),
+        ("smallest message", m.smallest_message, want["smallest"]),
+        ("largest message", m.largest_message, want["largest"]),
+        ("key size avg", m.key_size_avg(m.partitions[0]),
+         avg(want["key_size_sum"], want["alive"])),
+        ("value size avg", m.value_size_avg(m.partitions[0]),
+         avg(want["value_size_sum"], want["alive"])),
+        ("message size avg", m.message_size_avg(m.partitions[0]),
+         avg(want["key_size_sum"] + want["value_size_sum"], want["alive"])),
+    ):
+        if value != expect:
+            bad[name] = (value, expect)
+    if bad:
+        fail(f"scan {label}: (got, numpy) differ: {bad}")
+    print(f"scan {label}: every exact metric equals numpy's from the templates "
+          f"({want})")
+
+
+def phase_kafka_identity(np, cli, kernels) -> None:
+    """The identity topic served by three template brokers (uncompressed,
+    lz4, zstd): every report must be byte-identical across cuda and cpu,
+    v5, v4 and compaction off, fused and chained, the compressed topics,
+    and the segment-file scan of a ``--dump-segments`` dump."""
+    from kafka_topic_analyzer_tpu_torch.io import compression, kafka_codec as kc
+    from kafka_topic_analyzer_tpu_torch.tools.bench_e2e import BrokerProcess
+
+    spec = KAFKA_IDENTITY
+    n = spec["partitions"] * spec["windows"] * spec["R"]
+    want = template_expectations(np, spec)
+    zstd = "libzstd" if compression._load_libzstd() is not None else \
+        "zstd_py (pure Python)"
+    dump = DUMP_ROOT / f"kafka-{os.getpid()}"
+    shutil.rmtree(dump, ignore_errors=True)
+    first = None
+    count = 0
+
+    def same(label, out):
+        nonlocal first, count
+        count += 1
+        if first is None:
+            first = out
+        elif out != first:
+            fail(f"kafka identity: the {label} report differs from the first:\n"
+                 f"{first}\n{out}")
+
+    with contextlib.ExitStack() as stack:
+        ports = {name: stack.enter_context(BrokerProcess(**spec, compression=codec))
+                 for name, codec in (("none", kc.COMPRESSION_NONE),
+                                     ("lz4", kc.COMPRESSION_LZ4),
+                                     ("zstd", kc.COMPRESSION_ZSTD))}
+        stack.callback(shutil.rmtree, dump, True)
+
+        def base(name):
+            return ["-t", spec["topic"], "-b", f"127.0.0.1:{ports[name]}", *SKETCH_FLAGS,
+                    "--batch-size", str(KAFKA_IDENTITY_BATCH)]
+
+        def run(label, argv, backend, kernel):
+            return identity_run(cli, kernels, "kafka identity", label, argv, backend,
+                                kernel)
+
+        for fmt, flags, kernel in (("v5", [], "counters_merge"),
+                                   ("v4", ["--wire-format", "v4"], "counters_update"),
+                                   ("v5 compaction off", ["--alive-compaction", "off"],
+                                    "counters_merge")):
+            for native_flag, path in (("on", "fused"), ("off", "chained")):
+                for backend in ("gpu", "cpu"):
+                    label = f"{fmt} {path}"
+                    out, result = run(label, base("none") + flags + ["--native", native_flag],
+                                      backend, kernel if backend == "gpu" else None)
+                    if result.fused != (path == "fused") or result.fallbacks:
+                        fail(f"kafka identity: {label} on {backend}: fused "
+                             f"{result.fused}, fallbacks {result.fallbacks}")
+                    if result.records != n:
+                        fail(f"kafka identity: {label}: {result.records} records, not {n}")
+                    same(f"{label} on {backend}", out)
+        for name in ("lz4", "zstd"):
+            out, result = run(f"v5 fused {name}", base(name) + ["--native", "on"], "gpu",
+                              "counters_merge")
+            if result.fallbacks != {"compressed": n}:
+                fail(f"kafka identity: {name}: fallbacks {result.fallbacks}, expected "
+                     f"{{'compressed': {n}}}")
+            print(f"kafka identity: {name} topic: fallbacks {result.fallbacks} "
+                  f"(decoder: {'native shim' if name == 'lz4' else zstd})")
+            same(f"v5 fused {name}", out)
+        out, result = run("v5 with --dump-segments",
+                          base("none") + ["--native", "on", "--dump-segments", str(dump)],
+                          "gpu", "counters_merge")
+        same("v5 with --dump-segments", out)
+        for native_flag in ("on", "off"):
+            label = f"segfile of the dump, native {native_flag}"
+            out, result = run(label, ["-t", spec["topic"], "--source", "segfile",
+                                      "--segment-dir", str(dump), *SKETCH_FLAGS,
+                                      "--batch-size", str(KAFKA_IDENTITY_BATCH),
+                                      "--native", native_flag], "gpu", "counters_merge")
+            same(label, out)
+        check_template_scan(np, "kafka identity", result.metrics, want)
+    print(f"kafka identity: {count} reports byte-identical (cuda and cpu; v5, v4 and "
+          f"compaction off; fused and chained; uncompressed, lz4 and zstd via {zstd}; "
+          "the segment-file scan of a --dump-segments dump; timing lines aside)")
 
 
 def main() -> int:
@@ -784,22 +1058,24 @@ def main() -> int:
                "counters_update": cu.counters_update}
     merge_row = phase_kernel(torch, np, cm)
     update_row = phase_update_kernel(torch, np, cu)
-    phase_identity(cli.main, kernels)
+    phase_identity(cli, kernels)
     synthetic = ["--source", "synthetic", "--synthetic", FULL_SPEC]
     v4 = ["--wire-format", "v4"]
     launches = {"counters_merge": {}, "counters_update": {}}
     reports, alive = {}, {}
     for label, argv, kernel in (("v5", synthetic, "counters_merge"),
                                 ("v4", synthetic + v4, "counters_update")):
-        launches[kernel]["synthetic"], reports[label], alive[label] = phase_scan(
+        launches[kernel]["synthetic"], reports[label], result = phase_scan(
             torch, np, cli, kernels, label, argv, kernel)
+        alive[label] = result.metrics.alive_keys
     dump = write_dump("scan", FULL_SPEC)
     try:
         segments = ["--source", "segfile", "--segment-dir", dump]
         for label, argv, kernel in (("segfile v5", segments, "counters_merge"),
                                     ("segfile v4", segments + v4, "counters_update")):
-            launches[kernel]["segfile"], reports[label], alive[label] = phase_scan(
-                torch, np, cli, kernels, label, argv, kernel)
+            launches[kernel]["segfile"], reports[label], result = phase_scan(
+                torch, np, cli, kernels, label, argv, kernel, kind="segfile")
+            alive[label] = result.metrics.alive_keys
     finally:
         shutil.rmtree(dump, ignore_errors=True)
     t0 = time.perf_counter()
@@ -819,8 +1095,27 @@ def main() -> int:
     print("scan: alive keys equal the replay in each scan's order; every other "
           "report line byte-identical across synthetic and segfile, v5 and v4 "
           "(timing lines aside)")
+    phase_kafka_identity(np, cli, kernels)
+    from kafka_topic_analyzer_tpu_torch.tools.bench_e2e import BrokerProcess
+
+    want = template_expectations(np, KAFKA_FULL)
+    kafka = {}
+    with BrokerProcess(**KAFKA_FULL, compression=0) as port:
+        bootstrap = ["-b", f"127.0.0.1:{port}"]
+        for label, argv, kernel in (("kafka v5", bootstrap, "counters_merge"),
+                                    ("kafka v4", bootstrap + v4, "counters_update")):
+            launches[kernel]["kafka"], kafka[label], result = phase_scan(
+                torch, np, cli, kernels, label, argv, kernel,
+                per_partition=KAFKA_FULL["windows"] * KAFKA_FULL["R"], kind="kafka")
+            if not result.fused or result.fallbacks:
+                fail(f"scan {label}: fused {result.fused}, fallbacks {result.fallbacks}")
+            check_template_scan(np, label, result.metrics, want)
+    if kafka["kafka v4"] != kafka["kafka v5"]:
+        fail("scan: the kafka v4 report differs from the kafka v5 report "
+             "(timing lines aside)")
+    print("scan: the kafka v5 and v4 reports are byte-identical (timing lines aside)")
     for row in (merge_row, update_row):
-        row["launches"] = launches[row["name"]]["segfile"]
+        row["launches"] = launches[row["name"]]["kafka"]
         row["launches_by_path"] = launches[row["name"]]
     print(json.dumps({"kernels": [merge_row, update_row]}))
     print(json.dumps({

@@ -8,10 +8,11 @@ counterpart is easy to find.  The port imports ``torch`` and numpy, never
 ``jax`` and nothing of the reference package: it keeps its own copies of
 the host code it needs.
 
-Ported so far (wire format v5 with alive-pair compaction, one device,
-superbatch K=1): synthetic source → v5 pack + pair table → H2D → table
-merge → finalize → report (`cli.py`, ``python -m
-kafka_topic_analyzer_tpu_torch``).
+Ported so far (one device, superbatch K=1): the Kafka wire, synthetic
+and segment-file sources → wire v5 or v4 rows (numpy, the native shim, or
+fused decode→pack into pinned memory) → H2D → the counter kernels
+(`ops/counters_merge.py`, `ops/counters_update.py`) and the sketch folds →
+finalize → report (`cli.py`, ``python -m kafka_topic_analyzer_tpu_torch``).
 """
 
 __version__ = "0.1.0"

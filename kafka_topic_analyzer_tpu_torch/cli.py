@@ -1,22 +1,31 @@
-"""Command line of the port: the synthetic and segment-file batch scans
-(port of the reference's ``cli.py``, the flags of the ported scan paths).
+"""Command line of the port: the Kafka wire, synthetic and segment-file
+batch scans (port of the reference's ``cli.py``, the flags of the ported
+scan paths).
 
     python -m kafka_topic_analyzer_tpu_torch -t T \\
-        (--source synthetic --synthetic SPEC | --source segfile \\
-         --segment-dir DIR) -c --distinct-keys-per-partition \\
-        --quantiles-per-partition --pallas [--batch-size B] \\
-        [--alive-bitmap-bits N] [--wire-format auto|v4|v5] \\
-        [--alive-compaction auto|off] [--native auto|on|off] \\
-        [--backend gpu|cpu]
+        ([--source kafka] -b HOST:PORT [--librdkafka K=V,...] \\
+         | --source synthetic --synthetic SPEC \\
+         | --source segfile --segment-dir DIR) \\
+        -c --distinct-keys-per-partition --quantiles-per-partition \\
+        --pallas [--batch-size B] [--alive-bitmap-bits N] \\
+        [--wire-format auto|v4|v5] [--alive-compaction auto|off] \\
+        [--native auto|on|off] [--backend gpu|cpu] \\
+        [--check-crcs] [--on-corruption fail|skip|quarantine] \\
+        [--quarantine-dir DIR] [--on-data-loss fail|report|ignore] \\
+        [--from-timestamp ISO8601|EPOCH_MS] [--dump-segments DIR]
 
 Prints the same report bytes as the reference CLI for the same inputs
-(apart from the two timing lines).  ``--backend gpu`` (the default) runs
+(apart from the two timing lines), with the reference's DEGRADED, CORRUPT
+and DATA-LOSS blocks after it.  ``--source kafka`` (the default) reads the
+topic over the Kafka wire protocol.  ``--backend gpu`` (the default) runs
 on the first CUDA device and fails when there is none; ``--backend cpu``
 runs the same code on the host.  ``--native`` chooses the native ingest
 shim: ``auto`` (the default) uses it when it builds and falls back to
 numpy otherwise, ``on`` raises when it cannot be built, ``off`` runs
-numpy only (and so the chained, not the fused, segment-file path).  An
-empty topic exits 254, the reference's ``exit(-2)``.
+numpy only (and so the chained, not the fused, Kafka and segment-file
+paths).  Exit status: 254 for an empty topic (the reference's
+``exit(-2)``), 1 for an error, 3 when partitions degraded, 4 when corrupt
+frames were skipped, 5 when ``--on-data-loss fail`` aborted the scan.
 """
 
 from __future__ import annotations
@@ -27,17 +36,39 @@ from typing import Dict, Optional
 
 from kafka_topic_analyzer_tpu_torch import __version__
 from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
-from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
-from kafka_topic_analyzer_tpu_torch.engine import run_scan
+from kafka_topic_analyzer_tpu_torch.config import (
+    AnalyzerConfig,
+    CorruptionConfig,
+    DataLossConfig,
+)
+from kafka_topic_analyzer_tpu_torch.engine import ScanResult, run_scan
 from kafka_topic_analyzer_tpu_torch.io import native
 from kafka_topic_analyzer_tpu_torch.io.kafka_codec import KafkaProtocolError
-from kafka_topic_analyzer_tpu_torch.io.segfile import SegmentFileSource
+from kafka_topic_analyzer_tpu_torch.io.kafka_wire import DataLossError, KafkaWireSource
+from kafka_topic_analyzer_tpu_torch.io.segfile import (
+    SegmentDumpWriter,
+    SegmentFileSource,
+    TeeSource,
+)
 from kafka_topic_analyzer_tpu_torch.io.source import RecordSource
 from kafka_topic_analyzer_tpu_torch.io.synthetic import SyntheticSource, SyntheticSpec
-from kafka_topic_analyzer_tpu_torch.report import render_report
+from kafka_topic_analyzer_tpu_torch.report import (
+    render_corrupt_block,
+    render_data_loss_block,
+    render_degraded_block,
+    render_report,
+)
 
 #: Exit status of a scan of an empty topic (the reference's ``exit(-2)``).
 EXIT_EMPTY_TOPIC = 254
+#: The scan finished but dropped partitions whose retry budget ran out:
+#: the report undercounts them.  Takes precedence over `EXIT_CORRUPT`.
+EXIT_DEGRADED = 3
+#: The scan finished but skipped deterministically corrupt frames
+#: (``--on-corruption skip|quarantine``): the metrics exclude their records.
+EXIT_CORRUPT = 4
+#: ``--on-data-loss fail`` aborted the scan because the log moved under it.
+EXIT_DATA_LOSS = 5
 
 
 def parse_kv_pairs(text: Optional[str]) -> Dict[str, str]:
@@ -61,6 +92,11 @@ def build_parser() -> argparse.ArgumentParser:
                    version=f"kafka-topic-analyzer-tpu-torch {__version__}")
     p.add_argument("-t", "--topic", required=True, metavar="TOPIC",
                    help="The topic to analyze")
+    p.add_argument("-b", "--bootstrap-server", metavar="BOOTSTRAP_SERVER",
+                   help="Bootstrap server(s) to work with, comma separated")
+    p.add_argument("--librdkafka", metavar="LIBRDKAFKA",
+                   help="Options to pass into the underlying consumer, comma "
+                        "separated key=value pairs")
     p.add_argument("-c", "--count-alive-keys", action="store_true",
                    help="Counts the effective number of alive keys in a log "
                         "compacted topic. A key is 'alive' when it is present "
@@ -68,11 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", choices=["gpu", "cpu"], default="gpu",
                    help="Device the scan runs on: the first CUDA device "
                         "(gpu) or the host (cpu). Default: gpu")
-    p.add_argument("--source", choices=["synthetic", "segfile"],
-                   default="synthetic",
-                   help="Record source: a synthetic topic, or .ktaseg "
-                        "segment dumps (the Kafka wire source is not yet "
-                        "ported)")
+    p.add_argument("--source", choices=["kafka", "synthetic", "segfile"],
+                   default="kafka",
+                   help="Record source. 'kafka' reads the real topic via the "
+                        "wire protocol; 'synthetic'/'segfile' are cluster-free")
     p.add_argument("--synthetic", metavar="SPEC",
                    help="Synthetic workload spec, comma separated k=v: "
                         "partitions,messages,keys,key_null,tombstones,vmin,"
@@ -115,6 +150,40 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Use the native C++ ingest shim when available "
                         "(auto), always (on: fail if it cannot be built) "
                         "or never (off)")
+    p.add_argument("--from-timestamp", metavar="ISO8601|EPOCH_MS",
+                   help="Scan only records at or after this time (kafka "
+                        "source: broker-side ListOffsets timestamp lookup). "
+                        "Accepts epoch milliseconds or ISO-8601, e.g. "
+                        "2026-01-01T00:00:00")
+    p.add_argument("--dump-segments", metavar="DIR",
+                   help="While scanning, dump record metadata into .ktaseg "
+                        "chunks so the topic can be re-analyzed from disk")
+    p.add_argument("--check-crcs", action="store_true",
+                   help="Verify record-batch checksums (CRC32-C) while "
+                        "decoding, like librdkafka's check.crcs. Without it, "
+                        "corruption detection only catches structural "
+                        "damage; payload bit rot decodes as garbage values")
+    p.add_argument("--on-corruption", choices=["fail", "skip", "quarantine"],
+                   default="fail", metavar="POLICY",
+                   help="What to do with a deterministically corrupt record "
+                        "frame (one that fails decode identically on a "
+                        "re-fetch): 'fail' aborts the scan (default), 'skip' "
+                        "skips exactly that frame and finishes with exit "
+                        f"code {EXIT_CORRUPT}, 'quarantine' additionally "
+                        "spools the raw frame + JSON sidecar to "
+                        "--quarantine-dir")
+    p.add_argument("--quarantine-dir", metavar="DIR",
+                   help="Directory for quarantined corrupt frames "
+                        "(requires --on-corruption=quarantine)")
+    p.add_argument("--on-data-loss", choices=["fail", "report", "ignore"],
+                   default="report", metavar="POLICY",
+                   help="What to do when the log mutates out from under "
+                        "the scan (retention races past the cursor, "
+                        "truncation after an unclean leader election): "
+                        f"'fail' aborts with exit code {EXIT_DATA_LOSS}, "
+                        "'report' (default) finishes with exit 0 and a "
+                        "DATA-LOSS block naming every lost range, 'ignore' "
+                        "finishes with exit 0 and no block")
     return p
 
 
@@ -133,7 +202,52 @@ def resolve_native(args) -> bool:
     return args.native == "auto" and native.native_available()
 
 
+def parse_timestamp_ms(text: str) -> int:
+    """Epoch milliseconds, or ISO-8601 (naive strings are taken as UTC).
+    Negative values are refused: they collide with Kafka's ListOffsets
+    sentinels (-1 latest, -2 earliest)."""
+    try:
+        ms = int(text)
+    except ValueError:
+        import datetime
+
+        try:
+            dt = datetime.datetime.fromisoformat(text)
+        except ValueError as e:
+            raise ValueError(
+                f"bad --from-timestamp {text!r}: expected epoch ms or ISO-8601"
+            ) from e
+        if dt.tzinfo is None:
+            dt = dt.replace(tzinfo=datetime.timezone.utc)
+        ms = int(dt.timestamp() * 1000)
+    if ms < 0:
+        raise ValueError(
+            f"bad --from-timestamp {text!r}: must not be before the epoch"
+        )
+    return ms
+
+
+def parse_from_timestamp_flag(args) -> "int | None":
+    """--from-timestamp in ms, refused for sources without a broker-side
+    timestamp index."""
+    if not args.from_timestamp:
+        return None
+    if args.source != "kafka":
+        raise ValueError(
+            "--from-timestamp requires --source kafka (broker-side "
+            "timestamp index lookup)"
+        )
+    return parse_timestamp_ms(args.from_timestamp)
+
+
 def make_source(args, use_native: bool) -> RecordSource:
+    if args.source != "kafka" and (
+        args.on_corruption != "fail" or args.quarantine_dir
+    ):
+        raise ValueError(
+            "--on-corruption/--quarantine-dir require --source kafka "
+            "(only the wire scan can classify and re-fetch frames)"
+        )
     if args.source == "segfile":
         if not args.segment_dir:
             raise SystemExit(
@@ -142,17 +256,49 @@ def make_source(args, use_native: bool) -> RecordSource:
                 "http(s)://host:port/bucket or s3://bucket/prefix)"
             )
         return SegmentFileSource(args.segment_dir, topic=args.topic)
-    spec = SyntheticSpec.from_kv(parse_kv_pairs(args.synthetic))
-    if use_native:
-        return native.NativeSyntheticSource(spec)
-    return SyntheticSource(spec)
+    if args.source == "synthetic":
+        spec = SyntheticSpec.from_kv(parse_kv_pairs(args.synthetic))
+        if use_native:
+            return native.NativeSyntheticSource(spec)
+        return SyntheticSource(spec)
+    if not args.bootstrap_server:
+        raise SystemExit("--source kafka requires -b/--bootstrap-server")
+    overrides = parse_kv_pairs(args.librdkafka)
+    if args.check_crcs:
+        # The explicit flag wins over a --librdkafka check.crcs override.
+        overrides["check.crcs"] = "true"
+    corruption = None
+    if args.on_corruption != "fail" or args.quarantine_dir:
+        corruption = CorruptionConfig(
+            policy=args.on_corruption, quarantine_dir=args.quarantine_dir
+        )
+    data_loss = None
+    if args.on_data_loss != "report":
+        data_loss = DataLossConfig(policy=args.on_data_loss)
+    return KafkaWireSource(
+        bootstrap_servers=args.bootstrap_server,
+        topic=args.topic,
+        overrides=overrides,
+        use_native_hashing=use_native,
+        # None lets a --librdkafka on.corruption/quarantine.dir (or
+        # on.data.loss) override apply; explicit flags win.
+        corruption=corruption,
+        data_loss=data_loss,
+    )
+
+
+def wrap_with_dump(args, source: RecordSource) -> RecordSource:
+    """The source behind a segment-dump tee when --dump-segments is set."""
+    if not args.dump_segments:
+        return source
+    return TeeSource(source, SegmentDumpWriter(args.dump_segments, args.topic))
 
 
 def setup(args) -> "tuple[RecordSource, AnalyzerConfig, bool]":
     """Source, config and the resolved ``--native`` from parsed flags;
     raises ValueError on a bad flag value."""
     use_native = resolve_native(args)
-    source = make_source(args, use_native)
+    source = wrap_with_dump(args, make_source(args, use_native))
     config = AnalyzerConfig(
         num_partitions=len(source.partitions()),
         batch_size=args.batch_size,
@@ -167,29 +313,81 @@ def setup(args) -> "tuple[RecordSource, AnalyzerConfig, bool]":
     return source, config, use_native
 
 
-def main(argv: "list[str] | None" = None) -> int:
-    args = build_parser().parse_args(argv)
-    try:
-        source, config, use_native = setup(args)
-    except (ValueError, OSError, KafkaProtocolError) as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 1
-    if source.is_empty():
+def resolve_start_offsets(source, from_ts_ms, label):
+    """(start_at, exhausted): per-partition first offsets at or after the
+    cutoff from the broker's timestamp index; exhausted=True (with the
+    message printed) when nothing remains at or after it."""
+    if from_ts_ms is None:
+        return None, False
+    start_at = source.offsets_for_timestamp(from_ts_ms)
+    _, end = source.watermarks()
+    if all(start_at.get(p, 0) >= end[p] for p in end):
         print(
-            "Given topic has no content, no analysis possible. Exiting.",
+            f"No records at or after {label} — nothing to analyze.",
             file=sys.stderr,
         )
-        return EXIT_EMPTY_TOPIC
-    backend = TorchBackend(config, device=args.backend, use_native=use_native)
-    print(f"Subscribing to {args.topic}")
-    print("Starting message consumption...")
+        return None, True
+    return start_at, False
+
+
+def scan_issue_exit(result: ScanResult, data_loss_policy: str) -> int:
+    """Print the warning blocks of what the scan booked (data loss, unless
+    ignored; corrupt frames; degraded partitions) after the report, and
+    pick the exit status: degraded wins over corrupt."""
+    rc = 0
+    if result.lost_partitions and data_loss_policy != "ignore":
+        sys.stdout.write(render_data_loss_block(result.lost_partitions))
+    if result.corrupt_partitions:
+        sys.stdout.write(render_corrupt_block(result.corrupt_partitions))
+        rc = EXIT_CORRUPT
+    if result.degraded_partitions:
+        sys.stdout.write(render_degraded_block(result.degraded_partitions))
+        rc = EXIT_DEGRADED
+    return rc
+
+
+def run(args) -> "tuple[int, ScanResult | None]":
+    """One scan from parsed flags: the report and its warning blocks go to
+    stdout, errors to stderr.  Returns the exit status and the scan's
+    result (None when no scan ran)."""
+    source = None
     try:
-        result = run_scan(args.topic, source, backend, args.batch_size)
+        try:
+            from_ts_ms = parse_from_timestamp_flag(args)
+            source, config, use_native = setup(args)
+            start_at, exhausted = resolve_start_offsets(
+                source, from_ts_ms, args.from_timestamp
+            )
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1, None
+        if exhausted:
+            return 0, None
+        if source.is_empty():
+            print(
+                "Given topic has no content, no analysis possible. Exiting.",
+                file=sys.stderr,
+            )
+            return EXIT_EMPTY_TOPIC, None
+        backend = TorchBackend(config, device=args.backend, use_native=use_native)
+        print(f"Subscribing to {args.topic}")
+        print("Starting message consumption...")
+        result = run_scan(
+            args.topic, source, backend, args.batch_size, start_at=start_at
+        )
+    except DataLossError as e:
+        # --on-data-loss fail: the loss is booked; no checkpoint is
+        # written (snapshots are not ported).
+        print(f"error: DATA-LOSS: {e}", file=sys.stderr)
+        return EXIT_DATA_LOSS, None
     except (OSError, KafkaProtocolError) as e:
-        # A damaged dump or an unreadable file: one line, as the
-        # reference prints it.
+        # A broker or file fault, or a damaged frame or dump: one line,
+        # as the reference prints it.
         print(f"error: {e}", file=sys.stderr)
-        return 1
+        return 1, None
+    finally:
+        if source is not None and hasattr(source, "close"):
+            source.close()  # flush segment dumps, release broker connections
     sys.stdout.write(
         render_report(
             args.topic,
@@ -200,4 +398,8 @@ def main(argv: "list[str] | None" = None) -> int:
             show_alive_keys=args.count_alive_keys,
         )
     )
-    return 0
+    return scan_issue_exit(result, args.on_data_loss), result
+
+
+def main(argv: "list[str] | None" = None) -> int:
+    return run(build_parser().parse_args(argv))[0]

@@ -1,5 +1,7 @@
 """Static configuration of one analysis run (port of the reference's
-``AnalyzerConfig``).
+``AnalyzerConfig``), and the Kafka wire scan's three transport policies
+(``TransportRetryConfig``, ``CorruptionConfig``, ``DataLossConfig``, the
+reference's, with the same validation and error text).
 
 Same fields, defaults and validation as the reference, restricted to what
 the port runs: wire format 4 or 5, alive-pair compaction auto or off, one
@@ -14,6 +16,139 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class TransportRetryConfig:
+    """Transport-fault tolerance knobs for the live Kafka scan.
+
+    Not part of `AnalyzerConfig`: retry pacing changes neither state
+    shapes nor fold semantics.  Mapped from the librdkafka-style
+    ``--librdkafka`` overrides table in io/kafka_wire.py.
+    """
+
+    #: First delay after a transport failure (librdkafka ``retry.backoff.ms``;
+    #: ``reconnect.backoff.ms`` raises it too when set higher).  Doubles per
+    #: consecutive failure.
+    backoff_ms: int = 100
+    #: Backoff ceiling (librdkafka ``reconnect.backoff.max.ms``).
+    backoff_max_ms: int = 10_000
+    #: Consecutive transport failures a partition survives before it is
+    #: marked *degraded* (scan continues without it) instead of retrying
+    #: forever.  Non-librdkafka knob: ``transport.retry.budget``.
+    retry_budget: int = 8
+    #: Fractional jitter applied to every delay (librdkafka applies ±20%):
+    #: a delay d is drawn uniformly from [d·(1-j), d·(1+j)].
+    jitter: float = 0.2
+
+    def __post_init__(self) -> None:
+        if self.backoff_ms < 1:
+            raise ValueError("retry.backoff.ms must be >= 1")
+        if self.backoff_max_ms < self.backoff_ms:
+            raise ValueError(
+                "reconnect.backoff.max.ms must be >= retry.backoff.ms"
+            )
+        if self.retry_budget < 1:
+            raise ValueError("transport.retry.budget must be >= 1")
+        if not (0.0 <= self.jitter < 1.0):
+            raise ValueError("retry jitter must be in [0, 1)")
+
+    @classmethod
+    def from_overrides(cls, overrides: dict) -> "TransportRetryConfig":
+        """Pop the retry-related librdkafka-style properties out of an
+        overrides dict (mutating it, like the other knob parsers in
+        io/kafka_wire.py) and build the config."""
+        base = int(overrides.pop("retry.backoff.ms", 100))
+        # librdkafka paces reconnect attempts separately; this client runs
+        # one schedule, so an explicitly higher reconnect floor wins.
+        base = max(base, int(overrides.pop("reconnect.backoff.ms", base)))
+        return cls(
+            backoff_ms=base,
+            backoff_max_ms=max(
+                base, int(overrides.pop("reconnect.backoff.max.ms", 10_000))
+            ),
+            retry_budget=int(overrides.pop("transport.retry.budget", 8)),
+        )
+
+
+#: Valid --on-corruption policies, in escalation order.
+CORRUPTION_POLICIES = ("fail", "skip", "quarantine")
+
+
+@dataclasses.dataclass(frozen=True)
+class CorruptionConfig:
+    """Poison-frame policy for the live Kafka scan (io/kafka_wire.py).
+
+    Like `TransportRetryConfig`, not part of `AnalyzerConfig`: how the
+    scan reacts to corrupt frames changes neither state shapes nor fold
+    semantics.
+
+    Policies (applied only after a re-fetch reproduced the identical
+    failure — a one-shot in-flight bit flip is retried, not classified):
+
+    - ``fail``: abort the scan with the classified error (the default —
+      exactly the pre-corruption-layer behavior);
+    - ``skip``: skip exactly the poisoned frame, account for it
+      per-partition, finish the scan, exit `cli.EXIT_CORRUPT`;
+    - ``quarantine``: like skip, plus the raw frame bytes are spooled to
+      ``quarantine_dir`` with a JSON sidecar (io/quarantine.py) so the
+      evidence survives for offline analysis.
+    """
+
+    policy: str = "fail"
+    quarantine_dir: "str | None" = None
+
+    def __post_init__(self) -> None:
+        if self.policy not in CORRUPTION_POLICIES:
+            raise ValueError(
+                f"on-corruption policy {self.policy!r} invalid "
+                f"({', '.join(CORRUPTION_POLICIES)})"
+            )
+        if self.policy == "quarantine" and not self.quarantine_dir:
+            raise ValueError(
+                "--on-corruption=quarantine requires --quarantine-dir"
+            )
+        if self.quarantine_dir and self.policy != "quarantine":
+            raise ValueError(
+                "--quarantine-dir only applies with --on-corruption=quarantine"
+            )
+
+
+#: Valid --on-data-loss policies, in escalation order.
+DATA_LOSS_POLICIES = ("fail", "report", "ignore")
+
+
+@dataclasses.dataclass(frozen=True)
+class DataLossConfig:
+    """Log-mutation policy for the live Kafka scan (io/kafka_wire.py):
+    what to do when the log MOVES under the scanner and records in
+    ``[cursor, new_log_start)`` are unreachable (retention race), or a
+    leader-epoch divergence proves the log was truncated below the
+    cursor (unclean election).
+
+    Like `CorruptionConfig`, not part of `AnalyzerConfig`.  Whatever the
+    policy, every lost record is spanned (``KafkaWireSource.loss_stats``)
+    — the policy only governs whether the scan continues and how the exit
+    code reflects the loss:
+
+    - ``fail``: abort the scan with the classified error and
+      `cli.EXIT_DATA_LOSS` (the port writes no checkpoint: snapshots are
+      not ported);
+    - ``report``: keep scanning the surviving records, print the loss
+      as a DATA-LOSS block after the report, exit 0 (the default);
+    - ``ignore``: keep scanning and exit 0 with no block — for logs
+      where retention churn is expected; the scan result still carries
+      the loss.
+    """
+
+    policy: str = "report"
+
+    def __post_init__(self) -> None:
+        if self.policy not in DATA_LOSS_POLICIES:
+            raise ValueError(
+                f"on-data-loss policy {self.policy!r} invalid "
+                f"({', '.join(DATA_LOSS_POLICIES)})"
+            )
 
 
 @dataclasses.dataclass(frozen=True)

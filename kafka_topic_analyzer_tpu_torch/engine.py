@@ -16,6 +16,10 @@ to where the batches are cut, and the same report.
 
 Partition ids need not be dense: `PartitionIndex` maps the source's ids to
 state rows and the report prints the true ids.
+
+A Kafka wire source may drop partitions (degraded), skip poisoned frames
+(corrupt) or see the log move under it (lost): the result carries what
+the source booked, for the report's warning blocks and the exit code.
 """
 
 from __future__ import annotations
@@ -68,6 +72,20 @@ class ScanResult:
     records: int = 0
     #: True when the rows came from a fused sink.
     fused: bool = False
+    #: The fused sink's records appended as decoded batches, by reason
+    #: (`packing.FusedPackSink.fallbacks`); empty on the chained path.
+    fallbacks: "dict[str, int]" = dataclasses.field(default_factory=dict)
+    #: partition -> reason, for partitions the source dropped after their
+    #: retry budget ran out: the metrics undercount their tails.
+    degraded_partitions: "dict[int, str]" = dataclasses.field(default_factory=dict)
+    #: partition -> {"frames", "records", "bytes", "quarantined", "kinds",
+    #: "spans"} for poisoned frames skipped under ``--on-corruption``: the
+    #: metrics exclude exactly their records.
+    corrupt_partitions: "dict[int, dict]" = dataclasses.field(default_factory=dict)
+    #: partition -> {"records", "ranges", "reasons", "authoritative",
+    #: "spans"} for offset ranges the log took back during the scan: the
+    #: metrics cover the surviving records.
+    lost_partitions: "dict[int, dict]" = dataclasses.field(default_factory=dict)
 
 
 def fused_gate(source: RecordSource, backend: TorchBackend) -> bool:
@@ -82,8 +100,11 @@ def run_scan(
     backend: TorchBackend,
     batch_size: int,
     prefetch_depth: int = 2,
+    start_at: "dict[int, int] | None" = None,
 ) -> ScanResult:
-    """Full scan of ``topic`` from ``source`` through ``backend``."""
+    """Full scan of ``topic`` from ``source`` through ``backend``;
+    ``start_at`` starts the partitions it names at those offsets (the
+    report keeps the source's watermarks)."""
     pindex = PartitionIndex(source.partitions())
     if len(pindex) != backend.config.num_partitions:
         raise ValueError(
@@ -97,7 +118,7 @@ def run_scan(
     records = 0
     items = prefetch(
         iter_staged(
-            source.batches(batch_size, **sink),
+            source.batches(batch_size, start_at=start_at, **sink),
             lambda b: backend.prepare(pindex.dense_batch(b)),
         ),
         prefetch_depth,
@@ -119,4 +140,15 @@ def run_scan(
         end_offsets=end_offsets,
         records=records,
         fused=fused,
+        fallbacks=dict(sink["sink"].fallbacks) if fused else {},
+        degraded_partitions=_booked(source, "degraded_partitions"),
+        corrupt_partitions=_booked(source, "corruption_stats"),
+        lost_partitions=_booked(source, "loss_stats"),
     )
+
+
+def _booked(source: RecordSource, method: str) -> dict:
+    """What a source that books scan issues (the Kafka wire source, or a
+    tee of it) reports through ``method``; empty for other sources."""
+    fn = getattr(source, method, None)
+    return dict(fn()) if fn is not None else {}

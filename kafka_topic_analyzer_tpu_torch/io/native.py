@@ -1,6 +1,6 @@
 """ctypes bindings to the port's native ingest shim (port of the
-reference's ``io/native.py``, the entry points of the synthetic and
-segment-file scans).
+reference's ``io/native.py``: the entry points of the synthetic,
+segment-file and Kafka wire scans).
 
 The shim is the port's own copy of ``native/ingest.cpp``, built at first
 use by `_build.build_native` into ``build/torch_native/``.  It fills
@@ -88,6 +88,17 @@ _SIGNATURES = {
         _I64,
         [_P, _I64, _P, _I32, _P, _P, _P, _P, _P, _I32, _P, _P, _I64, _I64]
         + _FUSED_TAIL + [_P],
+    ),
+    "kta_crc32c": (ctypes.c_uint32, [_P, _I64]),
+    "kta_snappy_decompress": (_I64, [_P, _I64, _P, _I64]),
+    "kta_lz4_decompress": (_I64, [_P, _I64, _P, _I64]),
+    "kta_decode_records": (_I64, [_P, _I64, _I32, _I64, _I64] + [_P] * 8),
+    "kta_scan_record_set": (_I64, [_P, _I64, _I32, _P, _P]),
+    "kta_decode_record_set": (_I64, [_P, _I64, _I32, _I64] + [_P] * 10),
+    "kta_decode_pack_record_set": (
+        _I64,
+        [_P, _I64, _I32, _I64, _I64, _I64, _I32] + _FUSED_TAIL
+        + [_P, _I64, _P, _P],
     ),
 }
 
@@ -253,6 +264,123 @@ def pairs_to_masks_native(
     if touched < 0:
         raise RuntimeError(f"kta_pairs_to_masks failed rc={touched}")
     return int(touched)
+
+
+def _bytes_in(buf) -> "tuple[np.ndarray, ctypes.c_void_p]":
+    """A read-only uint8 view of any bytes-like ``buf`` (bytes, bytearray,
+    memoryview, uint8 array) and its pointer, without a copy."""
+    data = buf if isinstance(buf, np.ndarray) else np.frombuffer(buf, dtype=np.uint8)
+    return data, _in(data, np.uint8)
+
+
+def crc32c_native(data) -> int:
+    """CRC32-C (Castagnoli) of a bytes-like buffer (Kafka's record-batch
+    checksum)."""
+    arr, ptr = _bytes_in(data)
+    return int(load_library().kta_crc32c(ptr, len(arr)))
+
+
+def decompress_native(fn_name: str, data, cap: int) -> "bytes | None":
+    """``kta_snappy_decompress`` or ``kta_lz4_decompress`` of ``data`` into
+    at most ``cap`` bytes; None on malformed input or a short ``cap`` (the
+    Python decoders then give the verdict)."""
+    fn = getattr(load_library(), fn_name)
+    src, ptr = _bytes_in(data)
+    out = np.empty(cap, dtype=np.uint8)
+    n = fn(ptr, len(src), _out(out, np.uint8), cap)
+    return out[:n].tobytes() if n >= 0 else None
+
+
+#: The record decoder's column layout, in the shim's argument order: one
+#: spec for every allocation (per frame, per record set, marker-only).
+_SOA_COLUMNS = (
+    ("offsets", np.int64),
+    ("ts_ms", np.int64),
+    ("key_len", np.int32),
+    ("value_len", np.int32),
+    ("key_null", np.uint8),
+    ("value_null", np.uint8),
+    ("key_hash32", np.uint32),
+    ("key_hash64", np.uint64),
+)
+
+
+def _soa_columns(n: int) -> "dict[str, np.ndarray]":
+    return {k: np.empty(n, dtype=d) for k, d in _SOA_COLUMNS}
+
+
+def _soa_ptrs(out: "dict[str, np.ndarray]") -> list:
+    return [_out(out[k], d) for k, d in _SOA_COLUMNS]
+
+
+def decode_records_native(frame) -> "dict[str, np.ndarray] | None":
+    """One RecordBatch v2 frame (`kafka_codec.BatchFrame`) decoded into
+    columns with the key hashes computed inline.  None for a legacy
+    message set or malformed input, so the caller's Python decoder gives
+    the precise error."""
+    if getattr(frame, "legacy_records", None) is not None:
+        return None
+    n = frame.num_records
+    # num_records is an untrusted wire field: a record needs >= 7 payload
+    # bytes, so a larger count is malformed; reject it before sizing eight
+    # arrays by it.
+    if n > max(len(frame.payload) // 7, 0):
+        return None
+    payload, ptr = _bytes_in(frame.payload)
+    out = _soa_columns(n)
+    rc = load_library().kta_decode_records(
+        ptr, len(payload), n, frame.base_offset, frame.first_ts, *_soa_ptrs(out)
+    )
+    return out if rc == n else None
+
+
+def scan_record_set_native(buf, verify_crc: bool = False) -> "tuple[int, int, int]":
+    """Header walk of a record set's native-decodable prefix (consecutive
+    complete uncompressed v2 frames): ``(records, consumed_bytes,
+    covered_end)``, without touching the records."""
+    data, ptr = _bytes_in(buf)
+    st = np.zeros(2, dtype=np.int64)
+    st[1] = -1
+    n = load_library().kta_scan_record_set(
+        ptr, len(data), 1 if verify_crc else 0,
+        _out(st[0:1], np.int64), _out(st[1:2], np.int64),
+    )
+    if n < 0:
+        return 0, 0, -1
+    return int(n), int(st[0]), int(st[1])
+
+
+def decode_record_set_native(
+    buf, verify_crc: bool = False, prescan: "tuple[int, int, int] | None" = None,
+) -> "tuple[dict[str, np.ndarray], int, int]":
+    """The native-decodable prefix of a record set decoded in one call:
+    ``(columns, consumed_bytes, covered_end)``, where ``covered_end`` is
+    the largest ``base_offset + last_offset_delta + 1`` of the decoded
+    frames (-1 none).  A malformed frame inside the prefix gives
+    ``consumed = 0``, so the per-frame path can classify it.
+    ``prescan``: a `scan_record_set_native` result for this buffer (its
+    CRC pass already done)."""
+    lib = load_library()
+    data, ptr = _bytes_in(buf)
+    if prescan is not None:
+        n, consumed, covered = prescan
+        verify_crc = False  # the prescan checksummed the prefix
+    else:
+        n, consumed, covered = scan_record_set_native(data, verify_crc)
+    if n == 0:
+        # No messages, but the prefix may still cover offsets (control
+        # markers only): the caller advances past it.
+        return _soa_columns(0), consumed, covered
+    out = _soa_columns(n)
+    st = np.zeros(2, dtype=np.int64)
+    st[1] = -1
+    rc = lib.kta_decode_record_set(
+        ptr, len(data), 1 if verify_crc else 0, n, *_soa_ptrs(out),
+        _out(st[0:1], np.int64), _out(st[1:2], np.int64),
+    )
+    if rc != n:
+        return {}, 0, -1
+    return out, int(st[0]), int(st[1])
 
 
 def _pallas_value_cap(config) -> int:
@@ -440,6 +568,46 @@ def pack_row_init(out: np.ndarray, scratch: np.ndarray, config,
         raise RuntimeError(
             f"kta_pack_row_init layout mismatch: need={need}, buffer={out.nbytes}"
         )
+
+
+def decode_pack_record_set_native(
+    data: np.ndarray,
+    out: np.ndarray,
+    scratch: np.ndarray,
+    config,
+    batch_size: int,
+    dense_partition: int,
+    min_off: int,
+    max_off: int,
+    verify_crc: bool = False,
+    start_pos: int = 0,
+    skip: int = 0,
+) -> "tuple[int, int, int, int, int, bool, int]":
+    """Fused decode→pack of a record set's native-decodable prefix into a
+    row: the records of ``[min_off, max_off)`` are appended until the row
+    is full.  Returns ``(appended, consumed, covered_end, last_off,
+    last_ts_s, row_full, resume_skip)``; on ``row_full`` the caller starts
+    a new row and calls again with ``start_pos=consumed,
+    skip=resume_skip``.  A malformed frame ends the walk at its start (the
+    per-frame path classifies it); a record the row cannot carry raises
+    the numpy packer's ValueError."""
+    st = np.zeros(8, dtype=np.int64)
+    st[4] = skip
+    rc = load_library().kta_decode_pack_record_set(
+        _in(data, np.uint8), len(data), 1 if verify_crc else 0, start_pos,
+        min_off, max_off, dense_partition,
+        *_fused_ctail(_fused_pack_params(config, batch_size)),
+        _out(out, np.uint8), out.nbytes, _out(scratch, np.int64),
+        _out(st, np.int64),
+    )
+    if rc == -2:
+        _raise_pack_range(int(st[6]), int(st[7]))
+    if rc < 0:
+        raise RuntimeError(f"kta_decode_pack_record_set failed rc={rc}")
+    return (
+        int(rc), int(st[0]), int(st[1]), int(st[2]), int(st[3]),
+        bool(st[5]), int(st[4]),
+    )
 
 
 def pack_append_columns_native(

@@ -24,7 +24,8 @@ arrays:
 Files are named ``{topic}-{partition}.ktaseg`` or, for rolled chunks,
 ``{topic}-{partition}.c{chunk}.ktaseg``; the reader orders a partition's
 chunks by start offset.  The bytes are the reference's: each package reads
-the other's dumps.
+the other's dumps.  `SegmentDumpWriter` and `TeeSource` write the rolled
+chunks of a live scan (``--dump-segments``).
 """
 
 from __future__ import annotations
@@ -250,6 +251,141 @@ class SegmentFile:
         if self.has_offsets:
             batch.offsets = self.column("offsets", lo, hi)
         return batch.copy() if copy else batch
+
+
+class SegmentDumpWriter:
+    """Incrementally dump a scan's record metadata into rolled .ktaseg
+    chunks (``{topic}-{p}.c{N}.ktaseg``), one writer shared by a whole scan.
+
+    Buffers per partition and rolls a chunk to disk every
+    ``records_per_chunk`` records, so memory stays bounded regardless of
+    topic size.  Thread-safe across per-shard prefetch threads because each
+    partition is fed by exactly one shard (records.py contract) — state is
+    per partition.
+    """
+
+    def __init__(self, directory: str, topic: str, records_per_chunk: int = 1 << 18):
+        os.makedirs(directory, exist_ok=True)
+        # Refuse a directory that already holds this topic's segments: a
+        # shorter re-dump would leave stale chunks behind, and the reader
+        # would silently merge old and new records.  Same name pattern as
+        # the reader's enumeration (segstore), so the staleness check can
+        # never desync from what a later scan would pick up.
+        from kafka_topic_analyzer_tpu_torch.io.segstore import topic_chunk_pattern
+
+        pattern = topic_chunk_pattern(topic)
+        stale = [f for f in os.listdir(directory) if pattern.match(f)]
+        if stale:
+            raise ValueError(
+                f"{directory!r} already contains {len(stale)} segment file(s) "
+                f"for topic {topic!r} (e.g. {stale[0]}) — remove them or "
+                "choose another directory"
+            )
+        self.directory = directory
+        self.topic = topic
+        self.records_per_chunk = records_per_chunk
+        self._buf: Dict[int, List[RecordBatch]] = {}
+        self._buffered: Dict[int, int] = {}
+        self._chunk_idx: Dict[int, int] = {}
+        self._written: Dict[int, int] = {}
+        #: True start offsets of the source (set via set_base_offsets):
+        #: offset-less (gapless) sources may still start above 0 after
+        #: retention, and chunk headers must not silently rebase to 0.
+        self._base: Dict[int, int] = {}
+
+    def set_base_offsets(self, start_offsets: Dict[int, int]) -> None:
+        self._base.update(start_offsets)
+
+    def append(self, batch: RecordBatch) -> None:
+        valid = batch.valid
+        if not valid.all():
+            batch = batch.take(np.nonzero(valid)[0])
+        for p in np.unique(batch.partition):
+            sub = batch.take(np.nonzero(batch.partition == p)[0])
+            p = int(p)
+            self._buf.setdefault(p, []).append(sub)
+            self._buffered[p] = self._buffered.get(p, 0) + len(sub)
+            if self._buffered[p] >= self.records_per_chunk:
+                self._flush(p)
+
+    def _flush(self, p: int) -> None:
+        batches = self._buf.pop(p, [])
+        self._buffered[p] = 0
+        if not batches:
+            return
+        full = RecordBatch.concat(batches)
+        idx = self._chunk_idx.get(p, 0)
+        self._chunk_idx[p] = idx + 1
+        path = os.path.join(self.directory, f"{self.topic}-{p}.c{idx}.ktaseg")
+        # Offset-carrying sources: the first record's true offset; gapless
+        # sources: the source's start offset plus records already written.
+        start = (
+            int(full.offsets[0])
+            if full.offsets is not None
+            else self._base.get(p, 0) + self._written.get(p, 0)
+        )
+        self._written[p] = self._written.get(p, 0) + len(full)
+        write_segment(
+            path,
+            p,
+            start,
+            {
+                "key_len": full.key_len,
+                "value_len": full.value_len,
+                "key_null": full.key_null.astype(np.uint8),
+                "value_null": full.value_null.astype(np.uint8),
+                "ts_ms": full.ts_s * 1000,
+                "key_hash32": full.key_hash32,
+                "key_hash64": full.key_hash64,
+            },
+            offsets=full.offsets,
+        )
+
+    def close(self) -> None:
+        for p in list(self._buf):
+            self._flush(p)
+
+
+class TeeSource(RecordSource):
+    """Wraps a source and dumps every yielded batch through a
+    `SegmentDumpWriter` — scan once from Kafka, re-analyze forever from
+    segments (``--dump-segments``)."""
+
+    def __init__(self, inner: RecordSource, writer: SegmentDumpWriter):
+        self.inner = inner
+        self.writer = writer
+
+    def partitions(self):
+        return self.inner.partitions()
+
+    def watermarks(self):
+        return self.inner.watermarks()
+
+    def is_empty(self):
+        return self.inner.is_empty()
+
+    def offsets_for_timestamp(self, ts_ms: int):
+        return self.inner.offsets_for_timestamp(ts_ms)
+
+    def degraded_partitions(self):
+        return self.inner.degraded_partitions()
+
+    def corruption_stats(self):
+        return self.inner.corruption_stats()
+
+    def corruption_spans(self):
+        return self.inner.corruption_spans()
+
+    def batches(self, batch_size, partitions=None, start_at=None):
+        self.writer.set_base_offsets(self.inner.watermarks()[0])
+        for batch in self.inner.batches(batch_size, partitions, start_at):
+            self.writer.append(batch)
+            yield batch
+
+    def close(self):
+        self.writer.close()
+        if hasattr(self.inner, "close"):
+            self.inner.close()
 
 
 class SegmentFileSource(RecordSource):

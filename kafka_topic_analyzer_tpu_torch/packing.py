@@ -48,8 +48,9 @@ packs through the shim (`io.native`) when it loads; its rows equal the
 numpy rows except for the ORDER of alive pairs, which the native dedupe
 emits first-touch and numpy by slot (the device result is order-free:
 slots are unique), and for the columns of an invalid tail, which the shim
-zeroes.  `FusedPackSink` appends single-partition column runs straight
-into a row, with the same rows as the chained ``pack_batch``.
+zeroes.  `FusedPackSink` appends single-partition column runs, and raw
+Kafka record sets decoded in the same native pass, straight into a row,
+with the same rows as the chained ``pack_batch``.
 
 Device-side unpacking is ``Tensor.view(dtype)`` over byte slices; a
 section whose offset is not a multiple of its item size (possible after a
@@ -749,7 +750,13 @@ class FusedPackSink:
     ``alloc`` returns the buffer the next row is packed into (a pinned
     staging slot; a fresh array by default); ``stage(row[, pairs])`` turns
     a completed row into the backend's staged form.  Not thread-safe: one
-    sink per stream, fed in per-partition offset order."""
+    sink per stream, fed in per-partition offset order.
+
+    ``fallbacks`` counts, by reason, the records a Kafka stream could not
+    decode→pack in one pass (compressed, legacy or salvaged frames, and
+    other frames past a record set's native prefix) and so appended as
+    decoded batches (`append_batch`); a stream that drops the sink
+    altogether books one under ``native-*``."""
 
     def __init__(self, pack_config: AnalyzerConfig, chunk_records: int,
                  dense_of, stage=None, alloc=None):
@@ -774,6 +781,7 @@ class FusedPackSink:
         #: any re-init of the scratch.
         self._compact = pack_config.compact_alive
         self._row_pairs: "list[tuple[np.ndarray, np.ndarray]]" = []
+        self.fallbacks: "dict[str, int]" = {}
 
     def _ensure_row(self) -> None:
         if self._row is None:
@@ -858,11 +866,53 @@ class FusedPackSink:
                 self._complete_row()
         return n
 
-    def append_batch(self, batch: RecordBatch) -> int:
-        """`append_columns` of a single-partition batch (``ts_s`` seconds)."""
+    def append_record_set(
+        self, data, min_off: int, max_off: int, partition: int,
+        verify_crc: bool = False,
+        prescan: "tuple[int, int, int] | None" = None,
+    ) -> "tuple[int, int, int, int]":
+        """Fused decode→pack of a Kafka record set's native-decodable
+        prefix (consecutive complete uncompressed v2 frames): the records
+        of ``partition`` with ``min_off <= offset < max_off`` go straight
+        into rows, completing them as they fill.  Returns ``(accepted,
+        consumed_bytes, covered_end, last_offset)``, the contract of the
+        chained whole-set decode and its acceptance window.  A malformed
+        frame ends the prefix (the caller's per-frame path classifies it);
+        a record the row cannot carry raises the packer's ValueError.
+        ``prescan`` waives the CRC pass only when it covered the whole
+        buffer."""
+        buf = np.frombuffer(data, dtype=np.uint8)
+        dense = self._dense_of(partition)
+        verify = verify_crc and (prescan is None or prescan[1] != len(buf))
+        pos = skip = total = 0
+        covered = last_all = -1
+        while True:
+            self._ensure_row()
+            appended, pos, cov, last_off, last_ts, full, skip = (
+                _native.decode_pack_record_set_native(
+                    buf, self._row, self._scratch, self.pack_config,
+                    self.chunk_records, dense, min_off, max_off, verify,
+                    start_pos=pos, skip=skip,
+                )
+            )
+            if appended:
+                total += appended
+                self._count += appended
+                last_all = last_off
+                self._note(partition, appended, last_off, last_ts)
+            covered = max(covered, cov)
+            if int(self._scratch[0]) == self.chunk_records:
+                self._complete_row()
+            if not full:
+                return total, pos, covered, last_all
+
+    def append_batch(self, batch: RecordBatch, reason: str) -> int:
+        """`append_columns` of a single-partition batch (``ts_s`` seconds),
+        its records booked in `fallbacks` under ``reason``."""
         n = len(batch)
         if n == 0:
             return 0
+        self.fallbacks[reason] = self.fallbacks.get(reason, 0) + n
         p = int(batch.partition[0])
         if not bool((batch.partition == p).all()):
             raise ValueError("fused sink chunks must be single-partition")

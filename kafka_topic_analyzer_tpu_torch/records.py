@@ -103,9 +103,32 @@ class RecordBatch:
             out.offsets = np.concatenate([b.offsets for b in batches])
         return out
 
+    def take(self, idx: np.ndarray) -> "RecordBatch":
+        """Rows ``idx`` (an index array), copied."""
+        return self._map(lambda a: a[idx])
+
     def slice(self, lo: int, hi: int) -> "RecordBatch":
         """Zero-copy view of rows ``[lo, hi)``."""
         return self._map(lambda a: a[lo:hi])
+
+    @classmethod
+    def resplit(
+        cls, pend: "list[RecordBatch]", batch_size: int, force: bool
+    ) -> "tuple[list[RecordBatch], list[RecordBatch], int]":
+        """Re-batch accumulated chunks to ``batch_size``: one concat, then
+        zero-copy slices, and (with ``force``) the short tail as a last
+        batch.  Returns ``(full_batches, remainder_list,
+        remainder_count)``.  The remainder alone is copied out, so it does
+        not pin the concatenated buffer across flushes."""
+        full = cls.concat(pend)
+        out = []
+        lo = 0
+        while len(full) - lo >= batch_size or (force and lo < len(full)):
+            hi = min(lo + batch_size, len(full))
+            out.append(full.slice(lo, hi))
+            lo = hi
+        rest = full.slice(lo, len(full)).copy()
+        return out, ([rest] if len(rest) else []), len(rest)
 
     def copy(self) -> "RecordBatch":
         """Deep copy of every column (detaches views of a file mapping)."""

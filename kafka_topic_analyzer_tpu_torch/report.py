@@ -4,7 +4,10 @@ the reference's ``report.py``: `render_report` and its extension lines).
 Reproduces the report block of xenji/kafka-topic-analyzer's
 ``src/main.rs:123-179``: the global lines, the optional alive-keys block,
 the legend and the 15-column per-partition table.  HLL and quantile lines
-follow after the reference-compatible block.
+follow after the reference-compatible block.  A Kafka scan that degraded,
+skipped corrupt frames or lost records prints the reference's warning
+blocks after the report (`render_degraded_block`, `render_corrupt_block`,
+`render_data_loss_block`).
 """
 
 from __future__ import annotations
@@ -116,3 +119,108 @@ def _render_extensions(metrics: TopicMetrics) -> str:
             )
             lines.append(f"  partition {p} size quantiles: {qs}")
     return ("\n".join(lines) + "\n") if lines else ""
+
+
+def render_degraded_block(degraded: "Dict[int, str]") -> str:
+    """Post-table warning block for partitions dropped mid-scan after
+    exhausting their transport retry budget.  Rendered OUTSIDE the
+    reference-compatible report (which stays byte-identical for clean
+    scans): their table rows undercount, so the reader must see why."""
+    if not degraded:
+        return ""
+    bang = "!" * 120
+    lines = [bang, f"WARNING: {len(degraded)} partition(s) DEGRADED — "
+                   "metrics below undercount their unscanned tails"]
+    for p in sorted(degraded):
+        lines.append(f"  partition {p}: {degraded[p]}")
+    lines.append(
+        "Rerun with --resume (snapshot written) once the cluster recovers."
+    )
+    lines.append(bang)
+    return "\n".join(lines) + "\n"
+
+
+def render_corrupt_block(corrupt: "Dict[int, dict]") -> str:
+    """Post-table block for poisoned frames skipped/quarantined under
+    --on-corruption.  Like the degraded block, rendered OUTSIDE the
+    reference-compatible report: the scan COMPLETED, but the metrics
+    exclude exactly the unreadable frames' records, and the reader must
+    see what was lost and where the evidence went."""
+    if not corrupt:
+        return ""
+    bar = "%" * 120
+    frames = sum(d.get("frames", 0) for d in corrupt.values())
+    quarantined = sum(d.get("quarantined", 0) for d in corrupt.values())
+    lines = [
+        bar,
+        f"CORRUPT: {frames} unreadable frame(s) across "
+        f"{len(corrupt)} partition(s) — skipped; metrics exclude exactly "
+        "their records",
+    ]
+    for p in sorted(corrupt):
+        d = corrupt[p]
+        kinds = ", ".join(
+            f"{k} x{n}" for k, n in sorted(d.get("kinds", {}).items())
+        )
+        where = f"partition {p}" if p >= 0 else "another process"
+        lines.append(
+            f"  {where}: {d.get('frames', 0)} frame(s), "
+            f"{d.get('records', 0)} record(s), {d.get('bytes', 0)} bytes"
+            + (f" [{kinds}]" if kinds else "")
+            + (" — quarantined" if d.get("quarantined") else "")
+        )
+    if quarantined:
+        lines.append(
+            "Raw frames + JSON sidecars are spooled in --quarantine-dir."
+        )
+    else:
+        lines.append(
+            "Rerun with --on-corruption=quarantine --quarantine-dir to "
+            "preserve the raw frames."
+        )
+    lines.append(bar)
+    return "\n".join(lines) + "\n"
+
+
+def render_data_loss_block(lost: "Dict[int, dict]") -> str:
+    """Post-table block for offset ranges the log mutated out from under
+    the scan (retention races, truncation after unclean election,
+    resume-below-log-start).  Like the corrupt block, rendered OUTSIDE
+    the reference-compatible report: the metrics describe exactly the
+    surviving records, and the reader must see what the log took back —
+    a truncation additionally marks the partition's fold
+    non-authoritative (records already folded were replaced under the
+    scan)."""
+    if not lost:
+        return ""
+    bar = "#" * 120
+    records = sum(d.get("records", 0) for d in lost.values())
+    lines = [
+        bar,
+        f"DATA-LOSS: {records} record(s) across {len(lost)} partition(s) "
+        "mutated out from under the scan — metrics cover exactly the "
+        "surviving records",
+    ]
+    for p in sorted(lost):
+        d = lost[p]
+        reasons = ", ".join(
+            f"{k} x{n}" for k, n in sorted(d.get("reasons", {}).items())
+        )
+        where = f"partition {p}" if p >= 0 else "another process"
+        spans = ", ".join(
+            f"[{s['start']}, {s['end']})" for s in d.get("spans", [])
+        )
+        lines.append(
+            f"  {where}: {d.get('records', 0)} record(s) in "
+            f"{d.get('ranges', 0)} range(s)"
+            + (f" [{reasons}]" if reasons else "")
+            + (f" at {spans}" if spans else "")
+            + (
+                ""
+                if d.get("authoritative", True)
+                else " — FOLD NON-AUTHORITATIVE (truncation replaced "
+                     "already-counted records)"
+            )
+        )
+    lines.append(bar)
+    return "\n".join(lines) + "\n"

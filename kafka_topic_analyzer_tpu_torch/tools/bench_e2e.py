@@ -1,0 +1,370 @@
+"""A fast loopback Kafka broker for end-to-end runs of the wire scan
+(port of the broker half of the reference's ``tools/bench_e2e.py``:
+`build_templates`, `TemplateBroker` and `BrokerProcess`; its benchmark
+runner, ``run``, is not ported yet).
+
+The serving side must be far faster than the client under test, so the
+broker never encodes per record at fetch time.  It pre-encodes a small set
+of **template RecordBatches** (base_offset 0) and serves every offset
+window as a template copy with the base_offset header patched in place.
+That is valid Kafka wire data: the v2 batch CRC32-C covers attributes
+onward and excludes base_offset/batch_length/leader_epoch/magic/crc
+(io/kafka_codec.py:encode_record_batch), and record offset deltas are
+relative to base_offset, so an 8-byte patch retargets a batch to any
+window at memcpy speed.  Distinct templates carry distinct key sets, so
+the alive-key and HLL paths see ``templates × records_per_batch`` unique
+keys cycling through the topic.  Window ``w`` of every partition is
+template ``w % templates``.
+
+    with BrokerProcess(topic="t", partitions=16, windows=250, R=4000,
+                       n_templates=64, vmin=100, vmax=300,
+                       compression=0, tombstone_every=10) as port:
+        ...  # python -m kafka_topic_analyzer_tpu_torch -t t -b 127.0.0.1:PORT
+"""
+
+from __future__ import annotations
+
+import socket
+import struct
+import threading
+from typing import List, Optional
+
+import numpy as np
+
+from kafka_topic_analyzer_tpu_torch.io import kafka_codec as kc
+
+
+def build_templates(
+    records_per_batch: int,
+    n_templates: int,
+    vmin: int,
+    vmax: int,
+    seed: int = 7,
+    compression: int = kc.COMPRESSION_NONE,
+    tombstone_every: int = 0,
+) -> List[bytes]:
+    """Encode ``n_templates`` RecordBatches (base_offset 0) with disjoint
+    key sets and seeded value sizes in [vmin, vmax]."""
+    rng = np.random.default_rng(seed)
+    base_ts = 1_767_225_600_000  # 2026-01-01T00:00:00Z, ms
+    out = []
+    for t in range(n_templates):
+        sizes = rng.integers(vmin, vmax + 1, size=records_per_batch)
+        recs: List[kc.OffsetRecord] = []
+        for i in range(records_per_batch):
+            key = b"k%04d-%08d" % (t, i)
+            if tombstone_every and i % tombstone_every == (t % tombstone_every):
+                value = None
+            else:
+                value = bytes(int(sizes[i]))
+            recs.append((i, base_ts + i, key, value))
+        out.append(kc.encode_record_batch(recs, compression=compression))
+    return out
+
+
+def _sendmsg_all(conn: socket.socket, bufs: "list") -> None:
+    """sendall semantics for a scatter-gather buffer list (sendmsg may
+    send partially; resume from the exact byte)."""
+    views = [memoryview(b) for b in bufs]
+    i = 0
+    while i < len(views):
+        sent = conn.sendmsg(views[i : i + 512])
+        while i < len(views) and sent >= len(views[i]):
+            sent -= len(views[i])
+            i += 1
+        if sent:
+            views[i] = views[i][sent:]
+
+
+class TemplateBroker:
+    """Loopback Kafka broker serving base_offset-patched template batches.
+
+    Speaks exactly the APIs the wire client negotiates (ApiVersions v0,
+    Metadata v1–v5, ListOffsets v1, Fetch v4) and honors both byte budgets
+    of a Fetch request — partition_max_bytes per partition and the KIP-74
+    request-level max_bytes (first batch always served whole).
+    """
+
+    def __init__(
+        self,
+        topic: str,
+        partitions: int,
+        windows_per_partition: int,
+        templates: List[bytes],
+        records_per_batch: int,
+        brokers: int = 1,
+    ):
+        self.topic = topic
+        self.partitions = list(range(partitions))
+        self.partition_set = set(self.partitions)
+        #: Template split for scatter-gather serving: the first 8 bytes of
+        #: a v2 frame are base_offset (not CRC-covered), so a response is
+        #: [8-byte patched header][shared template tail] pairs — the tails
+        #: are served zero-copy straight from these views by sendmsg.
+        self.tmpl_tails = [memoryview(t)[8:] for t in templates]
+        self.windows = windows_per_partition
+        self.templates = templates
+        self.R = records_per_batch
+        self.end_offset = windows_per_partition * records_per_batch
+        #: N listener sockets = N advertised broker nodes (partition p is
+        #: led by node p % N) — exercises the wire client's
+        #: leader-parallel fetch the way a real multi-broker cluster does.
+        self._socks: List[socket.socket] = []
+        self.ports: List[int] = []
+        for _ in range(max(1, brokers)):
+            s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind(("127.0.0.1", 0))
+            s.listen(16)
+            self._socks.append(s)
+            self.ports.append(s.getsockname()[1])
+        self.port = self.ports[0]
+        self._stop = threading.Event()
+        self._threads: List[threading.Thread] = []
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> "TemplateBroker":
+        for s in self._socks:
+            t = threading.Thread(
+                target=self._accept_loop, args=(s,), daemon=True
+            )
+            t.start()
+            self._threads.append(t)
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        for s in self._socks:
+            try:
+                s.close()
+            except OSError:
+                pass
+
+    def __enter__(self) -> "TemplateBroker":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def _accept_loop(self, sock: socket.socket) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _ = sock.accept()
+            except OSError:
+                return
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            t = threading.Thread(target=self._serve, args=(conn,), daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    @staticmethod
+    def _recv_exact(conn: socket.socket, n: int) -> Optional[bytes]:
+        buf = bytearray()
+        while len(buf) < n:
+            try:
+                chunk = conn.recv(n - len(buf))
+            except OSError:
+                return None
+            if not chunk:
+                return None
+            buf += chunk
+        return bytes(buf)
+
+    # -- serving -------------------------------------------------------------
+
+    def _serve(self, conn: socket.socket) -> None:
+        with conn:
+            while not self._stop.is_set():
+                head = self._recv_exact(conn, 4)
+                if head is None:
+                    return
+                (length,) = struct.unpack(">i", head)
+                payload = self._recv_exact(conn, length)
+                if payload is None:
+                    return
+                api_key, api_version, corr, _client, r = (
+                    kc.decode_request_header(payload)
+                )
+                body = self._dispatch(api_key, api_version, r)
+                # Fetch responses are iovec lists served scatter-gather:
+                # sendmsg lets the kernel read the shared template tails
+                # directly — zero Python-side assembly of the ~64 MB body.
+                if isinstance(body, list):
+                    total = sum(len(b) for b in body)
+                    _sendmsg_all(
+                        conn,
+                        [struct.pack(">ii", 4 + total, corr)] + body,
+                    )
+                else:
+                    conn.sendall(struct.pack(">ii", 4 + len(body), corr))
+                    conn.sendall(body)
+
+    def _fetch_response(self, parts, max_bytes: int) -> "list":
+        """Build the Fetch v4 response as an iovec list: small packed
+        header chunks interleaved with the SHARED template tails (the
+        first 8 bytes of each frame — base_offset, not CRC-covered — are
+        per-window header chunks).  sendmsg serves the tails zero-copy, so
+        the serving side never assembles the multi-MB body at all and
+        stays far faster than the client under test.
+
+        Budgets mirror a real broker: per-partition ``partition_max_bytes``
+        and the KIP-74 request-level ``max_bytes``, with the first
+        non-empty partition always granted one whole batch (minOneMessage),
+        which the wire client's starvation logic relies on."""
+        K = len(self.templates)
+        plan = []  # (pid, err, first_window, n_windows, rs_bytes)
+        budget = max_bytes
+        served_any = False
+        for pid, fetch_offset, pmax, _epoch in parts:
+            if pid not in self.partition_set:
+                plan.append((pid, kc.ERR_UNKNOWN_TOPIC_OR_PARTITION, 0, 0, 0))
+                continue
+            w0 = fetch_offset // self.R  # align down; clients skip below
+            lim = min(pmax, budget)
+            n = 0
+            size = 0
+            while w0 + n < self.windows and (
+                size < lim or (n == 0 and not served_any)
+            ):
+                size += len(self.templates[(w0 + n) % K])
+                n += 1
+            if n:
+                served_any = True
+            budget = max(0, budget - size)
+            plan.append((pid, 0, w0, n, size))
+
+        topic_b = self.topic.encode()
+        head = struct.pack(
+            ">iiH", 0, 1, len(topic_b)
+        ) + topic_b + struct.pack(">i", len(plan))
+        iov = [head]
+        for pid, err, w0, n, size in plan:
+            iov.append(
+                struct.pack(
+                    ">ihqqii", pid, err, self.end_offset,
+                    self.end_offset, 0, size,
+                )
+            )
+            for i in range(n):
+                w = w0 + i
+                iov.append(struct.pack(">q", w * self.R))
+                iov.append(self.tmpl_tails[w % K])
+        return iov
+
+    def _dispatch(self, api_key: int, api_version: int, r: kc.ByteReader) -> bytes:
+        if api_key == kc.API_VERSIONS:
+            return kc.encode_api_versions_response(
+                [
+                    (kc.API_FETCH, 0, 4),
+                    (kc.API_LIST_OFFSETS, 0, 1),
+                    (kc.API_METADATA, 0, 5),
+                ]
+            )
+        if api_key == kc.API_METADATA:
+            requested = []
+            n = r.i32()
+            for _ in range(max(n, 0)):
+                requested.append(r.string())
+            nb = len(self.ports)
+            topics = [
+                kc.TopicMetadata(
+                    0,
+                    self.topic,
+                    [
+                        kc.PartitionMetadata(0, p, p % nb)
+                        for p in self.partitions
+                    ],
+                )
+                if name == self.topic
+                else kc.TopicMetadata(
+                    kc.ERR_UNKNOWN_TOPIC_OR_PARTITION, name or "", []
+                )
+                for name in (requested if requested else [self.topic])
+            ]
+            return kc.encode_metadata_response(
+                kc.MetadataResponse(
+                    {i: ("127.0.0.1", port) for i, port in enumerate(self.ports)},
+                    0,
+                    topics,
+                ),
+                version=api_version,
+            )
+        if api_key == kc.API_LIST_OFFSETS:
+            _topic, parts = kc.decode_list_offsets_request(r)
+            results = []
+            for pid, ts in parts:
+                if pid not in self.partitions:
+                    results.append(
+                        (pid, kc.ERR_UNKNOWN_TOPIC_OR_PARTITION, -1, -1)
+                    )
+                elif ts == kc.EARLIEST_TIMESTAMP:
+                    results.append((pid, 0, -1, 0))
+                elif ts == kc.LATEST_TIMESTAMP:
+                    results.append((pid, 0, -1, self.end_offset))
+                else:
+                    results.append((pid, 0, ts, 0))
+            return kc.encode_list_offsets_response(self.topic, results)
+        if api_key == kc.API_FETCH:
+            _topic, parts, _mw, _mb, max_bytes = kc.decode_fetch_request(r)
+            return self._fetch_response(parts, max_bytes)
+        raise AssertionError(f"bench broker: unsupported api {api_key}")
+
+
+def _broker_child(pipe, topic, partitions, windows, R, n_templates,
+                  vmin, vmax, compression, tombstone_every,
+                  brokers) -> None:
+    """Subprocess entry: build templates, serve, report the port, block.
+
+    The broker must live in its own process — in-process serving steals
+    GIL time from the client under test and the measurement stops being
+    a client-side number."""
+    templates = build_templates(
+        R, n_templates, vmin, vmax,
+        compression=compression, tombstone_every=tombstone_every,
+    )
+    broker = TemplateBroker(
+        topic, partitions, windows, templates, R, brokers=brokers
+    )
+    broker.start()
+    pipe.send(broker.port)
+    pipe.recv()  # parent says stop (or EOFError on parent death)
+
+
+class BrokerProcess:
+    """TemplateBroker in a child process; context manager yields the port."""
+
+    def __init__(self, **kw):
+        self._kw = kw
+
+    def __enter__(self) -> int:
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self._parent, child = ctx.Pipe()
+        self._proc = ctx.Process(
+            target=_broker_child,
+            args=(
+                child,
+                self._kw["topic"], self._kw["partitions"], self._kw["windows"],
+                self._kw["R"], self._kw["n_templates"], self._kw["vmin"],
+                self._kw["vmax"], self._kw["compression"],
+                self._kw.get("tombstone_every", 0),
+                self._kw.get("brokers", 1),
+            ),
+            daemon=True,
+        )
+        self._proc.start()
+        if not self._parent.poll(120):
+            self._proc.terminate()
+            raise RuntimeError("bench broker failed to start within 120s")
+        return self._parent.recv()
+
+    def __exit__(self, *exc) -> None:
+        try:
+            self._parent.send("stop")
+        except OSError:
+            pass
+        self._proc.join(5)
+        if self._proc.is_alive():
+            self._proc.terminate()

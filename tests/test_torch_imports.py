@@ -30,7 +30,9 @@ PORT_FILES = sorted((ROOT / "kafka_topic_analyzer_tpu_torch").rglob("*.py")) + [
 
 def forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "kafka_topic_analyzer_tpu")
+    return top in ("jax", "jaxlib", "kafka_topic_analyzer_tpu",
+                   # the test suite's own modules (its loopback brokers)
+                   "tests", "conftest", "fake_broker", "fake_objstore")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -52,7 +54,8 @@ def test_port_scans_with_jax_and_the_reference_unimportable():
         "sys.modules['jax'] = None\n"
         "sys.modules['kafka_topic_analyzer_tpu'] = None\n"
         "from kafka_topic_analyzer_tpu_torch.cli import main\n"
-        "rc = main(['-t', 't', '--synthetic', 'partitions=2,messages=500,keys=40',\n"
+        "rc = main(['-t', 't', '--source', 'synthetic',\n"
+        "           '--synthetic', 'partitions=2,messages=500,keys=40',\n"
         "           '-c', '--alive-bitmap-bits', '16', '--distinct-keys-per-partition',\n"
         "           '--quantiles-per-partition', '--batch-size', '256',\n"
         "           '--backend', 'cpu'])\n"
@@ -78,7 +81,8 @@ def test_gpu_request_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         TorchBackend(AnalyzerConfig(), device="gpu")
     with pytest.raises(RuntimeError, match="CUDA device requested"):
-        cli.main(["-t", "t", "--synthetic", "messages=10", "--backend", "gpu"])
+        cli.main(["-t", "t", "--source", "synthetic", "--synthetic", "messages=10",
+                  "--backend", "gpu"])
     assert _torch_support.resolve_device("cpu") == torch.device("cpu")
 
 

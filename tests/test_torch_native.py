@@ -115,7 +115,8 @@ def test_failed_build_is_classified_cached_and_honoured_by_the_cli(monkeypatch, 
     assert calls == ["g++"]  # the failure is remembered, not rebuilt
     with pytest.raises(_build.BuildError, match="g\\+\\+ not found on PATH"):
         native.load_library()
-    argv = ["-t", "t", "--synthetic", "partitions=2,messages=300,keys=20",
+    argv = ["-t", "t", "--source", "synthetic",
+            "--synthetic", "partitions=2,messages=300,keys=20",
             "--backend", "cpu", "--batch-size", "128"]
     with pytest.raises(_build.BuildError):
         cli.main(argv + ["--native", "on"])
@@ -278,7 +279,7 @@ def test_pallas_value_cap_refused_by_native_pack_and_fused_append():
             use_pallas_counters=True), use_native=True)
     sink = packing.FusedPackSink(config, 1024, dense_of=lambda p: p)
     with pytest.raises(ValueError, match=msg):
-        sink.append_batch(batch)
+        sink.append_batch(batch, "frame-fallback")
     # Under wire v5 no per-record length reaches a counter kernel.
     v5 = AnalyzerConfig(num_partitions=2, batch_size=1024, use_pallas_counters=True)
     assert packing.pack_batch(batch, v5, use_native=True).tobytes() == \

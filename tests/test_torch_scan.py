@@ -165,9 +165,11 @@ def test_cli_pallas_v4_refusals_match_reference(capsys):
 
 
 def test_cli_empty_topic_exits_254_and_bad_spec_exits_1(capsys):
-    assert cli.main(["-t", "t", "--synthetic", "messages=0", "--backend", "cpu"]) == 254
+    assert cli.main(["-t", "t", "--source", "synthetic", "--synthetic", "messages=0",
+                     "--backend", "cpu"]) == 254
     assert "no content" in capsys.readouterr().err
-    assert cli.main(["-t", "t", "--synthetic", "keys=0", "--backend", "cpu"]) == 1
+    assert cli.main(["-t", "t", "--source", "synthetic", "--synthetic", "keys=0",
+                     "--backend", "cpu"]) == 1
     assert "bad --synthetic key 'keys'" in capsys.readouterr().err
 
 
