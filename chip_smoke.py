@@ -80,7 +80,38 @@ Phases, in order; any failure exits non-zero:
   decoded templates; the two reports must be byte-identical.  Each scan
   prints a ``breakdown kafka`` line: the worker's host ms per row (fetch
   wait, fused decode→pack, the stage's pair table), device copy and fold
-  ms (CUDA events), the busy share.
+  ms (CUDA events), the busy share;
+- oracle: on the Kafka identity topic from each of the three brokers,
+  the numpy exact oracle (``--backend cpu``) and the card (``--backend
+  gpu``) with ``-c --distinct-keys --quantiles
+  --distinct-keys-per-partition --extremes-table``: every exact line
+  equal; each HLL estimate printed beside the oracle's exact count and
+  each size quantile beside the exact one, within DESIGN.md §7's
+  budgets; an oracle scan in a child process must leave CUDA
+  uninitialised and the torch backend unimported;
+- doctor: the 16M-record Kafka v5 and v4 scans and the segment-file v5
+  scan again through the CLI's telemetry session with ``--stats
+  --flight-record --events-jsonl F --trace-json F``: each BOTTLENECK
+  verdict, its stage shares and its throttle-wait, fetch and decode
+  evidence are printed; each report must equal the scan phase's (and,
+  from Kafka, the template expectations), the trace's stage totals must
+  agree with ``--stats`` within 5% and cover 90-100% of the host wall
+  around ``cli.run``, each scan must book 62 ``kta_scan_batches_total``
+  and launch its format's kernel 62 times, and its events must open and
+  close the scan;
+- telemetry cost: the 16M-record Kafka v5 scan with the doctor's flags
+  and without them, in turns (on, off, on, off), records/s of each, each
+  report held against the scan phase's;
+- profiler: the 16M-record segment-file v5 and v4 scans with
+  ``--profile-dir``: the ``torch.profiler`` trace's launches and device
+  time of each kernel (its ``__global__`` name), and the share of the wall
+  that all device kernels and copies take beside the ``breakdown`` busy
+  share of the same scan; the format's kernel must appear 62 times, unless
+  the trace holds no CUDA activity at all, which is printed as a finding.
+
+Every CLI run passes ``--quiet``; the torch backend on the host is
+``--device cpu``.  Telemetry files and traces go under ``build/`` and are
+deleted at the end.
 
 Prints the card's name and power limit (``nvidia-smi``), a ``kernels``
 JSON line (each kernel's back-to-back ``ms``, ``device_ms`` and
@@ -131,6 +162,22 @@ KAFKA_IDENTITY = dict(topic="smoke-kafka", partitions=4, windows=50, R=1000,
 KAFKA_FULL = dict(topic="scan", partitions=16, windows=250, R=4000,
                   n_templates=64, vmin=100, vmax=300, tombstone_every=10)
 KAFKA_IDENTITY_BATCH = 1 << 16
+#: Telemetry sinks and profiler traces of the doctor, telemetry-cost and
+#: profiler phases (under ``build/``, deleted at the end).
+TELEMETRY_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke_telemetry"
+#: The flags of the doctor phase: the CLI's whole telemetry surface.
+DOCTOR_FLAGS = ["--stats", "--flight-record"]
+#: The oracle phase's sketch flags (the reference's oracle drive).
+ORACLE_FLAGS = ["-c", "--alive-bitmap-bits", str(ALIVE_BITS), "--distinct-keys",
+                "--quantiles", "--distinct-keys-per-partition", "--extremes-table"]
+#: DESIGN.md §7's sketch budgets: HLL relative error within 4 sigma of
+#: 1.04 / sqrt(2^p) against the oracle's exact count; DDSketch quantiles
+#: within 2 alpha of the exact ones (plus one byte of the report's
+#: rounding).
+HLL_SIGMAS = 4.0
+#: Busy share of each full-size scan from its ``breakdown`` line (CUDA
+#: events), keyed by the scan's label.
+BUSY_SHARE: dict = {}
 
 
 def fail(msg: str) -> "None":
@@ -493,11 +540,12 @@ def phase_update_kernel(torch, np, cu) -> dict:
 
 
 def run_cli(cli, argv):
-    """The port's CLI on ``argv`` (``cli.run``, what ``main`` runs):
-    (stdout, the scan's result); fails on a non-zero exit."""
+    """The port's CLI on ``argv`` (``cli.run``, what ``main`` runs, with
+    ``--quiet``): (stdout, the scan's result); fails on a non-zero
+    exit."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc, result = cli.run(cli.build_parser().parse_args(argv))
+        rc, result = cli.run(cli.build_parser().parse_args(argv + ["--quiet"]))
     if rc != 0:
         fail(f"CLI {' '.join(argv)} exited {rc}")
     return buf.getvalue(), result
@@ -515,21 +563,22 @@ def zero(kernels) -> None:
         fn.launches = 0
 
 
-def identity_run(cli, kernels, phase: str, label: str, argv, backend: str,
+def identity_run(cli, kernels, phase: str, label: str, argv, device: str,
                  kernel) -> "tuple[str, object]":
-    """One identity run of the port's CLI: (the report without its timing
-    lines, the scan's result); fails when a gpu run did not launch exactly
-    its format's kernel."""
+    """One identity run of the port's CLI with the torch backend on
+    ``device`` (``cuda``, or ``cpu``: the same code on the host): (the
+    report without its timing lines, the scan's result); fails when a cuda
+    run did not launch exactly its format's kernel."""
     zero(kernels)
     t0 = time.perf_counter()
-    out, result = run_cli(cli, argv + ["--backend", backend])
+    out, result = run_cli(cli, argv + ["--backend", "gpu", "--device", device])
     secs = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
-    print(f"{phase}: {label} on {backend}: {secs:.3f} s, launches {launches}, "
+    print(f"{phase}: {label} on {device}: {secs:.3f} s, launches {launches}, "
           f"fused {result.fused}, fallbacks {result.fallbacks}")
     for name, n in launches.items():
         if (name == kernel) != (n > 0):
-            fail(f"{phase}: {label} on {backend} launched {name} {n} times")
+            fail(f"{phase}: {label} on {device} launched {name} {n} times")
     return drop_timing(out), result
 
 
@@ -571,31 +620,31 @@ def phase_identity(cli, kernels) -> None:
     for native in ("on", "off"):
         nat = ["--native", native]
         runs += [
-            (f"synthetic v5 native {native}", synthetic + nat, "gpu", "counters_merge"),
+            (f"synthetic v5 native {native}", synthetic + nat, "cuda", "counters_merge"),
             (f"synthetic v5 native {native}", synthetic + nat, "cpu", None),
-            (f"synthetic v4 native {native}", synthetic + v4 + nat, "gpu",
+            (f"synthetic v4 native {native}", synthetic + v4 + nat, "cuda",
              "counters_update"),
             (f"synthetic v4 native {native}", synthetic + v4 + nat, "cpu", None),
             (f"synthetic v5 compaction off native {native}",
-             synthetic + ["--alive-compaction", "off"] + nat, "gpu", "counters_merge"),
+             synthetic + ["--alive-compaction", "off"] + nat, "cuda", "counters_merge"),
         ]
     for native, path in (("on", "fused"), ("off", "chained")):
         nat = ["--native", native]
         runs += [
-            (f"segfile v5 {path}", segments + nat, "gpu", "counters_merge"),
+            (f"segfile v5 {path}", segments + nat, "cuda", "counters_merge"),
             (f"segfile v5 {path}", segments + nat, "cpu", None),
-            (f"segfile v4 {path}", segments + v4 + nat, "gpu", "counters_update"),
+            (f"segfile v4 {path}", segments + v4 + nat, "cuda", "counters_update"),
             (f"segfile v4 {path}", segments + v4 + nat, "cpu", None),
         ]
     first = None
     try:
-        for label, argv, backend, kernel in runs:
-            out, _ = identity_run(cli, kernels, "identity", label, argv, backend, kernel)
+        for label, argv, device, kernel in runs:
+            out, _ = identity_run(cli, kernels, "identity", label, argv, device, kernel)
             if first is None:
                 first = out
             elif out != first:
-                fail(f"identity: the {label} report on {backend} differs from "
-                     f"the synthetic v5 gpu report:\n{first}\n{out}")
+                fail(f"identity: the {label} report on {device} differs from "
+                     f"the synthetic v5 cuda report:\n{first}\n{out}")
     finally:
         shutil.rmtree(dump, ignore_errors=True)
     print(f"identity: {len(runs)} reports byte-identical (synthetic and segfile, "
@@ -635,10 +684,10 @@ def phase_scan(torch, np, cli, kernels, label, argv, kernel,
     from kafka_topic_analyzer_tpu_torch.report import render_report
 
     args = cli.build_parser().parse_args(
-        ["-t", "scan", *argv, *SKETCH_FLAGS, "--native", "on", "--backend", "gpu"]
+        ["-t", "scan", *argv, *SKETCH_FLAGS, "--native", "on", "--device", "cuda"]
     )
     source, config, use_native = cli.setup(args)
-    backend = TorchBackend(config, device=args.backend, use_native=use_native)
+    backend = TorchBackend(config, device=args.device, use_native=use_native)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero(kernels)
@@ -706,7 +755,7 @@ def breakdown(torch, source, config, wall: float, dispatches: int,
     from kafka_topic_analyzer_tpu_torch.engine import PartitionIndex
     from kafka_topic_analyzer_tpu_torch.packing import FusedPackSink
 
-    backend = TorchBackend(config, device="gpu", use_native=True)
+    backend = TorchBackend(config, device="cuda", use_native=True)
     b = config.batch_size
     if kind == "kafka":
         dense_of = PartitionIndex(source.partitions()).dense_of
@@ -781,12 +830,12 @@ def breakdown(torch, source, config, wall: float, dispatches: int,
     copy_ms = cuda_ms(lambda: dev.copy_(slot, non_blocking=True), 20, 2)
     fold_ms = cuda_ms(lambda: backend.update(staged), 20, 2)
     per_dispatch_ms = wall * 1e3 / dispatches
+    BUSY_SHARE[label] = (copy_ms + fold_ms) / per_dispatch_ms
     print(
         f"breakdown {label}: per dispatch of {b} records: wall "
         f"{per_dispatch_ms:.3f} ms; {host}; device copy {copy_ms:.3f} ms "
         f"({slot.numel()} B), device fold {fold_ms:.3f} ms; device busy "
-        f"share ~{(copy_ms + fold_ms) / per_dispatch_ms:.4f}; "
-        f"{records / wall:.1f} records/s"
+        f"share ~{BUSY_SHARE[label]:.4f}; {records / wall:.1f} records/s"
     )
 
 
@@ -961,8 +1010,8 @@ def phase_kafka_identity(np, cli, kernels) -> None:
             return ["-t", spec["topic"], "-b", f"127.0.0.1:{ports[name]}", *SKETCH_FLAGS,
                     "--batch-size", str(KAFKA_IDENTITY_BATCH)]
 
-        def run(label, argv, backend, kernel):
-            return identity_run(cli, kernels, "kafka identity", label, argv, backend,
+        def run(label, argv, device, kernel):
+            return identity_run(cli, kernels, "kafka identity", label, argv, device,
                                 kernel)
 
         for fmt, flags, kernel in (("v5", [], "counters_merge"),
@@ -970,18 +1019,18 @@ def phase_kafka_identity(np, cli, kernels) -> None:
                                    ("v5 compaction off", ["--alive-compaction", "off"],
                                     "counters_merge")):
             for native_flag, path in (("on", "fused"), ("off", "chained")):
-                for backend in ("gpu", "cpu"):
+                for device in ("cuda", "cpu"):
                     label = f"{fmt} {path}"
                     out, result = run(label, base("none") + flags + ["--native", native_flag],
-                                      backend, kernel if backend == "gpu" else None)
+                                      device, kernel if device == "cuda" else None)
                     if result.fused != (path == "fused") or result.fallbacks:
-                        fail(f"kafka identity: {label} on {backend}: fused "
+                        fail(f"kafka identity: {label} on {device}: fused "
                              f"{result.fused}, fallbacks {result.fallbacks}")
                     if result.records != n:
                         fail(f"kafka identity: {label}: {result.records} records, not {n}")
-                    same(f"{label} on {backend}", out)
+                    same(f"{label} on {device}", out)
         for name in ("lz4", "zstd"):
-            out, result = run(f"v5 fused {name}", base(name) + ["--native", "on"], "gpu",
+            out, result = run(f"v5 fused {name}", base(name) + ["--native", "on"], "cuda",
                               "counters_merge")
             if result.fallbacks != {"compressed": n}:
                 fail(f"kafka identity: {name}: fallbacks {result.fallbacks}, expected "
@@ -991,19 +1040,301 @@ def phase_kafka_identity(np, cli, kernels) -> None:
             same(f"v5 fused {name}", out)
         out, result = run("v5 with --dump-segments",
                           base("none") + ["--native", "on", "--dump-segments", str(dump)],
-                          "gpu", "counters_merge")
+                          "cuda", "counters_merge")
         same("v5 with --dump-segments", out)
         for native_flag in ("on", "off"):
             label = f"segfile of the dump, native {native_flag}"
             out, result = run(label, ["-t", spec["topic"], "--source", "segfile",
                                       "--segment-dir", str(dump), *SKETCH_FLAGS,
                                       "--batch-size", str(KAFKA_IDENTITY_BATCH),
-                                      "--native", native_flag], "gpu", "counters_merge")
+                                      "--native", native_flag], "cuda", "counters_merge")
             same(label, out)
         check_template_scan(np, "kafka identity", result.metrics, want)
+        phase_oracle(cli, kernels, ports, spec["topic"])
     print(f"kafka identity: {count} reports byte-identical (cuda and cpu; v5, v4 and "
           f"compaction off; fused and chained; uncompressed, lz4 and zstd via {zstd}; "
           "the segment-file scan of a --dump-segments dump; timing lines aside)")
+
+
+def sketch_free(report: str) -> str:
+    """The report without its sketch lines (HLL or exact distinct keys,
+    size quantiles) and timing lines: the lines the oracle and the card
+    must print alike."""
+    return "".join(
+        line for line in drop_timing(report).splitlines(keepends=True)
+        if "distinct keys" not in line.lower() and "quantiles:" not in line
+    )
+
+
+def check_sketches(label: str, card, oracle, config) -> None:
+    """Each HLL estimate of the card beside the oracle's exact count, and
+    each size quantile beside the exact one; fails outside DESIGN.md §7's
+    budgets."""
+    sigma = 1.04 / math.sqrt(1 << config.hll_p)
+    pairs = [("all", card.distinct_keys_hll, oracle.distinct_keys_exact)]
+    pairs += [(f"partition {p}", est, exact) for p, est, exact in zip(
+        card.partitions, card.distinct_keys_hll_per_partition,
+        oracle.distinct_keys_exact_per_partition)]
+    for name, est, exact in pairs:
+        err = abs(est - exact) / exact
+        print(f"oracle {label}: distinct keys {name}: HLL {est:.1f}, exact {exact}, "
+              f"relative error {err:.6f} (budget {HLL_SIGMAS * sigma:.6f})")
+        if err > HLL_SIGMAS * sigma:
+            fail(f"oracle {label}: HLL estimate {est} of {name} outside "
+                 f"{HLL_SIGMAS} sigma of the exact {exact}")
+    alpha = config.quantile_alpha
+    for p, got, want in zip(card.quantiles.probs, card.quantiles.values,
+                            oracle.quantiles.values):
+        print(f"oracle {label}: size quantile p{int(p * 100)}: DDSketch {got:.3f} B, "
+              f"exact {want:.3f} B")
+        if abs(got - want) > 2 * alpha * want + 1:
+            fail(f"oracle {label}: quantile p{p} {got} outside 2 alpha of {want}")
+
+
+def phase_oracle(cli, kernels, ports: dict, topic: str) -> None:
+    """The numpy exact oracle (``--backend cpu``) against the card
+    (``--backend gpu``) on the Kafka identity topic from each of the three
+    template brokers: every exact line equal, the sketches within their
+    budgets; then an oracle scan in a child process, which must leave CUDA
+    uninitialised."""
+    from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
+
+    for name, port in ports.items():
+        argv = ["-t", topic, "-b", f"127.0.0.1:{port}", *ORACLE_FLAGS,
+                "--batch-size", str(KAFKA_IDENTITY_BATCH)]
+        zero(kernels)
+        t0 = time.perf_counter()
+        oracle_out, oracle = run_cli(cli, argv + ["--backend", "cpu"])
+        oracle_s = time.perf_counter() - t0
+        if any(fn.launches for fn in kernels.values()):
+            fail(f"oracle {name}: the oracle launched a kernel")
+        card_out, card = identity_run(cli, kernels, "oracle", f"{name} topic", argv
+                                      + ["--native", "on"], "cuda", "counters_merge")
+        print(f"oracle {name}: oracle scan {oracle_s:.3f} s, "
+              f"{oracle.records} records")
+        if sketch_free(oracle_out) != sketch_free(card_out):
+            fail(f"oracle {name}: the exact lines differ:\n{oracle_out}\n{card_out}")
+        if "Per-partition extremes:" not in card_out or "Alive keys:" not in card_out:
+            fail(f"oracle {name}: the report lacks its extremes table or alive keys")
+        check_sketches(name, card.metrics, oracle.metrics, AnalyzerConfig())
+    code = (
+        "import contextlib, io, sys, torch\n"
+        "from kafka_topic_analyzer_tpu_torch import cli\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        f"    rc = cli.main({['-t', topic, '-b', '127.0.0.1:%d' % ports['none'], *ORACLE_FLAGS, '--backend', 'cpu', '--quiet']!r})\n"
+        "print(rc, torch.cuda.is_initialized(),\n"
+        "      'kafka_topic_analyzer_tpu_torch.backends.gpu' in sys.modules)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=300)
+    print(f"oracle: child process oracle scan: rc, torch.cuda.is_initialized(), "
+          f"torch backend imported: {proc.stdout.strip()}")
+    if proc.returncode != 0 or proc.stdout.split() != ["0", "False", "False"]:
+        fail(f"oracle: the oracle's child process touched CUDA or failed: "
+             f"{proc.stdout} {proc.stderr[-2000:]}")
+    print(f"oracle: {len(ports)} topics: the oracle's exact lines equal the card's, "
+          "the sketches within DESIGN.md §7's budgets, and CUDA never initialised")
+
+
+def session_run(cli, kernels, argv, tag: str, telemetry: bool, profile_dir=None):
+    """One scan as ``cli.main`` runs it, inside the CLI's telemetry
+    session, with ``--stats --flight-record --events-jsonl F --trace-json
+    F`` when ``telemetry`` and ``--profile-dir`` when given, from a reset
+    registry and zeroed launch counters.  Returns a dict: the result, the
+    wall (host clock around ``cli.run``, whose finalize waits for the
+    device), records/s, the ``--stats`` text, the doctor's diagnosis (read
+    inside the session, as ``--stats`` reads it), the trace and events
+    paths and the launches."""
+    from kafka_topic_analyzer_tpu_torch.obs import telemetry_session
+    from kafka_topic_analyzer_tpu_torch.obs.doctor import diagnose_scan
+    from kafka_topic_analyzer_tpu_torch.obs.registry import default_registry
+
+    TELEMETRY_ROOT.mkdir(parents=True, exist_ok=True)
+    trace = TELEMETRY_ROOT / f"{tag}.trace.json"
+    events = TELEMETRY_ROOT / f"{tag}.events.jsonl"
+    extra = ["--quiet"]
+    if telemetry:
+        extra += [*DOCTOR_FLAGS, "--events-jsonl", str(events), "--trace-json", str(trace)]
+    if profile_dir is not None:
+        extra += ["--profile-dir", str(profile_dir)]
+    args = cli.build_parser().parse_args(argv + extra)
+    default_registry().reset()
+    zero(kernels)
+    out, err = io.StringIO(), io.StringIO()
+    with telemetry_session(metrics_port=args.metrics_port, events_jsonl=args.events_jsonl,
+                           trace_json=args.trace_json, flight_record=args.flight_record):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc, result = cli.run(args)
+        wall = time.perf_counter() - t0
+        diagnosis = diagnose_scan(result) if telemetry and rc == 0 else None
+    if rc != 0:
+        fail(f"{tag}: CLI exited {rc}: {err.getvalue()[-2000:]}")
+    return dict(result=result, wall=wall, rate=result.records / wall,
+                stats=err.getvalue(), diagnosis=diagnosis, trace=trace, events=events,
+                launches={name: fn.launches for name, fn in kernels.items()})
+
+
+def stage_seconds(snapshot: dict) -> dict:
+    return {s["labels"]["stage"]: s["value"]
+            for s in snapshot["kta_stage_seconds_total"]["samples"] if s["value"]}
+
+
+def metric_total(snapshot: dict, name: str) -> float:
+    return sum(s.get("value", 0.0) for s in snapshot[name]["samples"])
+
+
+def rendered(result) -> str:
+    """``result`` rendered as the scan phase renders its report (the
+    alive keys shown), timing lines aside."""
+    from kafka_topic_analyzer_tpu_torch.report import render_report
+
+    return drop_timing(render_report(
+        "scan", result.metrics, result.start_offsets, result.end_offsets,
+        result.duration_secs, show_alive_keys=True,
+    ))
+
+
+def check_same_scan(np, phase: str, result, want_report: str, want=None) -> None:
+    """Fails unless a scan run with telemetry sinks on gives the report of
+    the scan phase's run of the same topic and format, and, for a
+    template topic (``want``), its expectations."""
+    if rendered(result) != want_report:
+        fail(f"{phase}: the report differs from the scan phase's (timing lines "
+             f"aside):\n{want_report}\n{rendered(result)}")
+    if want is not None:
+        check_template_scan(np, phase, result.metrics, want)
+
+
+def phase_doctor(np, cli, kernels, label: str, argv, kernel: str, want_report: str,
+                 want=None) -> dict:
+    """A full-size scan with the CLI's telemetry on: prints the scan
+    doctor's BOTTLENECK verdict, its stage shares and its throttle-wait,
+    fetch and decode evidence; fails unless its report equals the scan
+    phase's ``want_report`` (and the template's expectations ``want``),
+    the scan booked 62 batches, its format's kernel launched once per
+    batch, the trace's stage totals agree with ``--stats`` within 5% (one
+    clock writes both) and cover at least 90% of the host wall around
+    ``cli.run`` (the rest is set-up: backend, source, watermarks) without
+    passing it, and the events open and close the scan."""
+    run = session_run(cli, kernels, argv, f"doctor-{label.replace(' ', '-')}", True)
+    check_same_scan(np, f"doctor {label}", run["result"], want_report, want)
+    snap = run["result"].telemetry
+    d = run["diagnosis"]
+    for line in run["stats"].splitlines():
+        if line.startswith(("BOTTLENECK", "  occupancy", "  evidence", "  windows",
+                            "  dispatch:", "scan stages", "  ingest:", "  finalize:")):
+            print(f"doctor {label}: {line}")
+    ev = d.evidence
+    print(f"doctor {label}: verdict {d.verdict}; stage shares "
+          + ", ".join(f"{s} {v:.4f}" for s, v in d.stages.items())
+          + "; evidence "
+          + ", ".join(f"{k} {ev[k]:.4f}" if k in ev else f"{k} n/a"
+                      for k in ("throttle_wait", "fetch", "decode"))
+          + f"; {run['rate']:.1f} records/s")
+    batches = metric_total(snap, "kta_scan_batches_total")
+    if batches != 62:
+        fail(f"doctor {label}: kta_scan_batches_total {batches}, not 62")
+    if run["launches"][kernel] != 62:
+        fail(f"doctor {label}: {kernel} launched {run['launches'][kernel]} times, not 62")
+    booked = stage_seconds(snap)
+    traced: dict = {}
+    for e in json.loads(run["trace"].read_text())["traceEvents"]:
+        if e.get("cat") == "stage":
+            traced[e["name"]] = traced.get(e["name"], 0.0) + e["dur"] / 1e6
+    for stage, secs in booked.items():
+        got = traced.get(stage, 0.0)
+        print(f"doctor {label}: stage {stage}: --stats {secs:.6f} s, trace {got:.6f} s")
+        if abs(got - secs) > 0.05 * secs:
+            fail(f"doctor {label}: the trace's {stage} total {got} is not within 5% "
+                 f"of --stats' {secs}")
+    traced_total = sum(traced.values())
+    print(f"doctor {label}: the trace's stages {traced_total:.6f} s of the "
+          f"{run['wall']:.6f} s host wall around cli.run "
+          f"({traced_total / run['wall']:.4f})")
+    if not 0.9 * run["wall"] <= traced_total <= run["wall"]:
+        fail(f"doctor {label}: the trace's stages {traced_total} s are not within "
+             f"90-100% of the {run['wall']} s host wall")
+    kinds = [json.loads(line)["type"] for line in run["events"].read_text().splitlines()]
+    if not kinds or kinds[0] != "scan_start" or kinds[-1] != "scan_end":
+        fail(f"doctor {label}: events {kinds[:3]}...{kinds[-3:]}")
+    return {"verdict": d.verdict, "rate": run["rate"]}
+
+
+def phase_telemetry_cost(np, cli, kernels, argv, want_report: str, want) -> None:
+    """The full-size Kafka v5 scan with the doctor's telemetry and
+    without, in turns (on, off, on, off): the records/s of each run, and
+    each run's report held against the scan phase's."""
+    rates = {True: [], False: []}
+    for i, on in enumerate((True, False, True, False)):
+        run = session_run(cli, kernels, argv, f"cost-{i}", on)
+        check_same_scan(np, f"telemetry cost run {i + 1}", run["result"], want_report,
+                        want)
+        rates[on].append(run["rate"])
+        print(f"telemetry cost: run {i + 1}, telemetry {'on' if on else 'off'}: "
+              f"{run['result'].records} records in {run['wall']:.3f} s = "
+              f"{run['rate']:.1f} records/s")
+    on, off = statistics.mean(rates[True]), statistics.mean(rates[False])
+    print(f"telemetry cost: mean on {on:.1f} records/s, off {off:.1f} records/s, "
+          f"on/off {on / off:.4f}")
+
+
+def phase_profiler(cli, kernels, label: str, argv, kernel: str) -> None:
+    """A full-size scan under ``--profile-dir``: counts each kernel's
+    launches (its ``__global__`` name) in the ``torch.profiler`` Chrome
+    trace and sums their device time, and sets the device time of all
+    kernels and copies against the wall, beside the ``breakdown`` busy
+    share of the same scan in this call.  Fails unless the format's kernel
+    appears 62 times, except when the trace holds no CUDA activity at all,
+    which is printed as a finding."""
+    from kafka_topic_analyzer_tpu_torch.utils.profiling import TRACE_FILE, device_events
+
+    directory = TELEMETRY_ROOT / f"profile-{label.replace(' ', '-')}"
+    shutil.rmtree(directory, ignore_errors=True)
+    run = session_run(cli, kernels, argv, f"profile-{label.replace(' ', '-')}", False,
+                      profile_dir=directory)
+    path = directory / TRACE_FILE
+    events = device_events(str(path))
+    for line in run["stats"].splitlines():
+        if line.startswith("profile:"):
+            print(f"profile {label}: {line}")
+    wall_ms = run["wall"] * 1e3
+    if not events:
+        print(f"profile {label}: FINDING: the trace ({path.stat().st_size} B) holds no "
+              f"CUDA activity: torch.profiler could not trace the device here; "
+              f"{kernel} launched {run['launches'][kernel]} times by its counter")
+        return
+    by_name: dict = {}
+    for e in events:
+        n, ms = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, ms + e["dur"] / 1e3)
+    counts = {}
+    for name in ("counters_merge", "counters_update"):
+        hits = [(n, ms) for k, (n, ms) in by_name.items() if f"{name}_kernel" in k]
+        n = sum(h[0] for h in hits)
+        ms = sum(h[1] for h in hits)
+        counts[name] = n
+        print(f"profile {label}: {name}_kernel ran {n} times, {ms:.6f} ms of device "
+              f"time in all" + (f" ({ms / n:.6f} ms per launch)" if n else ""))
+    device_ms = sum(e["dur"] for e in events) / 1e3
+    cats = {}
+    for e in events:
+        cats[e["cat"]] = cats.get(e["cat"], 0.0) + e["dur"] / 1e3
+    print(f"profile {label}: all device kernels and copies {device_ms:.3f} ms "
+          f"({', '.join(f'{c} {ms:.3f} ms' for c, ms in sorted(cats.items()))}) = "
+          f"{device_ms / wall_ms:.4f} of the {run['wall']:.3f} s wall under the profiler; "
+          f"breakdown busy share ~{BUSY_SHARE.get(label, float('nan')):.4f} (CUDA events, "
+          f"this call); {run['rate']:.1f} records/s")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    for name, (n, ms) in top:
+        print(f"profile {label}: top device time: {ms:.3f} ms in {n} x {name[:100]}")
+    if counts[kernel] != 62:
+        fail(f"profile {label}: {kernel}_kernel appears {counts[kernel]} times in the "
+             "trace, not 62")
+    other = "counters_update" if kernel == "counters_merge" else "counters_merge"
+    if counts[other]:
+        fail(f"profile {label}: {other}_kernel appears {counts[other]} times")
+    shutil.rmtree(directory, ignore_errors=True)
 
 
 def main() -> int:
@@ -1062,7 +1393,7 @@ def main() -> int:
     synthetic = ["--source", "synthetic", "--synthetic", FULL_SPEC]
     v4 = ["--wire-format", "v4"]
     launches = {"counters_merge": {}, "counters_update": {}}
-    reports, alive = {}, {}
+    reports, alive, verdicts = {}, {}, {}
     for label, argv, kernel in (("v5", synthetic, "counters_merge"),
                                 ("v4", synthetic + v4, "counters_update")):
         launches[kernel]["synthetic"], reports[label], result = phase_scan(
@@ -1076,8 +1407,17 @@ def main() -> int:
             launches[kernel]["segfile"], reports[label], result = phase_scan(
                 torch, np, cli, kernels, label, argv, kernel, kind="segfile")
             alive[label] = result.metrics.alive_keys
+        cli_segments = ["-t", "scan", *segments, *SKETCH_FLAGS, "--native", "on",
+                        "--backend", "gpu"]
+        verdicts["segfile v5"] = phase_doctor(np, cli, kernels, "segfile v5",
+                                              cli_segments, "counters_merge",
+                                              reports["segfile v5"])
+        for label, argv, kernel in (("segfile v5", cli_segments, "counters_merge"),
+                                    ("segfile v4", cli_segments + v4, "counters_update")):
+            phase_profiler(cli, kernels, label, argv, kernel)
     finally:
         shutil.rmtree(dump, ignore_errors=True)
+        shutil.rmtree(TELEMETRY_ROOT, ignore_errors=True)
     t0 = time.perf_counter()
     want = {order: host_alive_keys(np, FULL_SPEC, order == "partition")
             for order in ("interleaved", "partition")}
@@ -1110,6 +1450,17 @@ def main() -> int:
             if not result.fused or result.fallbacks:
                 fail(f"scan {label}: fused {result.fused}, fallbacks {result.fallbacks}")
             check_template_scan(np, label, result.metrics, want)
+        cli_kafka = ["-t", "scan", *bootstrap, *SKETCH_FLAGS, "--native", "on",
+                     "--backend", "gpu"]
+        try:
+            for label, argv, kernel in (("kafka v5", cli_kafka, "counters_merge"),
+                                        ("kafka v4", cli_kafka + v4, "counters_update")):
+                verdicts[label] = phase_doctor(np, cli, kernels, label, argv, kernel,
+                                               kafka[label], want)
+            phase_telemetry_cost(np, cli, kernels, cli_kafka, kafka["kafka v5"], want)
+        finally:
+            shutil.rmtree(TELEMETRY_ROOT, ignore_errors=True)
+    print("doctor: " + "; ".join(f"{label} {v['verdict']}" for label, v in verdicts.items()))
     if kafka["kafka v4"] != kafka["kafka v5"]:
         fail("scan: the kafka v4 report differs from the kafka v5 report "
              "(timing lines aside)")

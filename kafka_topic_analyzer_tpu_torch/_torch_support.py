@@ -30,7 +30,7 @@ def resolve_device(name: "str | torch.device | None" = None) -> torch.device:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA device requested but torch.cuda.is_available() is "
-                "False; pass device='cpu' (CLI: --backend cpu) to run on "
+                "False; pass device='cpu' (CLI: --device cpu) to run on "
                 "the host"
             )
         if dev.index is None:

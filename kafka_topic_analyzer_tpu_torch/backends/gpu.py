@@ -13,12 +13,18 @@ Per batch:
   through the same single copy;
 - `update` views the device bytes as typed tensors and folds them into the
   state (backends/step.py), launching the counter kernel of the row's wire
-  format on CUDA (`counters_merge` for v5, `counters_update` for v4).
+  format on CUDA (`counters_merge` for v5, `counters_update` for v4), then
+  records a CUDA event behind the fold as its completion token in the
+  launch-site `base.DispatchQueue` (``dispatch_depth`` folds in flight;
+  the throttle's wait is the device's backpressure on the drive loop).
 
-Nothing synchronizes until `finalize`, so packing the next batch overlaps
-the device's work on this one, on the main thread or on a prefetch
-worker (engine.py): `prepare` and the sink may run on one thread while
-`update` runs on another.  The copy, its event and the fold all run on
+Nothing synchronizes until `finalize` but the two real waits — a ring
+slot whose copy is still in flight, and the dispatch queue's throttle —
+so packing the next batch overlaps the device's work on this one, on the
+main thread or on a prefetch worker (engine.py): `prepare` and the sink
+may run on one thread while `update` runs on another.  The step and
+finalize times booked by `base.instrument_steps` are therefore host
+time: enqueue plus those waits.  The copy, its event and the fold all run on
 the stream the backend holds (``self.stream``, the creating thread's
 current stream), whichever thread issues them.  Pinned buffers form a
 ring sized from the prefetch depth; a slot is refilled only after the
@@ -35,6 +41,12 @@ import numpy as np
 import torch
 
 from kafka_topic_analyzer_tpu_torch._torch_support import resolve_device
+from kafka_topic_analyzer_tpu_torch.backends.base import (
+    READY,
+    DispatchQueue,
+    MetricBackend,
+    instrument_steps,
+)
 from kafka_topic_analyzer_tpu_torch.backends.finalize import metrics_from_state
 from kafka_topic_analyzer_tpu_torch.backends.step import (
     analyzer_step,
@@ -42,6 +54,7 @@ from kafka_topic_analyzer_tpu_torch.backends.step import (
 )
 from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
 from kafka_topic_analyzer_tpu_torch.models.state import AnalyzerState, state_to_numpy
+from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
 from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_scratch
 from kafka_topic_analyzer_tpu_torch.packing import (
     FusedPackSink,
@@ -156,10 +169,13 @@ def self_check_unpack(device: torch.device) -> None:
                     )
 
 
-class TorchBackend:
+@instrument_steps
+class TorchBackend(MetricBackend):
     """Batched replacement for the reference's per-message handler: feed
     batches in per-partition offset order, read the results once at the
     end."""
+
+    packs_rows = True
 
     def __init__(
         self,
@@ -168,11 +184,19 @@ class TorchBackend:
         device: "str | torch.device | None" = None,
         use_native: bool = False,
         prefetch_depth: int = 2,
+        dispatch_depth: int = 2,
+        native_requested: "bool | None" = None,
     ):
-        self.config = config
+        super().__init__(config)
         self.device = resolve_device(device)
         #: Pack through the native shim when it loads (``--native``).
         self.use_native = use_native
+        #: Whether ``--native`` asked for the shim (``auto`` or ``on``),
+        #: loaded or not: a fused bypass is booked ``native-off`` only
+        #: when it did not, as the reference books it.
+        self.native_requested = (
+            use_native if native_requested is None else native_requested
+        )
         self.stream = (
             torch.cuda.current_stream(self.device)
             if self.device.type == "cuda" else None
@@ -208,6 +232,9 @@ class TorchBackend:
         self._next = 0
         #: Batches folded into the state (one dispatch each at K=1).
         self.dispatches = 0
+        #: Folds allowed in flight (``--dispatch-depth``).
+        self.dispatch_depth = dispatch_depth
+        self._queue = DispatchQueue(dispatch_depth)
 
     def _on_stream(self):
         """Make the backend's stream current on the calling thread."""
@@ -240,11 +267,13 @@ class TorchBackend:
 
     def _pack_pairs(self, pairs, slot: int) -> None:
         """Pack one dispatch's compacted pair table into ``slot``'s pair
-        region."""
-        pack_pair_table(
+        region, booking the raw→emitted compaction split."""
+        _, raw, emitted = pack_pair_table(
             [pairs], self.config, self._pair_cap, use_native=self.use_native,
             out=self._ring_np[slot][self._pair_off :],
         )
+        obs_metrics.ALIVE_PAIRS_RAW.inc(raw)
+        obs_metrics.ALIVE_PAIRS_EMITTED.inc(emitted)
 
     def prepare(self, batch: RecordBatch) -> StagedBatch:
         """Pack a batch into the next pinned staging slot and start its
@@ -280,11 +309,26 @@ class TorchBackend:
             stage=stage, alloc=alloc,
         )
 
+    def _completion_token(self):
+        """A token that completes with the work enqueued so far on the
+        backend's stream: a CUDA event recorded there, or `base.READY` on
+        the host, where the fold finished when it returned."""
+        if self.stream is None:
+            return READY
+        event = torch.cuda.Event()
+        event.record(self.stream)
+        return event
+
     def update(self, batch: "RecordBatch | StagedBatch") -> None:
         """Fold one batch (packed here if it was not prepared) into the
-        state.  Asynchronous on CUDA."""
+        state, once fewer than ``dispatch_depth`` folds are in flight.
+        Asynchronous on CUDA."""
         if isinstance(batch, RecordBatch):
             batch = self.prepare(batch)
+        obs_metrics.WIRE_BYTES.inc(int(batch.row.numel()))
+        if batch.pairs is not None:
+            obs_metrics.WIRE_BYTES.inc(int(batch.pairs.numel()))
+        self._queue.throttle()
         with self._on_stream():
             analyzer_step(
                 self.state, unpack_device(batch.row, self.config), self.config,
@@ -297,14 +341,17 @@ class TorchBackend:
                     self.config,
                     scratch=self._scratch,
                 )
+            token = self._completion_token()
+        self._queue.launched(token, 1)
         self.dispatches += 1
 
     def get_state(self) -> AnalyzerState:
         return self.state
 
     def finalize(self) -> TopicMetrics:
-        """Copy the state to the host (waiting for the device) and derive
-        the metrics there."""
+        """Retire the in-flight folds, copy the state to the host (waiting
+        for the device) and derive the metrics there."""
+        self._queue.drain()
         with self._on_stream():
             leaves = state_to_numpy(self.state)
         return metrics_from_state(leaves, self.config, self.init_now_s)

@@ -1,25 +1,43 @@
 """Command line of the port: the Kafka wire, synthetic and segment-file
 batch scans (port of the reference's ``cli.py``, the flags of the ported
-scan paths).
+single-scan paths).
 
     python -m kafka_topic_analyzer_tpu_torch -t T \\
         ([--source kafka] -b HOST:PORT [--librdkafka K=V,...] \\
          | --source synthetic --synthetic SPEC \\
          | --source segfile --segment-dir DIR) \\
-        -c --distinct-keys-per-partition --quantiles-per-partition \\
-        --pallas [--batch-size B] [--alive-bitmap-bits N] \\
+        [-c] [--distinct-keys] [--distinct-keys-per-partition] \\
+        [--quantiles] [--quantiles-per-partition] [--extremes-table] \\
+        [--pallas] [--batch-size B] [--alive-bitmap-bits N] \\
         [--wire-format auto|v4|v5] [--alive-compaction auto|off] \\
-        [--native auto|on|off] [--backend gpu|cpu] \\
-        [--check-crcs] [--on-corruption fail|skip|quarantine] \\
-        [--quarantine-dir DIR] [--on-data-loss fail|report|ignore] \\
-        [--from-timestamp ISO8601|EPOCH_MS] [--dump-segments DIR]
+        [--native auto|on|off] [--backend gpu|tpu|cpu] [--device cuda|cpu] \\
+        [--dispatch-depth D] [--check-crcs] \\
+        [--on-corruption fail|skip|quarantine] [--quarantine-dir DIR] \\
+        [--on-data-loss fail|report|ignore] \\
+        [--from-timestamp ISO8601|EPOCH_MS] [--dump-segments DIR] \\
+        [--quiet] [--stats] [--profile-dir DIR] [--metrics-port PORT] \\
+        [--events-jsonl FILE] [--trace-json FILE] [--flight-record]
 
 Prints the same report bytes as the reference CLI for the same inputs
 (apart from the two timing lines), with the reference's DEGRADED, CORRUPT
 and DATA-LOSS blocks after it.  ``--source kafka`` (the default) reads the
-topic over the Kafka wire protocol.  ``--backend gpu`` (the default) runs
-on the first CUDA device and fails when there is none; ``--backend cpu``
-runs the same code on the host.  ``--native`` chooses the native ingest
+topic over the Kafka wire protocol.
+
+``--backend`` takes the reference's names: ``cpu`` is the numpy exact
+oracle (`backends.cpu.CpuExactBackend`, which touches no device), and
+``tpu`` is accepted as a spelling of ``gpu``, the torch backend.  The one
+intended divergence is the default, ``gpu`` where the reference's is
+``cpu``.  ``--device`` places the torch backend: ``cuda`` (the default)
+runs on the first CUDA device and fails when there is none; ``cpu`` runs
+the same code on the host (the port's counterpart of the reference's
+``JAX_PLATFORMS=cpu``).
+
+``--stats`` writes the stage digest, the telemetry counters and the scan
+doctor's BOTTLENECK verdict to stderr; ``--profile-dir`` writes a
+``torch.profiler`` Chrome trace of the scan (CUDA activity included on
+the card); ``--metrics-port``, ``--events-jsonl``, ``--trace-json`` and
+``--flight-record`` attach the reference's telemetry sinks (`obs`).
+``KTA_LOG``/``RUST_LOG`` set the log levels.  ``--native`` chooses the native ingest
 shim: ``auto`` (the default) uses it when it builds and falls back to
 numpy otherwise, ``on`` raises when it cannot be built, ``off`` runs
 numpy only (and so the chained, not the fused, Kafka and segment-file
@@ -35,7 +53,7 @@ import sys
 from typing import Dict, Optional
 
 from kafka_topic_analyzer_tpu_torch import __version__
-from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
+from kafka_topic_analyzer_tpu_torch.backends.base import make_backend
 from kafka_topic_analyzer_tpu_torch.config import (
     AnalyzerConfig,
     CorruptionConfig,
@@ -52,12 +70,20 @@ from kafka_topic_analyzer_tpu_torch.io.segfile import (
 )
 from kafka_topic_analyzer_tpu_torch.io.source import RecordSource
 from kafka_topic_analyzer_tpu_torch.io.synthetic import SyntheticSource, SyntheticSpec
+from kafka_topic_analyzer_tpu_torch.obs import telemetry_session
 from kafka_topic_analyzer_tpu_torch.report import (
+    render_bottleneck,
     render_corrupt_block,
     render_data_loss_block,
     render_degraded_block,
+    render_extremes_table,
     render_report,
+    render_stage_stats,
+    render_telemetry_stats,
 )
+from kafka_topic_analyzer_tpu_torch.utils.log import init_logging
+from kafka_topic_analyzer_tpu_torch.utils.profiling import maybe_torch_trace
+from kafka_topic_analyzer_tpu_torch.utils.progress import Spinner
 
 #: Exit status of a scan of an empty topic (the reference's ``exit(-2)``).
 EXIT_EMPTY_TOPIC = 254
@@ -101,9 +127,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Counts the effective number of alive keys in a log "
                         "compacted topic. A key is 'alive' when it is present "
                         "and has a non-null value in its latest-offset version")
-    p.add_argument("--backend", choices=["gpu", "cpu"], default="gpu",
-                   help="Device the scan runs on: the first CUDA device "
-                        "(gpu) or the host (cpu). Default: gpu")
+    p.add_argument("--backend", choices=["cpu", "tpu", "gpu"], default="gpu",
+                   help="Metric backend: numpy exact oracle (cpu) or the "
+                        "torch streaming reducers (gpu; tpu is accepted as "
+                        "the reference's name for it). Default: gpu")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="Where the torch backend runs: the first CUDA "
+                        "device (cuda; fails when there is none) or the "
+                        "host (cpu). The oracle ignores it. Default: cuda")
     p.add_argument("--source", choices=["kafka", "synthetic", "segfile"],
                    default="kafka",
                    help="Record source. 'kafka' reads the real topic via the "
@@ -120,12 +151,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Records per device step")
     p.add_argument("--alive-bitmap-bits", type=int, default=32,
                    help="log2 of alive-key bitmap slots (32 = reference-exact)")
+    p.add_argument("--distinct-keys", action="store_true",
+                   help="Also estimate distinct keys with a HyperLogLog sketch")
     p.add_argument("--distinct-keys-per-partition", action="store_true",
-                   help="Estimate distinct keys with one HyperLogLog "
-                        "register file per partition")
+                   help="Track one HLL register file per partition "
+                        "(implies --distinct-keys)")
+    p.add_argument("--quantiles", action="store_true",
+                   help="Also compute message-size quantiles (DDSketch)")
     p.add_argument("--quantiles-per-partition", action="store_true",
-                   help="Message-size quantiles with one DDSketch per "
-                        "partition")
+                   help="Track one size-quantile sketch per partition "
+                        "(implies --quantiles)")
+    p.add_argument("--dispatch-depth", type=int, default=2, metavar="D",
+                   help="Folds allowed in flight while the device works; "
+                        "the drive loop blocks (backpressuring ingest) "
+                        "beyond it. Default: 2")
     p.add_argument("--pallas", action="store_true",
                    help="The reference's Pallas counter flag: under wire v4 "
                         "it requires batch-size %% 1024 == 0 and rejects "
@@ -184,6 +223,34 @@ def build_parser() -> argparse.ArgumentParser:
                         "'report' (default) finishes with exit 0 and a "
                         "DATA-LOSS block naming every lost range, 'ignore' "
                         "finishes with exit 0 and no block")
+    p.add_argument("--extremes-table", action="store_true",
+                   help="Also print a per-partition first/last-timestamp and "
+                        "min/max-size table")
+    p.add_argument("--profile-dir", metavar="DIR",
+                   help="Write a torch.profiler Chrome trace of the scan "
+                        "(CPU activity, and CUDA activity on the card) to "
+                        "DIR/torch_trace.json")
+    p.add_argument("--stats", action="store_true",
+                   help="Print per-stage throughput stats, the telemetry "
+                        "counter digest and the BOTTLENECK verdict to stderr")
+    p.add_argument("--metrics-port", type=int, metavar="PORT",
+                   help="Serve Prometheus metrics on "
+                        "http://127.0.0.1:PORT/metrics while the scan runs "
+                        "(0 binds an ephemeral port)")
+    p.add_argument("--events-jsonl", metavar="FILE",
+                   help="Append structured scan lifecycle + transport-fault "
+                        "events to FILE as JSON lines")
+    p.add_argument("--trace-json", metavar="FILE",
+                   help="Write a Chrome trace-event JSON of host-side scan "
+                        "spans (fetch/decode/stages) to FILE; combine with "
+                        "--profile-dir for the device timeline")
+    p.add_argument("--flight-record", action="store_true",
+                   help="Run the pipeline flight recorder: per-stage "
+                        "occupancy time series while the scan runs, adding "
+                        "windowed verdicts to the --stats BOTTLENECK "
+                        "digest, counter tracks to --trace-json and "
+                        "/flight on --metrics-port")
+    p.add_argument("--quiet", action="store_true", help="No progress spinner")
     return p
 
 
@@ -297,6 +364,8 @@ def wrap_with_dump(args, source: RecordSource) -> RecordSource:
 def setup(args) -> "tuple[RecordSource, AnalyzerConfig, bool]":
     """Source, config and the resolved ``--native`` from parsed flags;
     raises ValueError on a bad flag value."""
+    if args.dispatch_depth < 1:
+        raise ValueError("dispatch depth must be >= 1")
     use_native = resolve_native(args)
     source = wrap_with_dump(args, make_source(args, use_native))
     config = AnalyzerConfig(
@@ -304,7 +373,9 @@ def setup(args) -> "tuple[RecordSource, AnalyzerConfig, bool]":
         batch_size=args.batch_size,
         count_alive_keys=args.count_alive_keys,
         alive_bitmap_bits=args.alive_bitmap_bits,
+        enable_hll=args.distinct_keys,
         distinct_keys_per_partition=args.distinct_keys_per_partition,
+        enable_quantiles=args.quantiles,
         quantiles_per_partition=args.quantiles_per_partition,
         use_pallas_counters=args.pallas,
         wire_format=resolve_wire_format(args),
@@ -346,6 +417,25 @@ def scan_issue_exit(result: ScanResult, data_loss_policy: str) -> int:
     return rc
 
 
+def print_stats(result: ScanResult) -> None:
+    """``--stats`` stderr digest: the stage timings and the telemetry
+    counters from the scan's registry snapshot, then the scan doctor's
+    BOTTLENECK verdict from the same snapshot (plus the flight recorder's
+    series when one runs)."""
+    from kafka_topic_analyzer_tpu_torch.obs.doctor import diagnose_scan
+
+    sys.stderr.write(render_stage_stats(result.telemetry))
+    sys.stderr.write(
+        render_telemetry_stats(
+            result.telemetry,
+            ingest_workers=result.ingest_workers,
+            dispatch_depth=result.dispatch_depth,
+            wire=result.wire,
+        )
+    )
+    sys.stderr.write(render_bottleneck(diagnose_scan(result)))
+
+
 def run(args) -> "tuple[int, ScanResult | None]":
     """One scan from parsed flags: the report and its warning blocks go to
     stdout, errors to stderr.  Returns the exit status and the scan's
@@ -369,12 +459,20 @@ def run(args) -> "tuple[int, ScanResult | None]":
                 file=sys.stderr,
             )
             return EXIT_EMPTY_TOPIC, None
-        backend = TorchBackend(config, device=args.backend, use_native=use_native)
+        backend = make_backend(
+            args.backend, config, device=args.device, use_native=use_native,
+            dispatch_depth=args.dispatch_depth,
+            native_requested=args.native != "off",
+        )
         print(f"Subscribing to {args.topic}")
         print("Starting message consumption...")
-        result = run_scan(
-            args.topic, source, backend, args.batch_size, start_at=start_at
-        )
+        with maybe_torch_trace(args.profile_dir, backend.device):
+            result = run_scan(
+                args.topic, source, backend, args.batch_size,
+                start_at=start_at, spinner=Spinner(enabled=not args.quiet),
+            )
+        if args.stats:
+            print_stats(result)
     except DataLossError as e:
         # --on-data-loss fail: the loss is booked; no checkpoint is
         # written (snapshots are not ported).
@@ -398,8 +496,23 @@ def run(args) -> "tuple[int, ScanResult | None]":
             show_alive_keys=args.count_alive_keys,
         )
     )
+    if args.extremes_table:
+        sys.stdout.write(render_extremes_table(result.metrics))
     return scan_issue_exit(result, args.on_data_loss), result
 
 
 def main(argv: "list[str] | None" = None) -> int:
-    return run(build_parser().parse_args(argv))[0]
+    init_logging()  # env_logger parity: RUST_LOG / KTA_LOG
+    args = build_parser().parse_args(argv)
+    try:
+        with telemetry_session(
+            metrics_port=args.metrics_port,
+            events_jsonl=args.events_jsonl,
+            trace_json=args.trace_json,
+            flight_record=args.flight_record,
+        ):
+            return run(args)[0]
+    except OSError as e:
+        # A bad --trace-json/--events-jsonl path or a busy --metrics-port.
+        print(f"error: {e}", file=sys.stderr)
+        return 1

@@ -6,15 +6,17 @@ reference's, with the same validation and error text).
 Same fields, defaults and validation as the reference, restricted to what
 the port runs: wire format 4 or 5, alive-pair compaction auto or off, one
 device.  Asking for a mesh raises "not yet ported" instead of quietly
-running something else.  The reference's ``KTA_WIRE_V4`` and
-``KTA_DISABLE_COMPACTION`` environment switches are not ported: the port
-reads no environment here, and the two fields below are its only way to
-choose.
+running something else.  The reference's two environment kill switches
+hold here too: ``KTA_WIRE_V4`` resolves ``wire_format`` 0 to v4 and
+``KTA_DISABLE_COMPACTION`` turns alive-pair compaction off, each with the
+reason recorded at resolution (`wire_v4_reason`,
+`alive_compaction_off_reason`) for the engine's fallback bookings.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Tuple
 
 
@@ -186,10 +188,12 @@ class AnalyzerConfig:
     #: ops/counters_update.py.
     use_pallas_counters: bool = False
     #: ``auto`` compacts the alive pairs into one table per dispatch
-    #: (wire v5 with ``-c``); ``off`` keeps the per-row pair sections.
+    #: (wire v5 with ``-c``, unless ``KTA_DISABLE_COMPACTION`` is set);
+    #: ``off`` keeps the per-row pair sections.
     alive_compaction: str = "auto"
-    #: ``0`` resolves to 5; ``5`` is the combiner format (per-partition
-    #: tables); ``4`` ships per-record columns.
+    #: ``0`` resolves to 5 (4 when ``KTA_WIRE_V4`` is set); ``5`` is the
+    #: combiner format (per-partition tables); ``4`` ships per-record
+    #: columns.
     wire_format: int = 0
     #: Device mesh (data, space); only (1, 1) is ported.
     mesh_shape: Tuple[int, int] = (1, 1)
@@ -210,8 +214,20 @@ class AnalyzerConfig:
         if self.quantile_buckets < 8:
             raise ValueError("quantile_buckets must be >= 8")
         if self.wire_format == 0:
-            object.__setattr__(self, "wire_format", 5)
-        elif self.wire_format not in (4, 5):
+            # Resolved, with its reason, once here: the engine's booking
+            # must describe the decision taken, not a later environment.
+            forced = bool(os.environ.get("KTA_WIRE_V4"))
+            object.__setattr__(self, "wire_format", 4 if forced else 5)
+            object.__setattr__(
+                self, "_wire_v4_reason", "env-kill-switch" if forced else None
+            )
+        elif self.wire_format in (4, 5):
+            object.__setattr__(
+                self,
+                "_wire_v4_reason",
+                "explicit" if self.wire_format == 4 else None,
+            )
+        else:
             raise ValueError(
                 f"wire_format {self.wire_format!r} invalid (0=auto, 4, or 5)"
             )
@@ -220,15 +236,21 @@ class AnalyzerConfig:
                 f"alive_compaction {self.alive_compaction!r} invalid "
                 "(auto or off)"
             )
-        # The compacted pair table is a v5 combiner section; v4 and
-        # compaction "off" keep the per-row pairs.
-        object.__setattr__(
-            self,
-            "_compact_alive",
-            self.count_alive_keys
-            and self.alive_compaction == "auto"
-            and self.wire_format == 5,
-        )
+        # The compacted pair table is a v5 combiner section; v4, "off" and
+        # the kill switch keep the per-row pairs.
+        compact = False
+        off_reason = None
+        if self.count_alive_keys:
+            if self.alive_compaction == "off":
+                off_reason = "explicit"
+            elif os.environ.get("KTA_DISABLE_COMPACTION"):
+                off_reason = "env-kill-switch"
+            elif self.wire_format != 5:
+                off_reason = "wire-v4"
+            else:
+                compact = True
+        object.__setattr__(self, "_compact_alive", compact)
+        object.__setattr__(self, "_alive_compaction_off_reason", off_reason)
         if (
             self.use_pallas_counters
             and self.wire_format == 4
@@ -248,6 +270,21 @@ class AnalyzerConfig:
     @property
     def hll_m(self) -> int:
         return 1 << self.hll_p
+
+    @property
+    def wire_v4_reason(self) -> "str | None":
+        """Why this config runs wire v4 (None under v5): ``env-kill-switch``
+        (``KTA_WIRE_V4`` at construction) or ``explicit``; the engine books
+        it on ``kta_wire_v4_fallback_total``."""
+        return self._wire_v4_reason
+
+    @property
+    def alive_compaction_off_reason(self) -> "str | None":
+        """Why an alive-key scan runs without pair compaction (None when
+        it compacts or counts no alive keys): ``explicit``,
+        ``env-kill-switch`` (``KTA_DISABLE_COMPACTION``) or ``wire-v4``;
+        the engine books it on ``kta_alive_compaction_off_total``."""
+        return self._alive_compaction_off_reason
 
     @property
     def compact_alive(self) -> bool:

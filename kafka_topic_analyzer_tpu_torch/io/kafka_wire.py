@@ -1,12 +1,12 @@
 """Kafka wire-protocol record source (librdkafka replacement; port of the
 reference's ``io/kafka_wire.py``).
 
-The port leaves out, for now: the reference's telemetry (its metrics,
-events and trace spans), the fleet's all-topics discovery, the follow
-mode's watermark refresh and healing, and the snapshot hooks (resume
-validation, seeded spans, the checkpointed partition facts).  The fused
-sink's fallbacks are counted on the sink (`packing.FusedPackSink.
-fallbacks`) and logged.
+The port leaves out, for now: the fleet's all-topics discovery, the
+follow mode's watermark refresh and healing, and the snapshot hooks
+(resume validation, seeded spans, the checkpointed partition facts).  The
+fused sink's fallbacks are counted on the sink by reason
+(`packing.FusedPackSink.fallbacks`, booked on ``kta_fused_fallback_total``)
+and logged.
 
 Speaks the Kafka protocol directly over TCP (codec in kafka_codec.py) and
 reproduces the reference consumer's observable behavior (src/kafka.rs):
@@ -63,6 +63,7 @@ import logging
 import socket
 import struct
 import threading
+from time import perf_counter as _perf_counter
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -74,8 +75,15 @@ from kafka_topic_analyzer_tpu_torch.config import (
 )
 from kafka_topic_analyzer_tpu_torch.io import kafka_codec as kc
 from kafka_topic_analyzer_tpu_torch.io import native
-from kafka_topic_analyzer_tpu_torch.io.retry import Backoff, PartitionRetryBudget
+from kafka_topic_analyzer_tpu_torch.io.retry import (
+    Backoff,
+    PartitionRetryBudget,
+    note_backoff_sleep,
+)
 from kafka_topic_analyzer_tpu_torch.io.source import RecordSource
+from kafka_topic_analyzer_tpu_torch.obs import events as obs_events
+from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
+from kafka_topic_analyzer_tpu_torch.obs import trace as obs_trace
 from kafka_topic_analyzer_tpu_torch.ops.fnv import fnv1a32_ref_batch, fnv1a64_batch
 from kafka_topic_analyzer_tpu_torch.records import RecordBatch
 
@@ -685,6 +693,10 @@ class KafkaWireSource(RecordSource):
             # rounds bound instead of re-fetching forever.
             with self._corrupt_lock:
                 self._corrupt_suspects[p] = (anchor, err.kind, rounds)
+            obs_metrics.CORRUPT_REFETCHES.inc()
+            obs_events.emit(
+                "corrupt_suspect", partition=p, anchor=anchor, kind=err.kind
+            )
             log.warning(
                 "partition %d: suspect corrupt frame at offset %d (%s); "
                 "re-fetching once to rule out an in-flight bit flip",
@@ -711,7 +723,7 @@ class KafkaWireSource(RecordSource):
             "quarantined": False,
         }
         if self._quarantine is not None:
-            self._quarantine.spool(
+            sidecar = self._quarantine.spool(
                 topic=self.topic,
                 partition=p,
                 anchor=anchor,
@@ -725,6 +737,20 @@ class KafkaWireSource(RecordSource):
                 error=str(err),
             )
             span_rec["quarantined"] = True
+            if sidecar is not None:
+                obs_metrics.CORRUPT_QUARANTINED.inc()
+        obs_metrics.CORRUPT_FRAMES.labels(kind=err.kind).inc()
+        obs_metrics.CORRUPT_RECORDS.inc(span_rec["records"])
+        obs_metrics.CORRUPT_BYTES.inc(len(raw))
+        obs_events.emit(
+            "corrupt_frame",
+            partition=p,
+            anchor=anchor,
+            skip_to=span_rec["skip_to"],
+            kind=err.kind,
+            action=self.corruption.policy,
+            quarantined=span_rec["quarantined"],
+        )
         log.error(
             "partition %d: deterministically corrupt frame at offset %d "
             "(%s): %s — %s",
@@ -795,6 +821,17 @@ class KafkaWireSource(RecordSource):
             if key in self._lost_spans:
                 return
             self._lost_spans[key] = span_rec
+        obs_metrics.LOG_LOST_RECORDS.labels(reason=reason).inc(records)
+        obs_metrics.LOG_LOST_RANGES.labels(reason=reason).inc()
+        obs_events.emit(
+            "log_lost",
+            partition=int(p),
+            start=int(start),
+            end=int(end),
+            records=records,
+            reason=reason,
+            action=self.data_loss.policy,
+        )
         log.error(
             "partition %d: %d record(s) at [%d, %d) lost to %s — %s",
             p, records, start, end, reason,
@@ -853,6 +890,7 @@ class KafkaWireSource(RecordSource):
         at."""
         if ask_epoch < 0 or p not in self._leaders:
             return None
+        obs_metrics.LOG_DIVERGENCE_CHECKS.inc()
         try:
             conn = self._leader_conn(p)
             v = self._version(conn, kc.API_OFFSET_FOR_LEADER_EPOCH)
@@ -891,6 +929,15 @@ class KafkaWireSource(RecordSource):
                 "(epoch %d)", p, err, ask_epoch,
             )
             return None
+        obs_events.emit(
+            "divergence_check",
+            partition=int(p),
+            ask_epoch=int(ask_epoch),
+            end_epoch=int(end_epoch),
+            end_offset=int(end_offset),
+            cursor=int(cursor),
+            diverged=bool(end_offset < cursor),
+        )
         if end_offset < cursor:
             return int(end_offset)
         return None
@@ -957,6 +1004,10 @@ class KafkaWireSource(RecordSource):
         with self._conn_lock:
             if self._conns.get((conn.host, conn.port)) is conn:
                 del self._conns[(conn.host, conn.port)]
+        obs_metrics.CONNECTION_EVICTIONS.inc()
+        obs_events.emit(
+            "connection_evicted", host=conn.host, port=conn.port
+        )
 
     def _version(self, conn: BrokerConnection, api_key: int) -> int:
         if conn.api_versions is None:
@@ -1098,13 +1149,16 @@ class KafkaWireSource(RecordSource):
         transport recovery a failed reload must not abort the scan — the
         next round retries against the stale topology, and the per-partition
         retry budget bounds how long that can go on."""
+        obs_metrics.METADATA_RELOADS.inc()
         try:
             self._load_metadata()
+            obs_events.emit("metadata_reload", ok=True)
             return True
         except (OSError, kc.KafkaProtocolError) as e:
             log.warning(
                 "metadata reload failed (%s); keeping stale topology", e
             )
+            obs_events.emit("metadata_reload", ok=False, error=str(e))
             return False
         except SystemExit:
             # _load_metadata's "Topic not found!" exit is an init-time
@@ -1331,13 +1385,14 @@ class KafkaWireSource(RecordSource):
         if sink is not None and not use_native_decode:
             # Fused sink requested but the native decoder is off: the whole
             # stream degrades to the decoded-batch python chain.  Book the
-            # bypass ONCE on the sink, with the cached load reason, and log
-            # it — never silently.
+            # bypass ONCE on the sink and the counter, with the cached load
+            # reason, and log it — never silently.
             reason = (
                 f"native-{native.native_status()[1]}"
                 if self.use_native_hashing else "native-off"
             )
             sink.fallbacks[reason] = sink.fallbacks.get(reason, 0) + 1
+            obs_metrics.FUSED_FALLBACK.labels(reason=reason).inc()
             log.warning(
                 "fused decode→pack unavailable (%s); falling back to the "
                 "python decode chain", reason,
@@ -1367,6 +1422,7 @@ class KafkaWireSource(RecordSource):
             remaining.discard(p)  # stream-local (this worker's partitions)
             with self._degraded_lock:  # scan-shared across worker streams
                 self.degraded[p] = reason
+            obs_events.emit("partition_degraded", partition=p, reason=reason)
         # Consecutive fetches for a partition that neither consumed records
         # nor advanced the offset (possible under response-budget pressure
         # from sibling partitions) — bounded so a pathological broker can't
@@ -1482,8 +1538,17 @@ class KafkaWireSource(RecordSource):
                     pmax_sent,
                 )
             conn, corr, sent_offsets, order, pmax_sent = fl
-            r = conn.read_response(corr)
+            _t_fetch = _perf_counter()
+            with obs_trace.maybe_span("fetch", cat="io"):
+                r = conn.read_response(corr)
+            # Same window as the span, booked per fetch round — the
+            # flight recorder's source-wait track (obs/doctor.py).
+            obs_metrics.FETCH_SECONDS.inc(_perf_counter() - _t_fetch)
             fps = kc.decode_fetch_response(r, self._version(conn, kc.API_FETCH))
+            obs_metrics.FETCH_REQUESTS.inc()
+            obs_metrics.FETCH_BYTES.inc(
+                sum(len(fp.records) for fp in fps)
+            )
             # Send-ahead: while this response's records decode, let the
             # broker build the NEXT one.  A cheap native header scan of
             # each partition's record set yields the exact offsets
@@ -1559,12 +1624,15 @@ class KafkaWireSource(RecordSource):
             # order (the scan above still powers the send-ahead).
             soas: "Dict[int, tuple]" = {}
             if scans and sink is None:
-                for fp in fps:
-                    p = fp.partition
-                    if p in scans:
-                        soas[p] = native.decode_record_set_native(
-                            fp.records, self.verify_crc, prescan=scans[p]
-                        )
+                _t_dec = _perf_counter()
+                with obs_trace.maybe_span("decode", cat="io"):
+                    for fp in fps:
+                        p = fp.partition
+                        if p in scans:
+                            soas[p] = native.decode_record_set_native(
+                                fp.records, self.verify_crc, prescan=scans[p]
+                            )
+                obs_metrics.DECODE_SECONDS.inc(_perf_counter() - _t_dec)
             return (leader, fps, scans, soas, spec_sent, order, pmax_sent)
 
         def fetch_leader_guarded(leader: int, lparts: List[int], fetch_round: int):
@@ -1585,6 +1653,13 @@ class KafkaWireSource(RecordSource):
                 log.warning(
                     "transport failure on leader %d (%s): %s",
                     leader, type(e).__name__, e,
+                )
+                obs_metrics.TRANSPORT_FAILURES.inc()
+                obs_events.emit(
+                    "transport_failure",
+                    leader=leader,
+                    partitions=sorted(lparts),
+                    error=f"{type(e).__name__}: {e}",
                 )
                 return _TransportFailure(leader, list(lparts), e)
 
@@ -1608,6 +1683,7 @@ class KafkaWireSource(RecordSource):
                 # spinning the loop.
                 sleep_s = min(deferred) - time.monotonic()
                 if sleep_s > 0:
+                    note_backoff_sleep(sleep_s)
                     time.sleep(sleep_s)
                 continue
             progressed = False
@@ -1673,6 +1749,10 @@ class KafkaWireSource(RecordSource):
                         # (src/kafka.rs:95-97) — but with recovery for the
                         # known-persistent errors and a bounded retry budget.
                         log.warning("fetch error %d on partition %d", fp.error, p)
+                        obs_metrics.FETCH_ERRORS.inc()
+                        obs_events.emit(
+                            "fetch_error", partition=p, code=fp.error
+                        )
                         error_streak[p] += 1
                         if fp.error == kc.ERR_NOT_LEADER_FOR_PARTITION:
                             self._reload_metadata()
@@ -1684,7 +1764,14 @@ class KafkaWireSource(RecordSource):
                             # the one we tracked (election).  Verify the
                             # cursor against the post-election log before
                             # fetching on.
+                            obs_metrics.LOG_EPOCH_FENCES.inc()
                             fenced_epoch = self._epoch_for(p)
+                            obs_events.emit(
+                                "epoch_fence",
+                                partition=p,
+                                code=fp.error,
+                                epoch=fenced_epoch,
+                            )
                             # Unfence first: neither the divergence probe
                             # nor the next fetch may re-fence on the stale
                             # epoch (it re-learns the new one from the
@@ -1738,14 +1825,18 @@ class KafkaWireSource(RecordSource):
                                 # log start at/below our cursor (stale
                                 # replica, or out-of-range from the HEAD
                                 # side after a truncation).  Clamp
-                                # monotone — never rewind — log the
+                                # monotone — never rewind — book the
                                 # non-advance, and leave the round
                                 # non-progressing so the streak/budget
                                 # bounds engage deterministically.
-                                log.warning(
-                                    "partition %d: re-anchor answered %d, "
-                                    "not past the cursor %d",
-                                    p, new_start, next_offset[p],
+                                obs_metrics.LOG_LOST_RANGES.labels(
+                                    reason="re-anchor-regressed"
+                                ).inc()
+                                obs_events.emit(
+                                    "re_anchor_regressed",
+                                    partition=p,
+                                    cursor=next_offset[p],
+                                    answered=new_start,
                                 )
                         if error_streak[p] >= max_error_streak:
                             degrade(
@@ -1790,9 +1881,15 @@ class KafkaWireSource(RecordSource):
                         # remainder (compressed/legacy/truncated/
                         # malformed) takes the per-frame chain below,
                         # entering the same rows via push_chunk.
+                        _t_dec = _perf_counter()
                         n_acc, used, covered, last = sink.append_record_set(
                             data, next_offset[p], end[p], p,
                             self.verify_crc, prescan=scans.get(p),
+                        )
+                        # Fused streams skip the phase-1 pre-decode; their
+                        # decode IS this pack, booked on the same counter.
+                        obs_metrics.DECODE_SECONDS.inc(
+                            _perf_counter() - _t_dec
                         )
                         if used:
                             max_frame_end = max(max_frame_end, covered)
@@ -1811,9 +1908,15 @@ class KafkaWireSource(RecordSource):
                             soa, used, covered = pre
                         else:
                             # Lazy whole-response decode (no phase-1
-                            # prescan).
+                            # prescan): booked on the same counter as the
+                            # pre-decode pass — the doctor's decode
+                            # evidence must see this path too.
+                            _t_dec = _perf_counter()
                             soa, used, covered = native.decode_record_set_native(
                                 data, self.verify_crc, prescan=scans.get(p)
+                            )
+                            obs_metrics.DECODE_SECONDS.inc(
+                                _perf_counter() - _t_dec
                             )
                         if used:
                             max_frame_end = max(max_frame_end, covered)
@@ -1934,7 +2037,11 @@ class KafkaWireSource(RecordSource):
                                 rows, use_native=self.use_native_hashing
                             )
                             batch.offsets = np.array(row_offs, dtype=np.int64)
-                            push_chunk(batch, reason)
+                            push_chunk(
+                                batch,
+                                "legacy" if reason == "legacy"
+                                else "python-decode",
+                            )
                             next_offset[p] = frame_next
                             consumed += len(rows)
                             progressed = True
@@ -2078,7 +2185,9 @@ def _fallback_reason(frame: kc.BatchFrame, data: bytes, salvaged: bool) -> str:
     through the one-pass decode→pack (`packing.FusedPackSink.fallbacks`):
     a legacy message set, a frame after a poisoned span, a compressed
     frame (the codec in the low three bits of the v2 attributes, bytes
-    21-22 of the frame), or any other frame past the native prefix."""
+    21-22 of the frame), or any other frame past the native prefix.  A
+    v2 frame that only the Python decoder takes is booked
+    ``python-decode`` instead (`packing.FALLBACK_LABEL`)."""
     if frame.legacy_records is not None:
         return "legacy"
     if salvaged:

@@ -14,8 +14,9 @@ thread's dispatches only because of that.  Every bound entry declares its
 ``argtypes`` and ``restype``; pointers travel as ``c_void_p`` built with
 ``ndarray.ctypes.data_as``, which keeps the array alive across the call.
 A failed build or load is remembered once, with its class
-(`native_status`); ``--native off`` (``use_native=False``) is the way to
-run without the shim.
+(`native_status`); ``--native off`` (``use_native=False``) or the
+reference's ``KTA_DISABLE_NATIVE`` kill switch (read at the first load)
+runs without the shim.
 """
 
 from __future__ import annotations
@@ -33,6 +34,9 @@ from kafka_topic_analyzer_tpu_torch.records import RecordBatch
 
 #: ABI version the shim reports (``kta_version``).
 ABI = 14
+
+#: Environment kill switch: set, the shim is never built or loaded.
+_DISABLE_ENV = "KTA_DISABLE_NATIVE"
 
 _lock = threading.Lock()
 _lib: "ctypes.CDLL | None" = None
@@ -114,6 +118,8 @@ def load_library() -> ctypes.CDLL:
         if _load_error is not None:
             raise _load_error
         try:
+            if os.environ.get(_DISABLE_ENV):
+                raise RuntimeError(f"native shim disabled via {_DISABLE_ENV}")
             _build.build_native()
             path = _build.native_library_path()
             lib = ctypes.CDLL(str(path))
@@ -143,10 +149,13 @@ def native_available() -> bool:
 
 def native_status() -> "tuple[bool, str]":
     """(available, reason): ``""`` when the shim loaded, else
-    ``build-failed`` (g++ missing or failing), ``abi-mismatch`` or
-    ``load-failed``.  Never re-runs a failed build."""
+    ``disabled`` (``KTA_DISABLE_NATIVE``), ``build-failed`` (g++ missing
+    or failing), ``abi-mismatch`` or ``load-failed``.  Never re-runs a
+    failed build."""
     if native_available():
         return True, ""
+    if isinstance(_load_error, RuntimeError) and _DISABLE_ENV in str(_load_error):
+        return False, "disabled"
     if isinstance(_load_error, _build.BuildError):
         return False, "build-failed"
     if isinstance(_load_error, AbiMismatchError):

@@ -1,6 +1,5 @@
 """Transport-failure recovery primitives for the live Kafka scan (port of
-the reference's ``io/retry.py``, without its telemetry counters and
-events).
+the reference's ``io/retry.py``).
 
 The wire client (io/kafka_wire.py) retries *protocol*-level fetch errors,
 but a broker restart, connection reset, or truncated response used to
@@ -27,6 +26,8 @@ import time
 from typing import Callable, Dict, Optional
 
 from kafka_topic_analyzer_tpu_torch.config import TransportRetryConfig
+from kafka_topic_analyzer_tpu_torch.obs import events as obs_events
+from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
 
 
 class Backoff:
@@ -65,8 +66,17 @@ class Backoff:
         """Sleep the schedule's delay for ``attempt``; returns seconds slept."""
         s = self.delay_ms(attempt) / 1000.0
         if s > 0:
+            note_backoff_sleep(s)
             self._sleep(s)
         return s
+
+
+def note_backoff_sleep(seconds: float) -> None:
+    """Book a backoff sleep in the telemetry counters — shared by
+    ``Backoff.sleep_for`` and the wire client's deferred-leader sleeps
+    (which pace to a deadline rather than calling ``sleep_for``)."""
+    obs_metrics.BACKOFF_SLEEPS.inc()
+    obs_metrics.BACKOFF_SLEEP_SECONDS.inc(seconds)
 
 
 class PartitionRetryBudget:
@@ -96,6 +106,12 @@ class PartitionRetryBudget:
         if n >= self.budget:
             self.degraded[partition] = (
                 f"{n} consecutive transport failures (last: {reason})"
+            )
+            obs_metrics.RETRY_BUDGET_EXHAUSTIONS.inc()
+            obs_events.emit(
+                "retry_budget_exhausted",
+                partition=partition,
+                reason=self.degraded[partition],
             )
             return True
         return False

@@ -38,6 +38,7 @@ import numpy as np
 
 from kafka_topic_analyzer_tpu_torch.io.kafka_codec import CorruptFrameError
 from kafka_topic_analyzer_tpu_torch.io.source import RecordSource
+from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
 from kafka_topic_analyzer_tpu_torch.records import RecordBatch
 
 
@@ -452,6 +453,11 @@ class SegmentFileSource(RecordSource):
                     n = seg.count - first
                     if n <= 0:
                         continue
+                    # Batches book at the batch_size cut the chained loop
+                    # below would report, so kta_segment_batches_total is
+                    # the same whichever path ran.
+                    obs_metrics.SEGMENT_RECORDS.inc(n)
+                    obs_metrics.SEGMENT_BATCHES.inc(-(-n // batch_size))
                     sink.append_columns(
                         seg.partition,
                         seg.column("key_len", first),
@@ -468,7 +474,10 @@ class SegmentFileSource(RecordSource):
                     yield from sink.take_completed()
                 else:
                     for lo in range(first, seg.count, batch_size):
-                        yield seg.read_batch(lo, min(lo + batch_size, seg.count))
+                        hi = min(lo + batch_size, seg.count)
+                        obs_metrics.SEGMENT_RECORDS.inc(hi - lo)
+                        obs_metrics.SEGMENT_BATCHES.inc()
+                        yield seg.read_batch(lo, hi)
         if sink is not None:
             sink.flush()
             yield from sink.take_completed()

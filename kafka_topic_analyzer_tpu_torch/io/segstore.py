@@ -19,6 +19,8 @@ import os
 import re
 from typing import TYPE_CHECKING, Dict, List, Tuple
 
+from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
+
 if TYPE_CHECKING:  # segfile imports this module
     from kafka_topic_analyzer_tpu_torch.io.segfile import SegmentFile
 
@@ -156,6 +158,8 @@ class SegmentCatalog:
                         path=os.path.basename(nxt.path),
                         partition=p,
                     )
+        obs_metrics.SEGMENT_FILES_OPENED.inc(self.num_files)
+        obs_metrics.SEGMENT_BYTES_MAPPED.inc(self.total_bytes)
 
     def partitions(self) -> List[int]:
         return sorted(self.segments)

@@ -61,6 +61,7 @@ patterns (`_torch_support`).
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Tuple
 
 import numpy as np
@@ -68,6 +69,7 @@ import torch
 
 from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
 from kafka_topic_analyzer_tpu_torch.io import native as _native
+from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
 from kafka_topic_analyzer_tpu_torch.ops.ddsketch import (
     ddsketch_bucket_numpy,
     ddsketch_num_buckets,
@@ -185,6 +187,33 @@ def packed_nbytes(config: AnalyzerConfig, batch_size: int) -> int:
 
 # ---------------------------------------------------------------------------
 # host-side pre-reductions
+
+
+#: Sections whose byte count scales with the batch size — the per-record
+#: share of a packed row.  Everything else (header included) is a
+#: fold-table constant per row.  Drives `section_byte_split` and the
+#: ``--stats`` wire line.
+PER_RECORD_SECTIONS = frozenset(
+    {"partition", "key_len", "value_len", "flags",
+     "alive_slot", "alive_flag", "hll_idx", "hll_idx32", "hll_rho"}
+)
+
+
+def section_byte_split(
+    config: AnalyzerConfig, batch_size: int
+) -> "Tuple[int, int]":
+    """(per_record_bytes, fold_table_bytes) of one packed row — the
+    fold-table share includes the header; the two sum to
+    `packed_nbytes`."""
+    per_record = 0
+    table = HEADER_BYTES
+    for name, dtype, count in _sections(config, batch_size):
+        nbytes = np.dtype(dtype).itemsize * count
+        if name in PER_RECORD_SECTIONS:
+            per_record += nbytes
+        else:
+            table += nbytes
+    return per_record, table
 
 
 def dedupe_slots_numpy(
@@ -699,7 +728,11 @@ _RECORD_NBYTES = sum(np.dtype(dt).itemsize for _, dt in RecordBatch.FIELDS)
 
 
 def fused_ingest_enabled() -> bool:
-    """True when the shim loads: fused rows need its incremental packer."""
+    """Master gate for fused rows: the shim must load (its incremental
+    packer fills them) and the ``KTA_DISABLE_FUSED`` kill switch must be
+    unset.  A closed gate keeps the chained path, booked by the engine."""
+    if os.environ.get("KTA_DISABLE_FUSED"):
+        return False
     return _native.native_available()
 
 
@@ -739,6 +772,15 @@ class PackedRow:
         return self.n_valid * _RECORD_NBYTES
 
 
+#: The reference's ``kta_fused_fallback_total`` label of a fused sink's
+#: fallback reason: the decoder the frame went through.  Frames the Python
+#: decoder took (legacy message sets, v2 frames the native decoder
+#: refused) read ``python-decode``; every other reason (``compressed``,
+#: ``salvaged``, ``frame-fallback``: native per-frame decodes) reads
+#: ``frame-fallback``.
+FALLBACK_LABEL = {"legacy": "python-decode", "python-decode": "python-decode"}
+
+
 class FusedPackSink:
     """Incremental row assembly for one ingest stream (the reference's
     single-device form: flat ``uint8[packed_nbytes]`` rows of
@@ -753,8 +795,9 @@ class FusedPackSink:
     sink per stream, fed in per-partition offset order.
 
     ``fallbacks`` counts, by reason, the records a Kafka stream could not
-    decode→pack in one pass (compressed, legacy or salvaged frames, and
-    other frames past a record set's native prefix) and so appended as
+    decode→pack in one pass (compressed, legacy or salvaged frames, v2
+    frames only the Python decoder takes, and other frames past a record
+    set's native prefix) and so appended as
     decoded batches (`append_batch`); a stream that drops the sink
     altogether books one under ``native-*``."""
 
@@ -811,6 +854,8 @@ class FusedPackSink:
     def _complete_row(self) -> None:
         self._harvest_pairs()  # before the next row's init resets the scratch
         row, self._row = self._row, None
+        obs_metrics.FUSED_BATCHES.inc()
+        obs_metrics.FUSED_RECORDS.inc(self._count)
         pairs = self._take_row_pairs()
         if self._stage is None:
             staged = None
@@ -908,11 +953,16 @@ class FusedPackSink:
 
     def append_batch(self, batch: RecordBatch, reason: str) -> int:
         """`append_columns` of a single-partition batch (``ts_s`` seconds),
-        its records booked in `fallbacks` under ``reason``."""
+        its records booked in `fallbacks` under ``reason`` and on
+        ``kta_fused_fallback_total`` under its `FALLBACK_LABEL`, never
+        silent."""
         n = len(batch)
         if n == 0:
             return 0
         self.fallbacks[reason] = self.fallbacks.get(reason, 0) + n
+        obs_metrics.FUSED_FALLBACK.labels(
+            reason=FALLBACK_LABEL.get(reason, "frame-fallback")
+        ).inc(n)
         p = int(batch.partition[0])
         if not bool((batch.partition == p).all()):
             raise ValueError("fused sink chunks must be single-partition")

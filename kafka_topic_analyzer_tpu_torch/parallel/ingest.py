@@ -4,7 +4,7 @@ reference's ``parallel/ingest.py``, its single-stream adapter;
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, Optional, Tuple
+from typing import Callable, Iterator, Tuple
 
 from kafka_topic_analyzer_tpu_torch.packing import PackedRow
 from kafka_topic_analyzer_tpu_torch.records import RecordBatch
@@ -12,7 +12,7 @@ from kafka_topic_analyzer_tpu_torch.records import RecordBatch
 
 def iter_staged(
     it: "Iterator[RecordBatch | PackedRow]",
-    stage: "Optional[Callable[[RecordBatch], object]]",
+    stage: "Callable[[RecordBatch], object]",
 ) -> "Iterator[Tuple[RecordBatch | PackedRow, object]]":
     """``(item, staged)`` pairs, staged on the thread that iterates: a
     `RecordBatch` goes through ``stage``; a `PackedRow` arrives staged by
@@ -21,4 +21,4 @@ def iter_staged(
         if isinstance(b, PackedRow):
             yield b, b.staged
         else:
-            yield b, (stage(b) if stage is not None else None)
+            yield b, stage(b)

@@ -1,5 +1,8 @@
 """Terminal report renderer, byte-compatible with the reference (port of
-the reference's ``report.py``: `render_report` and its extension lines).
+the reference's ``report.py``: `render_report` and its extension lines,
+`render_extremes_table`, and the ``--stats`` digests `render_stage_stats`,
+`render_telemetry_stats` and `render_bottleneck`, each with the lines of
+the features the port has).
 
 Reproduces the report block of xenji/kafka-topic-analyzer's
 ``src/main.rs:123-179``: the global lines, the optional alive-keys block,
@@ -13,7 +16,7 @@ blocks after the report (`render_degraded_block`, `render_corrupt_block`,
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from kafka_topic_analyzer_tpu_torch.results import TopicMetrics
 from kafka_topic_analyzer_tpu_torch.utils.table import render_table
@@ -98,9 +101,14 @@ def _render_extensions(metrics: TopicMetrics) -> str:
     lines: List[str] = []
     if metrics.distinct_keys_hll is not None:
         lines.append(f"Distinct keys (HLL est.): {round(metrics.distinct_keys_hll)}")
+    if metrics.distinct_keys_exact is not None:
+        lines.append(f"Distinct keys (exact): {metrics.distinct_keys_exact}")
     if metrics.distinct_keys_hll_per_partition is not None:
         for p, est in zip(metrics.partitions, metrics.distinct_keys_hll_per_partition):
             lines.append(f"  partition {p} distinct keys (HLL est.): {round(est)}")
+    if metrics.distinct_keys_exact_per_partition is not None:
+        for p, n in zip(metrics.partitions, metrics.distinct_keys_exact_per_partition):
+            lines.append(f"  partition {p} distinct keys (exact): {n}")
     if metrics.quantiles is not None:
         qs = " ".join(
             f"p{int(p * 100)}={v:.0f}B"
@@ -119,6 +127,24 @@ def _render_extensions(metrics: TopicMetrics) -> str:
             )
             lines.append(f"  partition {p} size quantiles: {qs}")
     return ("\n".join(lines) + "\n") if lines else ""
+
+
+def render_extremes_table(metrics: TopicMetrics) -> str:
+    """``--extremes-table``: per-partition first/last timestamp and
+    min/max sized message bytes; sentinel rows (no records / no sized
+    records) show n/a."""
+    if metrics.per_partition_extremes is None:
+        return ""
+    rows: List[List[str]] = [["P", "First Ts", "Last Ts", "Min-Sz", "Max-Sz"]]
+    for p, e, l, s, g in metrics.extremes_decoded():
+        rows.append([
+            f"{p}",
+            format_utc_seconds(e) if e is not None else "n/a",
+            format_utc_seconds(l) if l is not None else "n/a",
+            f"{s}" if s is not None else "n/a",
+            f"{g}" if g is not None else "n/a",
+        ])
+    return "Per-partition extremes:\n" + render_table(rows)
 
 
 def render_degraded_block(degraded: "Dict[int, str]") -> str:
@@ -223,4 +249,197 @@ def render_data_loss_block(lost: "Dict[int, dict]") -> str:
             )
         )
     lines.append(bar)
+    return "\n".join(lines) + "\n"
+
+
+def _metric_total(snapshot: Optional[Dict], name: str) -> float:
+    metric = (snapshot or {}).get(name)
+    if metric is None:
+        return 0.0
+    return sum(s.get("value", 0.0) for s in metric["samples"])
+
+
+def render_stage_stats(snapshot: Optional[Dict]) -> str:
+    """``--stats`` per-stage digest from the registry snapshot — the same
+    source the scan doctor attributes from (`results.StageDigest`)."""
+    from kafka_topic_analyzer_tpu_torch.results import StageDigest
+
+    digest = StageDigest.from_telemetry(snapshot)
+    if not digest.stages:
+        return ""
+    lines = ["scan stages:"]
+    for name, (secs, items, nbytes) in digest.stages.items():
+        line = f"  {name}: {secs:.3f}s, {items} records"
+        if items and secs > 0:
+            line += f" ({items / secs:,.0f}/s)"
+        if nbytes:
+            line += f", {nbytes / 1e6:,.1f} MB"
+            if secs > 0:
+                line += f" ({nbytes / secs / 1e6:,.1f} MB/s)"
+        lines.append(line)
+    return "\n".join(lines) + "\n"
+
+
+def render_bottleneck(diagnosis) -> str:
+    """``--stats`` BOTTLENECK digest from an `obs.doctor.Diagnosis`: the
+    verdict, the per-stage occupancy it was computed from, the evidence,
+    and (when a flight recorder ran) the windowed verdict shares."""
+    if diagnosis is None:
+        return ""
+    pct = lambda v: f"{v * 100.0:.0f}%"  # noqa: E731
+    lines = [f"BOTTLENECK: {diagnosis.verdict} — {diagnosis.rationale}"]
+    if diagnosis.stages:
+        lines.append(
+            "  occupancy: "
+            + " | ".join(f"{s} {pct(v)}" for s, v in diagnosis.stages.items())
+        )
+    if diagnosis.evidence:
+        lines.append(
+            "  evidence: "
+            + " | ".join(
+                f"{k.replace('_', '-')} {pct(v)}"
+                for k, v in sorted(diagnosis.evidence.items())
+            )
+        )
+    if diagnosis.window_share:
+        lines.append(
+            "  windows: "
+            + " | ".join(
+                f"{v} {pct(share)}"
+                for v, share in sorted(
+                    diagnosis.window_share.items(), key=lambda kv: -kv[1]
+                )
+            )
+        )
+    return "\n".join(lines) + "\n"
+
+
+def render_telemetry_stats(
+    snapshot: Optional[Dict],
+    ingest_workers: int = 1,
+    dispatch_depth: int = 1,
+    wire=None,
+) -> str:
+    """``--stats`` telemetry section from a registry snapshot: the
+    reference's counter digest, with the lines of the features the port
+    has (the remote segment tier, the follow service and the
+    multi-controller split come with those features)."""
+    from kafka_topic_analyzer_tpu_torch.results import (
+        DispatchStats,
+        FusedStats,
+        IngestStats,
+        LossStats,
+        SegmentStats,
+    )
+
+    if not snapshot:
+        return ""
+    t = lambda name: _metric_total(snapshot, name)  # noqa: E731
+    lines = [
+        "telemetry:",
+        (
+            f"  scan: {t('kta_scan_records_total'):,.0f} records, "
+            f"{t('kta_scan_batches_total'):,.0f} batches, "
+            f"{t('kta_scan_bytes_total') / 1e6:,.1f} MB"
+        ),
+        (
+            f"  wire: {t('kta_fetch_requests_total'):,.0f} fetches "
+            f"({t('kta_fetch_bytes_total') / 1e6:,.1f} MB), "
+            f"{t('kta_fetch_errors_total'):,.0f} fetch errors, "
+            f"{t('kta_metadata_reloads_total'):,.0f} metadata reloads"
+        ),
+        (
+            f"  faults: {t('kta_transport_failures_total'):,.0f} transport "
+            f"failures, {t('kta_connection_evictions_total'):,.0f} "
+            f"evictions, {t('kta_backoff_sleeps_total'):,.0f} backoff "
+            f"sleeps ({t('kta_backoff_sleep_seconds_total'):.2f}s), "
+            f"{t('kta_retry_budget_exhaustions_total'):,.0f} budget "
+            f"exhaustions"
+        ),
+        (
+            f"  corruption: {t('kta_corrupt_frames_total'):,.0f} corrupt "
+            f"frames ({t('kta_corrupt_records_total'):,.0f} records, "
+            f"{t('kta_corrupt_bytes_total'):,.0f} B), "
+            f"{t('kta_corrupt_quarantined_total'):,.0f} quarantined, "
+            f"{t('kta_corrupt_refetches_total'):,.0f} disambiguation "
+            f"re-fetches"
+        ),
+        (
+            f"  state: {t('kta_snapshots_saved_total'):,.0f} snapshots "
+            f"saved, {t('kta_scan_degraded_partitions'):,.0f} degraded "
+            f"partitions"
+        ),
+    ]
+    # Log-mutation digest: only when the log moved (or the fencing
+    # machinery fired).
+    loss = LossStats.from_telemetry(snapshot)
+    if loss.ranges or loss.fences or loss.divergence_checks \
+            or loss.watermark_regressions:
+        reasons = ", ".join(
+            f"{k}={v:,}" for k, v in sorted(loss.by_reason.items())
+        )
+        lines.append(
+            f"  log-mutation: {loss.records:,} records lost in "
+            f"{loss.ranges:,} range(s)"
+            + (f" ({reasons})" if reasons else "")
+            + f", {loss.fences:,} epoch fences, "
+            f"{loss.divergence_checks:,} divergence checks, "
+            f"{loss.watermark_regressions:,} watermark regressions"
+        )
+    seg = SegmentStats.from_telemetry(snapshot)
+    if seg.files:
+        lines.append(
+            f"  segments: {seg.files:,} chunk(s) "
+            f"({seg.bytes_mapped / 1e6:,.1f} MB mapped), "
+            f"{seg.records:,.0f} records in {seg.batches:,.0f} batches"
+        )
+    if wire is not None:
+        lines.append(
+            f"  wire-format: v{wire.format}, "
+            f"{wire.bytes_total / 1e6:,.1f} MB packed "
+            f"({wire.bytes_per_record:,.1f} B/record), buffer split "
+            f"{wire.per_record_bytes:,} B per-record + "
+            f"{wire.table_bytes:,} B fold-table per {wire.batch_size:,}"
+            f"-record buffer"
+        )
+        if wire.alive_compaction == "on":
+            lines.append(
+                f"  alive-compaction: on — {wire.pairs_raw:,} raw pairs "
+                f"→ {wire.pairs_emitted:,} emitted "
+                f"(ratio {wire.compaction_ratio:.3f})"
+            )
+        elif wire.alive_compaction != "n/a":
+            lines.append(f"  alive-compaction: {wire.alive_compaction}")
+    fused = FusedStats.from_telemetry(snapshot)
+    if fused.rows or fused.fallbacks:
+        line = (
+            f"  fused: {fused.records:,.0f} records in {fused.rows:,} "
+            f"row(s) via native decode→pack"
+        )
+        if fused.fallbacks:
+            per = ", ".join(
+                f"{r} {int(n):,}" for r, n in sorted(fused.fallbacks.items())
+            )
+            line += f" — fallbacks: {per}"
+        lines.append(line)
+    ingest = IngestStats.from_telemetry(snapshot)
+    line = f"  ingest: {ingest_workers} worker(s)"
+    if ingest.workers:
+        per = ", ".join(
+            f"w{w} {n:,}" + (
+                f" (stalled {ingest.stalls[w]:.1f}s)"
+                if ingest.stalls.get(w, 0) >= 0.05 else ""
+            )
+            for w, n in sorted(ingest.workers.items())
+        )
+        line += f" — records {per}"
+    lines.append(line)
+    dispatch = DispatchStats.from_telemetry(snapshot)
+    if dispatch.dispatches:
+        lines.append(
+            f"  dispatch: {dispatch.dispatches:,} superbatch dispatches "
+            f"(K=1, depth={dispatch_depth}), "
+            f"{dispatch.batches:,} batches folded, "
+            f"{dispatch.mean_latency_ms:.1f} ms mean dispatch latency"
+        )
     return "\n".join(lines) + "\n"

@@ -1,6 +1,8 @@
 """Finalized analysis results and the reference's derived-metric semantics
 (port of the reference's ``results.py``: `TopicMetrics`,
-`QuantileSummary`, `finalize_extremes`).
+`QuantileSummary`, `finalize_extremes`, and the telemetry digests the
+``--stats`` report renders — `StageDigest`, `WireStats`, `FusedStats`,
+`IngestStats`, `SegmentStats` (local tier), `LossStats`, `DispatchStats`).
 
 The derived metrics reproduce ``src/metric.rs`` of xenji's
 kafka-topic-analyzer exactly, quirks included (documented per method).
@@ -9,7 +11,7 @@ kafka-topic-analyzer exactly, quirks included (documented per method).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -70,6 +72,10 @@ class TopicMetrics:
     distinct_keys_hll: Optional[float] = None
     #: Per-partition HLL estimates, one per `partitions` row.
     distinct_keys_hll_per_partition: "Optional[list[float]]" = None
+    #: Exact distinct keys (the numpy oracle, with ``--distinct-keys``).
+    distinct_keys_exact: Optional[int] = None
+    #: Exact per-partition distinct keys (the oracle, per partition).
+    distinct_keys_exact_per_partition: "Optional[list[int]]" = None
     #: Message-size quantiles.
     quantiles: Optional[QuantileSummary] = None
     #: Per-partition size quantiles, one per `partitions` row.
@@ -126,6 +132,26 @@ class TopicMetrics:
         """0 when never set."""
         return 0 if self.smallest_message == U64_MAX else self.smallest_message
 
+    def extremes_decoded(self):
+        """Per-partition extremes with sentinels decoded to None: the
+        earliest/smallest sentinel is I64_MAX, latest's I64_MIN, and
+        largest's 0 means "never set" exactly when smallest is the
+        sentinel (tombstone-only partitions).  Yields (partition,
+        earliest|None, latest|None, smallest|None, largest|None)."""
+        if self.per_partition_extremes is None:
+            return
+        for p, (e, l, s, g) in zip(
+            self.partitions, self.per_partition_extremes.tolist()
+        ):
+            no_sized = s == I64_MAX_NP
+            yield (
+                p,
+                None if e == I64_MAX_NP else e,
+                None if l == I64_MIN_NP else l,
+                None if no_sized else s,
+                None if no_sized else g,
+            )
+
 
 def finalize_extremes(
     earliest_raw: int, latest_raw: int, smallest_raw: int, init_now_s: int
@@ -140,3 +166,239 @@ def finalize_extremes(
     latest = max(0, latest_raw) if latest_raw != I64_MIN_NP else 0
     smallest = U64_MAX if smallest_raw == I64_MAX_NP else smallest_raw
     return earliest, latest, smallest
+
+
+def _metric(snapshot: "Optional[dict]", name: str) -> "list[dict]":
+    metric = (snapshot or {}).get(name)
+    return metric["samples"] if metric else []
+
+
+def _total(snapshot: "Optional[dict]", name: str) -> float:
+    return float(sum(s.get("value", 0.0) for s in _metric(snapshot, name)))
+
+
+def _by_label(snapshot: "Optional[dict]", name: str, label: str) -> "Dict[str, float]":
+    out: "Dict[str, float]" = {}
+    for s in _metric(snapshot, name):
+        key = s.get("labels", {}).get(label)
+        if key is not None:
+            out[key] = out.get(key, 0.0) + s.get("value", 0.0)
+    return out
+
+
+@dataclasses.dataclass
+class IngestStats:
+    """Parallel-ingest accounting from a telemetry snapshot: per-worker
+    record counts and backpressure stalls.  Empty (``workers == {}``)
+    until parallel ingest is ported: the sequential scan never touches
+    the per-worker instruments."""
+
+    #: worker label -> valid records that worker produced.
+    workers: "Dict[str, int]"
+    #: worker label -> seconds blocked on a full fan-in queue.
+    stalls: "Dict[str, float]"
+
+    @classmethod
+    def from_telemetry(cls, snapshot: "Optional[dict]") -> "IngestStats":
+        return cls(
+            workers={
+                w: int(v)
+                for w, v in _by_label(
+                    snapshot, "kta_ingest_worker_records_total", "worker"
+                ).items()
+            },
+            stalls=_by_label(
+                snapshot, "kta_ingest_worker_stall_seconds_total", "worker"
+            ),
+        )
+
+
+@dataclasses.dataclass
+class FusedStats:
+    """Fused decode→pack accounting from a telemetry snapshot: rows and
+    records that took the one-pass native path, plus per-reason records
+    that fell back to the decoded chain (compressed, legacy or salvaged
+    frames, a missing shim...).  The ``--stats`` digest renders it so a
+    bypassed fused path is never silent; empty for chained scans."""
+
+    rows: int
+    records: int
+    #: fallback reason label -> records (or stream-level bypass events).
+    fallbacks: "Dict[str, int]"
+
+    @classmethod
+    def from_telemetry(cls, snapshot: "Optional[dict]") -> "FusedStats":
+        return cls(
+            rows=int(_total(snapshot, "kta_fused_batches_total")),
+            records=int(_total(snapshot, "kta_fused_records_total")),
+            fallbacks={
+                s["labels"].get("reason", "?"): int(s["value"])
+                for s in _metric(snapshot, "kta_fused_fallback_total")
+            },
+        )
+
+
+@dataclasses.dataclass
+class WireStats:
+    """Packed host→device wire accounting for one scan (the ``--stats``
+    wire lines), built by the engine from the backend's config
+    (``packing.section_byte_split``) plus the scan's
+    ``kta_wire_bytes_total`` delta; None for the oracle, which ships no
+    packed rows."""
+
+    #: Wire format the scan's packed rows used (4 or 5).
+    format: int
+    #: Records per packed row.
+    batch_size: int
+    #: Bytes of one packed row in per-record sections (scale with B).
+    per_record_bytes: int
+    #: Bytes of one packed row in fold-table sections + header.
+    table_bytes: int
+    #: Packed bytes this scan dispatched.
+    bytes_total: int = 0
+    #: Valid records the scan folded (denominator for bytes/record).
+    records: int = 0
+    #: Alive-pair compaction: ``on``, ``off (<reason>)``, or ``n/a`` for
+    #: scans without the alive bitmap.
+    alive_compaction: str = "n/a"
+    #: Per-batch LWW pairs entering the compaction merge (delta).
+    pairs_raw: int = 0
+    #: Merged pairs shipped in the per-dispatch tables (delta).
+    pairs_emitted: int = 0
+
+    @property
+    def packed_nbytes(self) -> int:
+        return self.per_record_bytes + self.table_bytes
+
+    @property
+    def bytes_per_record(self) -> float:
+        return self.bytes_total / self.records if self.records else 0.0
+
+    @property
+    def compaction_ratio(self) -> float:
+        """emitted/raw pairs (0.0 when the compacted path saw none)."""
+        return self.pairs_emitted / self.pairs_raw if self.pairs_raw else 0.0
+
+
+@dataclasses.dataclass
+class SegmentStats:
+    """Cold-path accounting from a telemetry snapshot: segment chunks the
+    catalog opened, bytes it mapped, and the records/batches read from
+    them; empty (``files == 0``) for scans that read no segment store.
+    The remote tier's GET and cache counters come with that tier."""
+
+    files: int
+    bytes_mapped: int
+    records: int
+    batches: int
+
+    @classmethod
+    def from_telemetry(cls, snapshot: "Optional[dict]") -> "SegmentStats":
+        return cls(
+            files=int(_total(snapshot, "kta_segment_files_opened_total")),
+            bytes_mapped=int(_total(snapshot, "kta_segment_bytes_mapped_total")),
+            records=int(_total(snapshot, "kta_segment_records_total")),
+            batches=int(_total(snapshot, "kta_segment_batches_total")),
+        )
+
+
+@dataclasses.dataclass
+class LossStats:
+    """Log-mutation accounting from a telemetry snapshot: records/ranges
+    the log took back under the scan, by reason, plus the epoch-fencing
+    machinery's activity; empty for scans of a stable log."""
+
+    records: int
+    ranges: int
+    by_reason: "Dict[str, int]"
+    fences: int
+    divergence_checks: int
+    watermark_regressions: int
+
+    @classmethod
+    def from_telemetry(cls, snapshot: "Optional[dict]") -> "LossStats":
+        return cls(
+            records=int(_total(snapshot, "kta_log_lost_records_total")),
+            ranges=int(_total(snapshot, "kta_log_lost_ranges_total")),
+            by_reason={
+                k: int(v)
+                for k, v in _by_label(
+                    snapshot, "kta_log_lost_records_total", "reason"
+                ).items()
+            },
+            fences=int(_total(snapshot, "kta_log_epoch_fences_total")),
+            divergence_checks=int(
+                _total(snapshot, "kta_log_divergence_checks_total")
+            ),
+            watermark_regressions=int(
+                _total(snapshot, "kta_log_watermark_regressions_total")
+            ),
+        )
+
+
+@dataclasses.dataclass
+class DispatchStats:
+    """Dispatch-queue accounting from a telemetry snapshot: dispatches
+    launched, batches folded through them, and launch-to-retire latency
+    totals.  The port's queue runs at K = 1, so every dispatch is one
+    batch; empty for the oracle, which has no device dispatch."""
+
+    dispatches: int
+    batches: int
+    latency_count: int
+    latency_seconds: float
+
+    @property
+    def mean_latency_ms(self) -> float:
+        if not self.latency_count:
+            return 0.0
+        return (self.latency_seconds / self.latency_count) * 1e3
+
+    @classmethod
+    def from_telemetry(cls, snapshot: "Optional[dict]") -> "DispatchStats":
+        def agg(name: str) -> "tuple[float, float]":
+            samples = _metric(snapshot, name)
+            return (
+                sum(s.get("count", 0.0) for s in samples),
+                sum(s.get("sum", 0.0) for s in samples),
+            )
+
+        n_dispatch, n_batches = agg("kta_superbatch_size")
+        lat_n, lat_s = agg("kta_dispatch_seconds")
+        return cls(
+            dispatches=int(n_dispatch),
+            batches=int(n_batches),
+            latency_count=int(lat_n),
+            latency_seconds=lat_s,
+        )
+
+
+@dataclasses.dataclass
+class StageDigest:
+    """Per-stage drive-loop accounting from a telemetry snapshot: the
+    live-booked ``kta_stage_{seconds,records,bytes}_total`` counters
+    (utils/profiling.ScanProfile books them at every stage window exit).
+    The one stage-timings source of the ``--stats`` digest and the scan
+    doctor."""
+
+    #: stage -> (seconds, records, bytes), canonical pipeline order.
+    stages: "Dict[str, tuple]"
+
+    @classmethod
+    def from_telemetry(cls, snapshot: "Optional[dict]") -> "StageDigest":
+        from kafka_topic_analyzer_tpu_torch.utils.profiling import STAGE_ORDER
+
+        secs = _by_label(snapshot, "kta_stage_seconds_total", "stage")
+        recs = _by_label(snapshot, "kta_stage_records_total", "stage")
+        byts = _by_label(snapshot, "kta_stage_bytes_total", "stage")
+        rank = {name: i for i, name in enumerate(STAGE_ORDER)}
+        ordered = sorted(secs, key=lambda s: (rank.get(s, len(STAGE_ORDER)), s))
+        return cls(
+            stages={
+                s: (secs[s], int(recs.get(s, 0)), int(byts.get(s, 0)))
+                for s in ordered
+                # The flight recorder creates zero-valued stage children
+                # eagerly; an all-zero stage never ran.
+                if secs[s] or recs.get(s) or byts.get(s)
+            }
+        )

@@ -169,9 +169,9 @@ def test_segfile_reports_equal_fused_chained_synthetic_and_reference(dump, capsy
     want = drop_timing(capsys.readouterr().out)
     assert "Alive keys:" in want
     for flags in (["--native", "on"], ["--native", "off"], ["--native", "auto"]):
-        assert port_cli(seg + ["--backend", "cpu", *flags], capsys) == want, flags
+        assert port_cli(seg + ["--device", "cpu", *flags], capsys) == want, flags
     synth = ["-t", "t", "--source", "synthetic", "--synthetic", SYNTH, *SKETCHES, *fmt,
-             "--backend", "cpu"]
+             "--device", "cpu"]
     assert port_cli(synth + ["--native", "off"], capsys) == want
     assert port_cli(synth + ["--native", "on"], capsys) == want
 
@@ -204,7 +204,7 @@ def test_sparse_partitions_print_their_true_ids(tmp_path, capsys, native_flag):
             *SKETCHES, "--wire-format", "v4"]
     assert ref_cli.main(argv + ["--backend", "tpu"]) == 0
     want = drop_timing(capsys.readouterr().out)
-    got = port_cli(argv + ["--backend", "cpu", "--native", native_flag], capsys)
+    got = port_cli(argv + ["--device", "cpu", "--native", native_flag], capsys)
     assert got == want
     rows = [line.split("|")[1].strip() for line in got.splitlines()
             if line.startswith("| ") and line.split("|")[1].strip().isdigit()]
@@ -237,14 +237,14 @@ def test_cli_errors_match_the_reference(tmp_path, capsys):
         with pytest.raises(SystemExit) as ref_exit:
             ref_cli.main(argv + ["--backend", "tpu"])
         with pytest.raises(SystemExit) as port_exit:
-            cli.main(argv + ["--backend", "cpu"])
+            cli.main(argv + ["--device", "cpu"])
         assert str(port_exit.value) == str(ref_exit.value)
         assert isinstance(port_exit.value.code, str)  # printed; exit status 1
     (tmp_path / "t-0.ktaseg").write_bytes(b"KTASEG01\x00")
     argv = base + ["--segment-dir", str(tmp_path)]
     assert ref_cli.main(argv + ["--backend", "tpu"]) == 1
     ref_err = capsys.readouterr().err
-    assert cli.main(argv + ["--backend", "cpu"]) == 1
+    assert cli.main(argv + ["--device", "cpu"]) == 1
     assert capsys.readouterr().err == ref_err
     assert "truncated header" in ref_err
 
@@ -257,7 +257,7 @@ def test_cuda_segfile_scan_equals_cpu_scan(dump, capsys):
         pytest.skip("needs a CUDA device (the counter kernels have no CPU mode)")
     argv = ["-t", "t", "--source", "segfile", "--segment-dir", dump, *SKETCHES]
     for fmt in FORMATS.values():
-        want = port_cli(argv + fmt + ["--backend", "cpu"], capsys)
+        want = port_cli(argv + fmt + ["--device", "cpu"], capsys)
         for flag in ("on", "off"):
             assert port_cli(argv + fmt + ["--backend", "gpu", "--native", flag],
                             capsys) == want

@@ -58,7 +58,7 @@ def test_port_scans_with_jax_and_the_reference_unimportable():
         "           '--synthetic', 'partitions=2,messages=500,keys=40',\n"
         "           '-c', '--alive-bitmap-bits', '16', '--distinct-keys-per-partition',\n"
         "           '--quantiles-per-partition', '--batch-size', '256',\n"
-        "           '--backend', 'cpu'])\n"
+        "           '--device', 'cpu'])\n"
         "assert rc == 0, rc\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'kafka_topic_analyzer_tpu.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"

@@ -9,7 +9,7 @@ with transaction markers, with native decoding on and off.  Rows the fused
 sink packs straight from fetched record sets equal the chained
 ``pack_batch`` rows of the same records in wire v5 and v4, and the
 records the sink could not decode→pack in one pass are counted by reason.
-The port CLI (``--backend cpu``) prints the reference CLI's report bytes
+The port CLI (``--device cpu``) prints the reference CLI's report bytes
 (timing lines aside) in v5, v4 and compaction off, native on and off, and
 from a timestamp.  All comparisons are exact.
 
@@ -226,7 +226,7 @@ def test_cli_report_equals_the_reference_clis(broker, reference_reports, fmt,
                                               native_flag, capsys):
     flags = CLI_FORMATS.get(fmt, ["--from-timestamp", FROM_TS])
     argv = ["-t", TOPIC, "-b", f"127.0.0.1:{broker.port}", *SKETCHES, *flags,
-            "--native", native_flag, "--backend", "cpu"]
+            "--native", native_flag, "--device", "cpu"]
     rc, result = cli.run(cli.build_parser().parse_args(argv))
     assert rc == 0
     assert drop_timing(capsys.readouterr().out) == reference_reports[fmt]
@@ -237,6 +237,38 @@ def test_cli_report_equals_the_reference_clis(broker, reference_reports, fmt,
     assert result.records == want
 
 
+#: Reference flags the port's CLI refused before it ported them.
+REFERENCE_FLAGS = {
+    "quiet": ["--quiet"],
+    "distinct-keys": ["--distinct-keys"],
+    "quantiles": ["--quantiles"],
+    "extremes-table": ["--extremes-table"],
+    "profile-dir": ["--profile-dir"],
+}
+
+
+@pytest.mark.parametrize("flag", list(REFERENCE_FLAGS))
+def test_cli_reference_flags_give_the_reference_stdout(broker, flag, tmp_path, capsys):
+    import contextlib
+    import io
+
+    argv = ["-t", TOPIC, "-b", f"127.0.0.1:{broker.port}", *SKETCHES, *REFERENCE_FLAGS[flag]]
+    outs = []
+    for name, main, extra in (("ref", ref_cli.main, ["--backend", "tpu", "--native", "on"]),
+                              ("port", cli.main, ["--device", "cpu"])):
+        if flag == "profile-dir":
+            extra = [str(tmp_path / name)] + extra
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main(argv + extra) == 0
+        outs.append(drop_timing(buf.getvalue()))
+    err = capsys.readouterr().err
+    assert outs[0] == outs[1]
+    assert "Alive keys:" in outs[1]
+    if flag == "quiet":
+        assert err == ""
+
+
 def test_source_defaults_to_kafka_and_refuses_without_a_bootstrap(capsys):
     args = cli.build_parser().parse_args(["-t", TOPIC])
     assert args.source == "kafka"
@@ -245,7 +277,7 @@ def test_source_defaults_to_kafka_and_refuses_without_a_bootstrap(capsys):
         with pytest.raises(SystemExit, match="--source kafka requires -b/--bootstrap-server"):
             main(["-t", TOPIC, "--backend", "cpu"])
     assert cli.main(["-t", TOPIC, "--source", "synthetic", "--from-timestamp", "5",
-                     "--backend", "cpu"]) == 1
+                     "--device", "cpu"]) == 1
     assert "--from-timestamp requires --source kafka" in capsys.readouterr().err
     assert cli.parse_timestamp_ms("2020-09-13T12:26:40") == 1_600_000_000_000
     assert ref_cli.parse_timestamp_ms("2020-09-13T12:26:40") == 1_600_000_000_000
@@ -258,16 +290,16 @@ def test_from_timestamp_past_the_end_and_empty_topic_exit_as_the_reference(capsy
                 "2100-01-01T00:00:00"]
         assert ref_cli.main(argv + ["--backend", "cpu", "--quiet"]) == 0
         ref_err = capsys.readouterr().err
-        assert cli.main(argv + ["--backend", "cpu"]) == 0
+        assert cli.main(argv + ["--device", "cpu", "--quiet"]) == 0
         assert capsys.readouterr().err == ref_err
         assert "No records at or after 2100-01-01T00:00:00" in ref_err
     with FakeBroker(TOPIC, {0: [], 1: []}) as b:
-        assert cli.main(["-t", TOPIC, "-b", f"127.0.0.1:{b.port}", "--backend", "cpu"]) == 254
+        assert cli.main(["-t", TOPIC, "-b", f"127.0.0.1:{b.port}", "--device", "cpu"]) == 254
         assert "no content" in capsys.readouterr().err
 
 
 def test_dump_segments_of_a_kafka_scan_rescan_to_the_same_report(broker, tmp_path, capsys):
-    argv = ["-t", TOPIC, *SKETCHES, "--backend", "cpu"]
+    argv = ["-t", TOPIC, *SKETCHES, "--device", "cpu"]
     dump = tmp_path / "dump"
     assert cli.main(argv + ["-b", f"127.0.0.1:{broker.port}",
                             "--dump-segments", str(dump)]) == 0
@@ -279,8 +311,8 @@ def test_dump_segments_of_a_kafka_scan_rescan_to_the_same_report(broker, tmp_pat
                                 "--native", native_flag]) == 0
         assert drop_timing(capsys.readouterr().out) == kafka
     # The reference reads the port's dump and prints the same report.
-    assert ref_cli.main(argv[:-1] + ["tpu", "--source", "segfile", "--segment-dir",
-                                     str(dump), "--quiet"]) == 0
+    assert ref_cli.main(argv[:-2] + ["--backend", "tpu", "--source", "segfile",
+                                     "--segment-dir", str(dump), "--quiet"]) == 0
     assert drop_timing(capsys.readouterr().out) == kafka
     # A second dump into the same directory is refused, as by the reference.
     assert cli.main(argv + ["-b", f"127.0.0.1:{broker.port}",
@@ -299,7 +331,7 @@ def test_cuda_kafka_scan_equals_cpu_scan(broker, capsys):
     base = ["-t", TOPIC, "-b", f"127.0.0.1:{broker.port}", *SKETCHES]
     for flags, kernel in (([], counters_merge.counters_merge),
                           (["--wire-format", "v4"], counters_update.counters_update)):
-        assert cli.main(base + flags + ["--backend", "cpu"]) == 0
+        assert cli.main(base + flags + ["--device", "cpu"]) == 0
         want = drop_timing(capsys.readouterr().out)
         for native_flag in ("on", "off"):
             kernel.launches = 0

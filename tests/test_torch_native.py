@@ -117,7 +117,7 @@ def test_failed_build_is_classified_cached_and_honoured_by_the_cli(monkeypatch, 
         native.load_library()
     argv = ["-t", "t", "--source", "synthetic",
             "--synthetic", "partitions=2,messages=300,keys=20",
-            "--backend", "cpu", "--batch-size", "128"]
+            "--device", "cpu", "--batch-size", "128"]
     with pytest.raises(_build.BuildError):
         cli.main(argv + ["--native", "on"])
     args = cli.build_parser().parse_args(argv)

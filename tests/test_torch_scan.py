@@ -109,10 +109,44 @@ def test_cli_stdout_matches_reference_cli(capsys):
             "--pallas", "--batch-size", "4096", "--alive-bitmap-bits", "32"]
     assert ref_cli.main(argv + ["--backend", "tpu", "--native", "off"]) == 0
     ref_out = capsys.readouterr().out
-    assert cli.main(argv + ["--backend", "cpu"]) == 0
+    assert cli.main(argv + ["--device", "cpu"]) == 0
     port_out = capsys.readouterr().out
     assert "Alive keys:" in port_out and "Estimated Msg/s:" in port_out
     assert drop_timing(port_out) == drop_timing(ref_out)
+
+
+#: Reference flags the port's CLI refused before it ported them.
+REFERENCE_FLAGS = {
+    "quiet": ["--quiet"],
+    "distinct-keys": ["--distinct-keys"],
+    "quantiles": ["--quantiles"],
+    "extremes-table": ["--extremes-table"],
+    "profile-dir": ["--profile-dir"],
+    "all": ["--quiet", "--distinct-keys", "--quantiles", "--extremes-table"],
+}
+
+
+@pytest.mark.parametrize("flag", list(REFERENCE_FLAGS))
+def test_cli_reference_flags_give_the_reference_stdout(flag, tmp_path, capsys):
+    argv = ["-t", "orders", "--source", "synthetic", "--synthetic",
+            "partitions=3,messages=4000,keys=300,tombstones=150",
+            "-c", "--batch-size", "4096", "--alive-bitmap-bits", "24"]
+    flags = REFERENCE_FLAGS[flag]
+    if flag == "profile-dir":
+        flags = flags + [str(tmp_path / "ref")]
+    assert ref_cli.main(argv + flags + ["--backend", "tpu", "--native", "off"]) == 0
+    ref_out = capsys.readouterr().out
+    if flag == "profile-dir":
+        flags = REFERENCE_FLAGS[flag] + [str(tmp_path / "port")]
+    assert cli.main(argv + flags + ["--device", "cpu"]) == 0
+    port = capsys.readouterr()
+    assert drop_timing(port.out) == drop_timing(ref_out)
+    if flag in ("quiet", "all"):
+        assert port.err == ""
+    if flag == "profile-dir":
+        from kafka_topic_analyzer_tpu_torch.utils.profiling import TRACE_FILE
+
+        assert (tmp_path / "port" / TRACE_FILE).stat().st_size > 0
 
 
 @pytest.mark.parametrize(
@@ -128,7 +162,7 @@ def test_cli_stdout_matches_reference_cli_in_v4_and_compaction_off(capsys, flags
             "--batch-size", "4096", "--alive-bitmap-bits", "24", *flags]
     assert ref_cli.main(argv + ["--backend", "tpu", "--native", "off"]) == 0
     ref_out = capsys.readouterr().out
-    assert cli.main(argv + ["--backend", "cpu"]) == 0
+    assert cli.main(argv + ["--device", "cpu"]) == 0
     port_out = capsys.readouterr().out
     assert "Alive keys:" in port_out and "partition 2 size quantiles:" in port_out
     assert drop_timing(port_out) == drop_timing(ref_out)
@@ -144,7 +178,7 @@ def test_cli_pallas_v4_refusals_match_reference(capsys):
                         "--batch-size", "1000"]
     assert ref_cli.main(bad_batch + ["--backend", "tpu", "--native", "off"]) == 1
     ref_err = capsys.readouterr().err
-    assert cli.main(bad_batch + ["--backend", "cpu"]) == 1
+    assert cli.main(bad_batch + ["--device", "cpu"]) == 1
     assert capsys.readouterr().err == ref_err
     assert "batch_size % 1024 == 0" in ref_err
     big = argv + ["--synthetic",
@@ -153,23 +187,23 @@ def test_cli_pallas_v4_refusals_match_reference(capsys):
     with pytest.raises(ValueError, match="exceeds the Pallas counter kernel") as ref:
         ref_cli.main(big + ["--backend", "tpu", "--native", "off"])
     with pytest.raises(ValueError, match="exceeds the Pallas counter kernel") as port:
-        cli.main(big + ["--backend", "cpu"])
+        cli.main(big + ["--device", "cpu"])
     assert str(port.value) == str(ref.value)
     capsys.readouterr()  # the refused scans' first lines
     # Without --pallas the same topic scans, exactly, in both.
     ok = [a for a in big if a != "--pallas"]
     assert ref_cli.main(ok + ["--backend", "tpu", "--native", "off"]) == 0
     ref_out = capsys.readouterr().out
-    assert cli.main(ok + ["--backend", "cpu"]) == 0
+    assert cli.main(ok + ["--device", "cpu"]) == 0
     assert drop_timing(capsys.readouterr().out) == drop_timing(ref_out)
 
 
 def test_cli_empty_topic_exits_254_and_bad_spec_exits_1(capsys):
     assert cli.main(["-t", "t", "--source", "synthetic", "--synthetic", "messages=0",
-                     "--backend", "cpu"]) == 254
+                     "--device", "cpu"]) == 254
     assert "no content" in capsys.readouterr().err
     assert cli.main(["-t", "t", "--source", "synthetic", "--synthetic", "keys=0",
-                     "--backend", "cpu"]) == 1
+                     "--device", "cpu"]) == 1
     assert "bad --synthetic key 'keys'" in capsys.readouterr().err
 
 
