@@ -107,7 +107,36 @@ Phases, in order; any failure exits non-zero:
   time of each kernel (its ``__global__`` name), and the share of the wall
   that all device kernels and copies take beside the ``breakdown`` busy
   share of the same scan; the format's kernel must appear 62 times, unless
-  the trace holds no CUDA activity at all, which is printed as a finding.
+  the trace holds no CUDA activity at all, which is printed as a finding;
+- snapshot: the 16M-record segment-file v5 and v4 scans and the Kafka v5
+  scan with snapshots under ``build/`` every 2 s, each killed half-way
+  (its ingest stream raises after 31 of its 62 rows), then resumed by a fresh
+  source and backend: the snapshot's ``records_seen`` must lie strictly
+  inside the topic, the resumed scan must launch the format's kernel
+  fewer than 62 times and the other never, and its report must equal
+  the uninterrupted scan's.  The segment-file v5 run also prints the
+  snapshot's own cost (the state's device→host copy, the 512 MiB bitmap
+  among it, and the ``.npz`` write).  Then the segment-file v5 scan at
+  ``--ingest-workers auto``, killed and resumed the same way (each of its
+  n streams raises after 31 // n rows of its own): every line
+  but the alive keys equals the uninterrupted report, and the alive keys
+  equal a numpy last-writer-wins replay of the interrupted fan-in's order
+  up to the snapshot and the resumed fan-in's after it;
+- workers: the CLI's segment-file v5 and v4 scans at ``--ingest-workers
+  1, 2, 4, auto``, and its Kafka v5 and v4 scans at ``1, 4, auto``
+  against a template topic of the same records led by 4 brokers (one
+  ``BrokerProcess`` child), each with ``--stats --flight-record``: every
+  report line but the alive keys must equal the 1-worker scan phase's;
+  the alive keys must equal the numpy replay in the fan-in's order
+  (segment files: each worker's partitions one after the other, cut into
+  rows of 2^18, rows merged round-robin) or, on the template topic, whose
+  count no order changes, the 1-worker scan's and numpy's; the format's
+  kernel must launch 62 to 62 + N - 1 times (each worker's last row is
+  partial).  Each prints records/s, the doctor's verdict and stage
+  shares, each worker's busy fraction from ``kta_ingest_worker_*``, the
+  device busy share (the ``breakdown`` copy + fold per launch over the
+  wall) and, for Kafka, the broker child's CPU seconds per record and
+  its share of one core.
 
 Every CLI run passes ``--quiet``; the torch backend on the host is
 ``--device cpu``.  Telemetry files and traces go under ``build/`` and are
@@ -118,7 +147,8 @@ JSON line (each kernel's back-to-back ``ms``, ``device_ms`` and
 ``host_us`` beside its plain version, its library call and its bound, and
 for ``counters_merge`` the chain's ``chain_ms``; ``launches`` counts the
 16M-record Kafka scan of the kernel's format, the slice's main path, and
-``launches_by_path`` every full-size scan), and as its last line
+``launches_by_path`` every full-size scan, the resumed and the N-worker
+scans among them), and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -178,6 +208,24 @@ HLL_SIGMAS = 4.0
 #: Busy share of each full-size scan from its ``breakdown`` line (CUDA
 #: events), keyed by the scan's label.
 BUSY_SHARE: dict = {}
+#: Device ms per dispatch (the slot's copy plus the fold, CUDA events) of
+#: each full-size scan's ``breakdown`` line, keyed by the scan's label.
+DEVICE_MS: dict = {}
+#: Records per row of every full-size scan (the CLI's ``--batch-size``).
+SCAN_BATCH = 1 << 18
+#: Snapshots of the snapshot phases (under ``build/``, deleted at the end).
+SNAPSHOT_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke_snapshots"
+#: Seconds between the periodic snapshots of an interrupted scan.
+SNAPSHOT_EVERY_S = 2.0
+#: Rows an interrupted one-stream scan folds before it dies (of 62); each
+#: of n streams dies after INTERRUPT_AFTER // n of its own.
+INTERRUPT_AFTER = 31
+#: The parallel-ingest sweeps' ``--ingest-workers`` values.
+SEGFILE_WORKERS = ("1", "2", "4", "auto")
+KAFKA_WORKERS = ("1", "4", "auto")
+#: Advertised brokers of the parallel-ingest Kafka topic (partition p led
+#: by broker p % 4, all served by one child process).
+KAFKA_BROKERS = 4
 
 
 def fail(msg: str) -> "None":
@@ -702,7 +750,8 @@ def phase_scan(torch, np, cli, kernels, label, argv, kernel,
     print(f"scan {label}: {records} records in {wall:.3f} s = "
           f"{records / wall:.1f} records/s; {backend.dispatches} dispatches "
           f"(fused rows: {result.fused}), kernel launches {launches}; "
-          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; pinned "
+          f"staging ring {backend.ring_nbytes} B per ingest stream")
     report = render_report(
         args.topic, m, result.start_offsets, result.end_offsets,
         result.duration_secs, show_alive_keys=True,
@@ -825,11 +874,12 @@ def breakdown(torch, source, config, wall: float, dispatches: int,
             host += (f" (row {(t1 - t0) * 1e3 / 4:.3f} ms, dedupe + pair table "
                      f"{(time.perf_counter() - t1) * 1e3 / 4:.3f} ms)")
     torch.cuda.synchronize()
-    slot = backend._ring[0]
+    slot = torch.empty(backend._nbytes, dtype=torch.uint8, pin_memory=True)
     dev = torch.empty_like(slot, device="cuda")
     copy_ms = cuda_ms(lambda: dev.copy_(slot, non_blocking=True), 20, 2)
     fold_ms = cuda_ms(lambda: backend.update(staged), 20, 2)
     per_dispatch_ms = wall * 1e3 / dispatches
+    DEVICE_MS[label] = copy_ms + fold_ms
     BUSY_SHARE[label] = (copy_ms + fold_ms) / per_dispatch_ms
     print(
         f"breakdown {label}: per dispatch of {b} records: wall "
@@ -1337,6 +1387,268 @@ def phase_profiler(cli, kernels, label: str, argv, kernel: str) -> None:
     shutil.rmtree(directory, ignore_errors=True)
 
 
+class Interrupt(Exception):
+    """A scan's source dying half-way (`Interrupting`)."""
+
+
+class Interrupting:
+    """``inner`` whose every first (not resumed) stream raises `Interrupt`
+    after ``limit`` items: a crash mid-scan, in each ingest worker."""
+
+    def __init__(self, inner, limit: int):
+        self.inner, self.limit = inner, limit
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def batches(self, batch_size, partitions=None, start_at=None, sink=None):
+        extra = {"sink": sink} if sink is not None else {}
+        for i, item in enumerate(self.inner.batches(batch_size, partitions, start_at,
+                                                    **extra)):
+            if start_at is None and i >= self.limit:
+                raise Interrupt()
+            yield item
+
+
+class Replay:
+    """The records of a synthetic spec, per partition (each key's fnv32
+    slot, whether it is keyed, whether its value is alive), for numpy
+    last-writer-wins replays of the alive-key count in any fan-in order."""
+
+    def __init__(self, np, spec_text: str):
+        from kafka_topic_analyzer_tpu_torch.io.synthetic import SyntheticSource
+
+        self.np = np
+        src = SyntheticSource(spec_of(spec_text))
+        self.parts = {}
+        for p in src.partitions():
+            cols = [(b.key_hash32, ~b.key_null, ~b.value_null)
+                    for b in src.batches(1 << 20, partitions=[p])]
+            self.parts[p] = tuple(np.concatenate(c) for c in zip(*cols))
+
+    def fanin(self, groups, batch: int, start=None):
+        """The records in the order a fan-in of ``groups`` folds them:
+        each group's partitions one after the other (from ``start[p]``),
+        cut into rows of ``batch`` records, the groups' rows merged
+        round-robin (an exhausted group drops out)."""
+        np = self.np
+        streams = []
+        for g in groups:
+            cat = tuple(np.concatenate(c) for c in zip(*(
+                tuple(a[(start or {}).get(p, 0):] for a in self.parts[p]) for p in g)))
+            streams.append([tuple(a[i:i + batch] for a in cat)
+                            for i in range(0, len(cat[0]), batch)])
+        order = [s[i] for i in range(max(map(len, streams))) for s in streams
+                 if i < len(s)]
+        return tuple(np.concatenate(c) for c in zip(*order))
+
+    def alive_keys(self, slot, keyed, alive) -> int:
+        np = self.np
+        _, last = np.unique(slot[keyed][::-1], return_index=True)
+        return int(np.count_nonzero(alive[keyed][::-1][last]))
+
+
+def fanin_groups(source, workers: int):
+    """The partition groups of a ``workers``-stream fan-in of ``source``,
+    as the engine forms them."""
+    from kafka_topic_analyzer_tpu_torch.parallel.ingest import shard_partitions
+
+    return shard_partitions(source.partitions(), workers,
+                            weights=source.partition_record_counts())
+
+
+def snapshot_scan(torch, np, cli, kernels, label: str, argv, kernel: str,
+                  want_report: str, total: int, workers: str = "1", cost=False,
+                  replay=None) -> int:
+    """A full-size scan on the card with snapshots, killed mid-stream
+    (each of n ingest streams dies after `INTERRUPT_AFTER` // n rows of
+    its own), then resumed
+    by a fresh source and backend: the snapshot's ``records_seen`` must
+    lie strictly inside the topic, the resumed scan must launch the
+    format's kernel (and not the other) fewer than 62 times and fold the
+    rest, and its report must be ``want_report``.  Under several workers
+    the alive-key line is held instead to ``replay``, a numpy replay of
+    the interrupted fan-in's order up to the snapshot and the resumed
+    fan-in's after it.  With ``cost``, prints the snapshot's own cost:
+    the state's device→host copy and the ``.npz`` write.  Returns the
+    resumed scan's launches of ``kernel``."""
+    from kafka_topic_analyzer_tpu_torch import checkpoint
+    from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
+    from kafka_topic_analyzer_tpu_torch.engine import run_scan
+    from kafka_topic_analyzer_tpu_torch.obs.registry import default_registry
+
+    directory = SNAPSHOT_ROOT / label.replace(" ", "-")
+    shutil.rmtree(directory, ignore_errors=True)
+    args = cli.build_parser().parse_args(
+        ["-t", "scan", *argv, *SKETCH_FLAGS, "--native", "on", "--device", "cuda",
+         "--ingest-workers", workers])
+    n = cli.resolve_ingest_workers(args, FULL_PARTITIONS)
+
+    def fresh():
+        source, config, use_native = cli.setup(args)
+        return source, TorchBackend(config, device="cuda", use_native=use_native)
+
+    source, backend = fresh()
+    default_registry().reset()
+    t0 = time.perf_counter()
+    try:
+        # Each of n streams dies half-way through its share of the rows.
+        run_scan(args.topic, Interrupting(source, max(1, INTERRUPT_AFTER // n)), backend,
+                 args.batch_size, snapshot_dir=str(directory),
+                 snapshot_every_s=SNAPSHOT_EVERY_S, ingest_workers=n)
+    except Interrupt:
+        pass
+    else:
+        fail(f"snapshot {label}: the interrupted scan ran to its end")
+    wall = time.perf_counter() - t0
+    telemetry = default_registry().snapshot()
+    saved = metric_total(telemetry, "kta_snapshots_saved_total")
+    stage = stage_seconds(telemetry).get("snapshot", 0.0)
+    info = checkpoint.snapshot_info(str(directory))
+    seen = info["records_seen"]
+    nbytes = os.path.getsize(directory / checkpoint.SNAPSHOT_NAME)
+    print(f"snapshot {label}: {n} worker(s), killed after {seen} of {total} records "
+          f"in {wall:.3f} s; {saved:.0f} snapshots (every {SNAPSHOT_EVERY_S} s and "
+          f"the failure's) in {stage:.3f} s, {stage / max(saved, 1):.3f} s each; "
+          f"file {nbytes} B")
+    if not 0 < seen < total:
+        fail(f"snapshot {label}: records_seen {seen} is not inside (0, {total})")
+    if cost:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        leaves = backend.get_state()
+        t1 = time.perf_counter()
+        checkpoint.save_snapshot(str(directory / "cost"), args.topic, backend.config,
+                                 leaves, info["next_offsets"], seen, backend.init_now_s)
+        t2 = time.perf_counter()
+        words = leaves["alive.words"].nbytes
+        print(f"snapshot cost {label}: state device→host copy {t1 - t0:.6f} s "
+              f"({sum(a.nbytes for a in leaves.values())} B, the alive bitmap "
+              f"{words} B, {words / (t1 - t0) / 1e9:.3f} GB/s into pageable memory), "
+              f".npz write {t2 - t1:.6f} s "
+              f"({os.path.getsize(directory / 'cost' / checkpoint.SNAPSHOT_NAME)} B)")
+    if hasattr(source, "close"):
+        source.close()
+    source, backend = fresh()
+    groups = fanin_groups(source, n) if replay is not None else None
+    zero(kernels)
+    t0 = time.perf_counter()
+    result = run_scan(args.topic, source, backend, args.batch_size,
+                      snapshot_dir=str(directory), snapshot_every_s=3600.0,
+                      resume=True, ingest_workers=n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    if hasattr(source, "close"):
+        source.close()
+    got = rendered(result)
+    print(f"snapshot {label}: resumed, {result.records} records in {wall:.3f} s, "
+          f"kernel launches {launches}")
+    if result.records + seen != total:
+        fail(f"snapshot {label}: resumed {result.records} records after {seen}")
+    if not 0 < launches[kernel] < 62 or any(
+            v for name, v in launches.items() if name != kernel):
+        fail(f"snapshot {label}: resumed scan launched {launches}")
+    if replay is None:
+        if got != want_report:
+            fail(f"snapshot {label}: the resumed report differs from the "
+                 f"uninterrupted one:\n{want_report}\n{got}")
+        print(f"snapshot {label}: the resumed report equals the uninterrupted "
+              "scan's (timing lines aside)")
+    else:
+        full = replay.fanin(groups, args.batch_size)
+        rest = replay.fanin(groups, args.batch_size,
+                            start={int(p): o for p, o in info["next_offsets"].items()})
+        expect = replay.alive_keys(*(np.concatenate((a[:seen], b))
+                                     for a, b in zip(full, rest)))
+        alive = result.metrics.alive_keys
+        if drop_alive_keys(got) != drop_alive_keys(want_report) or alive != expect:
+            fail(f"snapshot {label}: alive keys {alive} (replay {expect}), or another "
+                 f"line differs:\n{want_report}\n{got}")
+        print(f"snapshot {label}: the resumed report equals the uninterrupted scan's "
+              f"but for the alive keys, {alive}, which equal the numpy replay of the "
+              f"interrupted and the resumed fan-in orders (uninterrupted "
+              f"{replay.alive_keys(*full)})")
+    shutil.rmtree(directory, ignore_errors=True)
+    return launches[kernel]
+
+
+def broker_cpu_seconds(pid: int) -> float:
+    """User + system CPU seconds of process ``pid`` (all its threads)."""
+    fields = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def workers_sweep(np, cli, kernels, label: str, argv, kernel: str, specs,
+                  want_report: str, device_ms: float, alive_of=None, want=None,
+                  broker_pid=None) -> dict:
+    """The CLI's scan of one topic at each ``--ingest-workers`` of
+    ``specs``, with the doctor's telemetry on (`session_run`): every
+    report line but the alive keys must equal ``want_report`` (the scan
+    phase's 1-worker report); the alive keys must equal ``alive_of(n)``
+    (a numpy replay in the n-worker fan-in's order), or, where it is None
+    (a template topic, whose count no order changes), ``want_report``'s
+    and the template's expectations ``want``.  The format's kernel must
+    launch 62 to 62 + n - 1 times (each worker's last row is partial), the
+    other never.  Prints records/s, the doctor's verdict and stage shares,
+    each worker's busy fraction ((active - stalled) / active seconds of
+    ``kta_ingest_worker_*``), the device busy share (``device_ms`` per
+    launch over the wall: an upper bound, as in §5) and, with
+    ``broker_pid``, the broker child's CPU seconds per record and its
+    share of one core.  Returns launches and records/s by worker count."""
+    out = {}
+    for spec in specs:
+        cpu0 = broker_cpu_seconds(broker_pid) if broker_pid else None
+        run = session_run(cli, kernels, argv + ["--ingest-workers", spec],
+                          f"workers-{label.replace(' ', '-')}-{spec}", True)
+        result, d = run["result"], run["diagnosis"]
+        n = result.ingest_workers
+        got = rendered(result)
+        if drop_alive_keys(got) != drop_alive_keys(want_report):
+            fail(f"workers {label} {spec}: the report differs from the 1-worker "
+                 f"scan's beyond the alive keys:\n{want_report}\n{got}")
+        alive = result.metrics.alive_keys
+        if alive_of is not None:
+            expect = alive_of(n)
+            if alive != expect:
+                fail(f"workers {label} {spec}: {alive} alive keys, the fan-in "
+                     f"replay {expect}")
+        else:
+            check_template_scan(np, f"workers {label} {spec}", result.metrics, want)
+        launches = run["launches"]
+        if not 62 <= launches[kernel] <= 62 + n - 1 or any(
+                v for name, v in launches.items() if name != kernel):
+            fail(f"workers {label} {spec}: {n} workers launched {launches}")
+        tel = result.telemetry
+        active = {s["labels"]["worker"]: s["value"] for s in
+                  tel["kta_ingest_worker_active_seconds_total"]["samples"]}
+        stall = {s["labels"]["worker"]: s["value"] for s in
+                 tel["kta_ingest_worker_stall_seconds_total"]["samples"]}
+        busy = {w: (a - stall.get(w, 0.0)) / a for w, a in sorted(active.items()) if a}
+        share = device_ms * launches[kernel] / 1e3 / run["wall"]
+        line = (f"workers {label} {spec} ({n}): {result.records} records in "
+                f"{run['wall']:.3f} s = {run['rate']:.1f} records/s; verdict "
+                f"{d.verdict}; stage shares "
+                + ", ".join(f"{k} {v:.4f}" for k, v in d.stages.items())
+                + "; worker busy " + ", ".join(f"w{w} {b:.4f}" for w, b in busy.items())
+                + "; evidence " + ", ".join(
+                    f"{k} {d.evidence[k]:.4f}" for k in
+                    ("throttle_wait", "fetch", "decode", "worker_busy")
+                    if k in d.evidence)
+                + f"; device busy share ~{share:.4f}; launches {launches[kernel]}; "
+                f"alive keys {alive}"
+                + ("" if alive_of is None else f" (fan-in replay {alive_of(n)})"))
+        if broker_pid:
+            cpu = broker_cpu_seconds(broker_pid) - cpu0
+            line += (f"; broker child {cpu:.3f} CPU s = "
+                     f"{cpu / result.records * 1e9:.3f} ns per record, "
+                     f"{cpu / run['wall']:.4f} of one core")
+        print(line)
+        out[n] = {"launches": launches[kernel], "rate": run["rate"],
+                  "verdict": d.verdict, "alive": alive}
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1348,6 +1660,7 @@ def main() -> int:
     try:
         from kafka_topic_analyzer_tpu_torch import _build, cli
         from kafka_topic_analyzer_tpu_torch.io import native
+        from kafka_topic_analyzer_tpu_torch.io.segfile import SegmentFileSource
         from kafka_topic_analyzer_tpu_torch.ops import counters_merge as cm
         from kafka_topic_analyzer_tpu_torch.ops import counters_update as cu
     except ImportError as e:
@@ -1393,7 +1706,7 @@ def main() -> int:
     synthetic = ["--source", "synthetic", "--synthetic", FULL_SPEC]
     v4 = ["--wire-format", "v4"]
     launches = {"counters_merge": {}, "counters_update": {}}
-    reports, alive, verdicts = {}, {}, {}
+    reports, alive, verdicts, rates = {}, {}, {}, {}
     for label, argv, kernel in (("v5", synthetic, "counters_merge"),
                                 ("v4", synthetic + v4, "counters_update")):
         launches[kernel]["synthetic"], reports[label], result = phase_scan(
@@ -1415,9 +1728,41 @@ def main() -> int:
         for label, argv, kernel in (("segfile v5", cli_segments, "counters_merge"),
                                     ("segfile v4", cli_segments + v4, "counters_update")):
             phase_profiler(cli, kernels, label, argv, kernel)
+        total = FULL_PARTITIONS * FULL_MESSAGES
+        t0 = time.perf_counter()
+        replay = Replay(np, FULL_SPEC)
+        print(f"workers: the spec's records per partition for the fan-in replays in "
+              f"{time.perf_counter() - t0:.3f} s")
+        for label, argv, kernel, cost in (
+                ("segfile v5", segments, "counters_merge", True),
+                ("segfile v4", segments + v4, "counters_update", False)):
+            launches[kernel]["segfile resumed"] = snapshot_scan(
+                torch, np, cli, kernels, label, argv, kernel, reports[label], total,
+                cost=cost)
+        launches["counters_merge"]["segfile resumed, auto workers"] = snapshot_scan(
+            torch, np, cli, kernels, "segfile v5 auto workers", segments,
+            "counters_merge", reports["segfile v5"], total, workers="auto",
+            replay=replay)
+        catalog = SegmentFileSource(dump, topic="scan")
+        replayed = {}
+
+        def alive_of(n: int) -> int:
+            if n not in replayed:
+                replayed[n] = replay.alive_keys(
+                    *replay.fanin(fanin_groups(catalog, n), SCAN_BATCH))
+            return replayed[n]
+
+        for label, argv, kernel in (("segfile v5", cli_segments, "counters_merge"),
+                                    ("segfile v4", cli_segments + v4, "counters_update")):
+            sweep = workers_sweep(np, cli, kernels, label, argv, kernel, SEGFILE_WORKERS,
+                                  reports[label], DEVICE_MS[label], alive_of=alive_of)
+            for n, row in sweep.items():
+                launches[kernel][f"segfile {n} workers"] = row["launches"]
+                rates[f"{label} {n} workers"] = row["rate"]
     finally:
         shutil.rmtree(dump, ignore_errors=True)
         shutil.rmtree(TELEMETRY_ROOT, ignore_errors=True)
+        shutil.rmtree(SNAPSHOT_ROOT, ignore_errors=True)
     t0 = time.perf_counter()
     want = {order: host_alive_keys(np, FULL_SPEC, order == "partition")
             for order in ("interleaved", "partition")}
@@ -1458,8 +1803,34 @@ def main() -> int:
                 verdicts[label] = phase_doctor(np, cli, kernels, label, argv, kernel,
                                                kafka[label], want)
             phase_telemetry_cost(np, cli, kernels, cli_kafka, kafka["kafka v5"], want)
+            launches["counters_merge"]["kafka resumed"] = snapshot_scan(
+                torch, np, cli, kernels, "kafka v5", bootstrap, "counters_merge",
+                kafka["kafka v5"], KAFKA_FULL["partitions"] * KAFKA_FULL["windows"]
+                * KAFKA_FULL["R"])
         finally:
             shutil.rmtree(TELEMETRY_ROOT, ignore_errors=True)
+            shutil.rmtree(SNAPSHOT_ROOT, ignore_errors=True)
+    broker = BrokerProcess(**KAFKA_FULL, compression=0, brokers=KAFKA_BROKERS)
+    with broker as port:
+        cli_kafka = ["-t", "scan", "-b", f"127.0.0.1:{port}", *SKETCH_FLAGS,
+                     "--native", "on", "--backend", "gpu"]
+        try:
+            for label, fmt, kernel in (("kafka v5", [], "counters_merge"),
+                                       ("kafka v4", v4, "counters_update")):
+                sweep = workers_sweep(np, cli, kernels, label, cli_kafka + fmt, kernel,
+                                      KAFKA_WORKERS, kafka[label], DEVICE_MS[label],
+                                      want=want, broker_pid=broker._proc.pid)
+                for n, row in sweep.items():
+                    launches[kernel][f"kafka {KAFKA_BROKERS} brokers, {n} workers"] = \
+                        row["launches"]
+                    rates[f"{label} {n} workers"] = row["rate"]
+                    verdicts[f"{label} {n} workers"] = {"verdict": row["verdict"]}
+        finally:
+            shutil.rmtree(TELEMETRY_ROOT, ignore_errors=True)
+    print(f"workers: every N-worker report equals its 1-worker scan's but for the "
+          f"alive keys, which equal the fan-in replay (segment files) or the "
+          f"1-worker scan's (Kafka templates, whose count no order changes); "
+          f"records/s {json.dumps(rates)}")
     print("doctor: " + "; ".join(f"{label} {v['verdict']}" for label, v in verdicts.items()))
     if kafka["kafka v4"] != kafka["kafka v5"]:
         fail("scan: the kafka v4 report differs from the kafka v5 report "

@@ -141,9 +141,27 @@ class MetricBackend(abc.ABC):
     #: asked for it (loaded or not).
     use_native = False
     native_requested = False
+    #: Whether `get_state` and `set_state` carry the state across a
+    #: snapshot (``--snapshot-dir``, ``--resume``).  The numpy oracle has
+    #: none, like the reference's, and its scans continue without.
+    snapshots = False
 
     def __init__(self, config: AnalyzerConfig):
         self.config = config
+
+    def get_state(self) -> "dict":
+        """The state as host arrays keyed by leaf path (the snapshot's
+        form, `checkpoint.Leaves`), folding every batch `update` took."""
+        raise NotImplementedError(f"{type(self).__name__} takes no snapshots")
+
+    def set_state(self, leaves: "dict") -> None:
+        """Replace the state with ``leaves`` (`get_state`'s form)."""
+        raise NotImplementedError(f"{type(self).__name__} takes no snapshots")
+
+    def drain_dispatch(self) -> None:
+        """Retire every in-flight dispatch without launching one (the
+        engine's failure path, before its snapshot); nothing to do where
+        `update` finishes before it returns."""
 
     def prepare(self, batch: RecordBatch):
         """Stage a decoded batch for `update`, on the ingest side: the

@@ -18,24 +18,31 @@ Per batch:
   launch-site `base.DispatchQueue` (``dispatch_depth`` folds in flight;
   the throttle's wait is the device's backpressure on the drive loop).
 
-Nothing synchronizes until `finalize` but the two real waits — a ring
-slot whose copy is still in flight, and the dispatch queue's throttle —
-so packing the next batch overlaps the device's work on this one, on the
-main thread or on a prefetch worker (engine.py): `prepare` and the sink
-may run on one thread while `update` runs on another.  The step and
+Nothing synchronizes until `finalize` (or a snapshot's `get_state`) but
+the two real waits — a ring slot whose copy is still in flight, and the
+dispatch queue's throttle — so packing the next batch overlaps the
+device's work on this one, on the main thread, on a prefetch worker or on
+N parallel-ingest workers (engine.py): `prepare` and the sinks run on the
+ingest threads while `update` runs on the main thread.  The step and
 finalize times booked by `base.instrument_steps` are therefore host
-time: enqueue plus those waits.  The copy, its event and the fold all run on
-the stream the backend holds (``self.stream``, the creating thread's
-current stream), whichever thread issues them.  Pinned buffers form a
-ring sized from the prefetch depth; a slot is refilled only after the
-CUDA event recorded behind its last copy has completed.  A one-time
-pack→unpack self-check at construction holds the device-side byte views
-against the host layout.
+time: enqueue plus those waits.  The copy, its event and the fold all run
+on the stream the backend holds (``self.stream``, the creating thread's
+current stream), whichever thread issues them.
+
+Pinned staging slots form rings of ``ring_slots(prefetch_depth)``, one
+ring per ingest stream: each thread that calls `prepare` has its own
+(thread-local), and each `make_fused_sink` call builds one for its sink.
+No slot is reachable from two threads, so N workers can never pack into
+a slot another is filling.  A slot is refilled only after the CUDA event
+recorded behind its last copy has completed.  A one-time pack→unpack
+self-check at construction holds the device-side byte views against the
+host layout.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -53,7 +60,11 @@ from kafka_topic_analyzer_tpu_torch.backends.step import (
     apply_pair_table,
 )
 from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
-from kafka_topic_analyzer_tpu_torch.models.state import AnalyzerState, state_to_numpy
+from kafka_topic_analyzer_tpu_torch.models.state import (
+    AnalyzerState,
+    copy_from_numpy_,
+    state_to_numpy,
+)
 from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
 from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_scratch
 from kafka_topic_analyzer_tpu_torch.packing import (
@@ -81,6 +92,30 @@ def ring_slots(prefetch_depth: int) -> int:
     still in flight is waited for, never overwritten, so a short ring only
     stalls the producer."""
     return max(3, prefetch_depth + 2)
+
+
+class StagingRing:
+    """One ingest stream's pinned host slots (``ring_slots(depth)`` of
+    ``nbytes``), handed out round-robin: a slot is handed out again only
+    once the CUDA event recorded behind its last copy has completed.  Not
+    thread-safe by design — one stream, one thread."""
+
+    def __init__(self, slots: int, nbytes: int, pin: bool):
+        self.hosts = [
+            torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+            for _ in range(slots)
+        ]
+        self.views = [host.numpy() for host in self.hosts]
+        self.events: "list[torch.cuda.Event | None]" = [None] * slots
+        self._next = 0
+
+    def claim(self) -> int:
+        """The next slot, once its last copy has completed."""
+        slot = self._next
+        self._next = (slot + 1) % len(self.hosts)
+        if self.events[slot] is not None:
+            self.events[slot].synchronize()
+        return slot
 
 
 class StagedBatch:
@@ -222,14 +257,11 @@ class TorchBackend(MetricBackend):
         self._nbytes = self._pair_off + (
             pair_table_nbytes(config, self._pair_cap) if config.compact_alive else 0
         )
-        pin = self.device.type == "cuda"
-        self._ring = [
-            torch.empty(self._nbytes, dtype=torch.uint8, pin_memory=pin)
-            for _ in range(ring_slots(prefetch_depth))
-        ]
-        self._ring_np = [host.numpy() for host in self._ring]
-        self._events: "list[torch.cuda.Event | None]" = [None] * len(self._ring)
-        self._next = 0
+        self._slots = ring_slots(prefetch_depth)
+        #: Pinned bytes of one ingest stream's ring (each staging thread
+        #: and each fused sink holds one).
+        self.ring_nbytes = self._slots * self._nbytes
+        self._thread_rings = threading.local()
         #: Batches folded into the state (one dispatch each at K=1).
         self.dispatches = 0
         #: Folds allowed in flight (``--dispatch-depth``).
@@ -242,67 +274,76 @@ class TorchBackend(MetricBackend):
             return contextlib.nullcontext()
         return torch.cuda.stream(self.stream)
 
-    def _claim_slot(self) -> int:
-        """The next pinned slot, once its last copy has completed."""
-        slot = self._next
-        self._next = (slot + 1) % len(self._ring)
-        if self._events[slot] is not None:
-            self._events[slot].synchronize()
-        return slot
+    def _new_ring(self) -> StagingRing:
+        return StagingRing(self._slots, self._nbytes, self.device.type == "cuda")
 
-    def _send(self, slot: int) -> StagedBatch:
+    def _thread_ring(self) -> StagingRing:
+        """The calling thread's own ring for `prepare`."""
+        ring = getattr(self._thread_rings, "ring", None)
+        if ring is None:
+            ring = self._thread_rings.ring = self._new_ring()
+        return ring
+
+    def _send(self, ring: StagingRing, slot: int) -> StagedBatch:
         """Start the one asynchronous copy of a filled slot to the device,
-        and record the event that frees the slot."""
+        and record the event that frees the slot.  Ingest threads issue it
+        on the backend's stream: the copy is enqueued before its item is
+        queued to the main thread, and the fold after the item is
+        dequeued, so the stream's order keeps every copy ahead of its
+        fold, whichever worker sent it."""
         with self._on_stream():
             dev = torch.empty(self._nbytes, dtype=torch.uint8, device=self.device)
-            dev.copy_(self._ring[slot], non_blocking=True)
+            dev.copy_(ring.hosts[slot], non_blocking=True)
             if self.stream is not None:
                 event = torch.cuda.Event()
                 event.record(self.stream)
-                self._events[slot] = event
+                ring.events[slot] = event
         return StagedBatch(
             dev[: self._row_nbytes],
             dev[self._pair_off :] if self.config.compact_alive else None,
         )
 
-    def _pack_pairs(self, pairs, slot: int) -> None:
-        """Pack one dispatch's compacted pair table into ``slot``'s pair
-        region, booking the raw→emitted compaction split."""
+    def _pack_pairs(self, pairs, view: np.ndarray) -> None:
+        """Pack one dispatch's compacted pair table into a slot's pair
+        region (``view``), booking the raw→emitted compaction split."""
         _, raw, emitted = pack_pair_table(
             [pairs], self.config, self._pair_cap, use_native=self.use_native,
-            out=self._ring_np[slot][self._pair_off :],
+            out=view[self._pair_off :],
         )
         obs_metrics.ALIVE_PAIRS_RAW.inc(raw)
         obs_metrics.ALIVE_PAIRS_EMITTED.inc(emitted)
 
     def prepare(self, batch: RecordBatch) -> StagedBatch:
-        """Pack a batch into the next pinned staging slot and start its
-        copy to the device."""
-        slot = self._claim_slot()
+        """Pack a batch into the next slot of the calling thread's ring
+        and start its copy to the device."""
+        ring = self._thread_ring()
+        slot = ring.claim()
+        view = ring.views[slot]
         pack_batch(
             batch, self.config, use_native=self.use_native,
-            out=self._ring_np[slot][: self._row_nbytes],
+            out=view[: self._row_nbytes],
         )
         if self.config.compact_alive:
             self._pack_pairs(
-                batch_alive_pairs(batch, self.config, self.use_native), slot
+                batch_alive_pairs(batch, self.config, self.use_native), view
             )
-        return self._send(slot)
+        return self._send(ring, slot)
 
     def make_fused_sink(self, dense_of) -> FusedPackSink:
-        """A sink whose rows are packed straight into the pinned slots and
-        come out staged exactly like `prepare`'s (call only when the
-        native shim is loaded; one sink per ingest stream)."""
-        ptrs = [host.ctypes.data for host in self._ring_np]
+        """A sink whose rows are packed straight into the slots of a ring
+        of its own and come out staged exactly like `prepare`'s (call only
+        when the native shim is loaded; one sink per ingest stream)."""
+        ring = self._new_ring()
+        ptrs = [view.ctypes.data for view in ring.views]
 
         def alloc() -> np.ndarray:
-            return self._ring_np[self._claim_slot()][: self._row_nbytes]
+            return ring.views[ring.claim()][: self._row_nbytes]
 
         def stage(row: np.ndarray, pairs=None) -> StagedBatch:
             slot = ptrs.index(row.ctypes.data)
             if self.config.compact_alive:
-                self._pack_pairs(pairs, slot)
-            return self._send(slot)
+                self._pack_pairs(pairs, ring.views[slot])
+            return self._send(ring, slot)
 
         return FusedPackSink(
             self.config, self.config.batch_size, dense_of,
@@ -345,13 +386,27 @@ class TorchBackend(MetricBackend):
         self._queue.launched(token, 1)
         self.dispatches += 1
 
-    def get_state(self) -> AnalyzerState:
-        return self.state
+    snapshots = True
+
+    def drain_dispatch(self) -> None:
+        self._queue.drain()
+
+    def get_state(self) -> "dict[str, np.ndarray]":
+        """Retire the in-flight folds and copy the state to the host, on
+        the backend's stream: the copy is ordered after every fold already
+        enqueued there, whichever thread asks, and returns once it is
+        done."""
+        self._queue.drain()
+        with self._on_stream():
+            return state_to_numpy(self.state)
+
+    def set_state(self, leaves: "dict[str, np.ndarray]") -> None:
+        """Copy a snapshot's leaves into the state's own tensors, on the
+        backend's stream (ahead of every fold enqueued after it)."""
+        with self._on_stream():
+            copy_from_numpy_(self.state, leaves)
 
     def finalize(self) -> TopicMetrics:
         """Retire the in-flight folds, copy the state to the host (waiting
         for the device) and derive the metrics there."""
-        self._queue.drain()
-        with self._on_stream():
-            leaves = state_to_numpy(self.state)
-        return metrics_from_state(leaves, self.config, self.init_now_s)
+        return metrics_from_state(self.get_state(), self.config, self.init_now_s)

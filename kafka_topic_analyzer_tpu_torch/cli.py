@@ -11,7 +11,8 @@ single-scan paths).
         [--pallas] [--batch-size B] [--alive-bitmap-bits N] \\
         [--wire-format auto|v4|v5] [--alive-compaction auto|off] \\
         [--native auto|on|off] [--backend gpu|tpu|cpu] [--device cuda|cpu] \\
-        [--dispatch-depth D] [--check-crcs] \\
+        [--dispatch-depth D] [--ingest-workers N|auto] \\
+        [--snapshot-dir DIR [--snapshot-every S] [--resume]] [--check-crcs] \\
         [--on-corruption fail|skip|quarantine] [--quarantine-dir DIR] \\
         [--on-data-loss fail|report|ignore] \\
         [--from-timestamp ISO8601|EPOCH_MS] [--dump-segments DIR] \\
@@ -41,9 +42,15 @@ the card); ``--metrics-port``, ``--events-jsonl``, ``--trace-json`` and
 shim: ``auto`` (the default) uses it when it builds and falls back to
 numpy otherwise, ``on`` raises when it cannot be built, ``off`` runs
 numpy only (and so the chained, not the fused, Kafka and segment-file
-paths).  Exit status: 254 for an empty topic (the reference's
-``exit(-2)``), 1 for an error, 3 when partitions degraded, 4 when corrupt
-frames were skipped, 5 when ``--on-data-loss fail`` aborted the scan.
+paths).  ``--ingest-workers`` shards the partitions over N ingest
+threads merged in a fixed round-robin order; ``--snapshot-dir`` saves
+resumable snapshots (every ``--snapshot-every`` seconds, on a failure or
+an interrupt, and when the scan degraded or skipped records) that
+``--resume`` continues from, in this CLI or the reference's.  Exit
+status: 254 for an empty topic (the reference's ``exit(-2)``), 1 for an
+error, 3 when partitions degraded, 4 when corrupt frames were skipped, 5
+when ``--on-data-loss fail`` aborted the scan (after its checkpoint, with
+``--snapshot-dir``).
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from kafka_topic_analyzer_tpu_torch.config import (
     AnalyzerConfig,
     CorruptionConfig,
     DataLossConfig,
+    IngestConfig,
 )
 from kafka_topic_analyzer_tpu_torch.engine import ScanResult, run_scan
 from kafka_topic_analyzer_tpu_torch.io import native
@@ -165,6 +173,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Folds allowed in flight while the device works; "
                         "the drive loop blocks (backpressuring ingest) "
                         "beyond it. Default: 2")
+    p.add_argument("--ingest-workers", default="1", metavar="N|auto",
+                   help="Parallel partition-sharded ingest for one scan: "
+                        "shard the partition set over N private "
+                        "fetch+decode+pack worker threads feeding the "
+                        "backend through a deterministic fan-in. 'auto' "
+                        "sizes from the host (min(cores-1, partitions)). "
+                        "Default: 1")
     p.add_argument("--pallas", action="store_true",
                    help="The reference's Pallas counter flag: under wire v4 "
                         "it requires batch-size %% 1024 == 0 and rejects "
@@ -189,6 +204,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Use the native C++ ingest shim when available "
                         "(auto), always (on: fail if it cannot be built) "
                         "or never (off)")
+    p.add_argument("--snapshot-dir", metavar="DIR",
+                   help="Periodically save resumable scan snapshots here")
+    p.add_argument("--snapshot-every", type=float, default=60.0,
+                   metavar="SECONDS", help="Snapshot interval (default 60s)")
+    p.add_argument("--resume", action="store_true",
+                   help="Resume from a snapshot in --snapshot-dir if present")
     p.add_argument("--from-timestamp", metavar="ISO8601|EPOCH_MS",
                    help="Scan only records at or after this time (kafka "
                         "source: broker-side ListOffsets timestamp lookup). "
@@ -304,6 +325,13 @@ def parse_from_timestamp_flag(args) -> "int | None":
             "--from-timestamp requires --source kafka (broker-side "
             "timestamp index lookup)"
         )
+    if args.resume:
+        raise ValueError(
+            "--from-timestamp cannot be combined with --resume (the "
+            "snapshot's offsets already fix where the scan continues); "
+            "drop --resume to seek to the timestamp, or drop "
+            "--from-timestamp to resume the snapshot"
+        )
     return parse_timestamp_ms(args.from_timestamp)
 
 
@@ -358,7 +386,20 @@ def wrap_with_dump(args, source: RecordSource) -> RecordSource:
     """The source behind a segment-dump tee when --dump-segments is set."""
     if not args.dump_segments:
         return source
+    if args.resume:
+        raise ValueError(
+            "--dump-segments cannot be combined with --resume (the dump "
+            "would miss already-scanned records); drop --resume — or "
+            "delete the snapshot — so the dump scan covers the topic "
+            "from its earliest offset"
+        )
     return TeeSource(source, SegmentDumpWriter(args.dump_segments, args.topic))
+
+
+def resolve_ingest_workers(args, num_partitions: int) -> int:
+    """--ingest-workers → the concrete worker count after 'auto' and the
+    partition-count clamp; raises ValueError on a bad spec."""
+    return IngestConfig.parse(args.ingest_workers).resolve(num_partitions)
 
 
 def setup(args) -> "tuple[RecordSource, AnalyzerConfig, bool]":
@@ -445,6 +486,7 @@ def run(args) -> "tuple[int, ScanResult | None]":
         try:
             from_ts_ms = parse_from_timestamp_flag(args)
             source, config, use_native = setup(args)
+            ingest_workers = resolve_ingest_workers(args, config.num_partitions)
             start_at, exhausted = resolve_start_offsets(
                 source, from_ts_ms, args.from_timestamp
             )
@@ -470,12 +512,18 @@ def run(args) -> "tuple[int, ScanResult | None]":
             result = run_scan(
                 args.topic, source, backend, args.batch_size,
                 start_at=start_at, spinner=Spinner(enabled=not args.quiet),
+                snapshot_dir=args.snapshot_dir,
+                snapshot_every_s=args.snapshot_every,
+                resume=args.resume,
+                ingest_workers=ingest_workers,
             )
         if args.stats:
             print_stats(result)
     except DataLossError as e:
-        # --on-data-loss fail: the loss is booked; no checkpoint is
-        # written (snapshots are not ported).
+        # --on-data-loss fail: the loss is booked and, with
+        # --snapshot-dir, the engine wrote a fold-consistent checkpoint
+        # on the way out, so the distinct exit code tells automation a
+        # --resume will continue past the named gap.
         print(f"error: DATA-LOSS: {e}", file=sys.stderr)
         return EXIT_DATA_LOSS, None
     except (OSError, KafkaProtocolError) as e:

@@ -1,7 +1,8 @@
 """Static configuration of one analysis run (port of the reference's
-``AnalyzerConfig``), and the Kafka wire scan's three transport policies
-(``TransportRetryConfig``, ``CorruptionConfig``, ``DataLossConfig``, the
-reference's, with the same validation and error text).
+``AnalyzerConfig``), the Kafka wire scan's three transport policies
+(``TransportRetryConfig``, ``CorruptionConfig``, ``DataLossConfig``) and
+the parallel-ingest sizing (``IngestConfig``), the reference's, with the
+same validation and error text.
 
 Same fields, defaults and validation as the reference, restricted to what
 the port runs: wire format 4 or 5, alive-pair compaction auto or off, one
@@ -73,6 +74,65 @@ class TransportRetryConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class IngestConfig:
+    """Single-scan parallel-ingest sizing (``--ingest-workers``).
+
+    Like `TransportRetryConfig`, deliberately NOT part of `AnalyzerConfig`:
+    how many host threads feed the device changes neither state shapes nor
+    fold semantics (the fan-in merge is a pure function of the inputs), so
+    it must not churn the checkpoint fingerprint.  A snapshot taken by an
+    N-worker scan resumes under any other worker count.
+    """
+
+    #: ``1`` = the sequential path (the default), ``N`` = that many
+    #: partition-sharded ingest workers, ``"auto"`` = size from the host:
+    #: min(cores - 1, partitions), keeping one core for the merge loop and
+    #: the device dispatch.
+    workers: "int | str" = 1
+
+    def __post_init__(self) -> None:
+        if isinstance(self.workers, str):
+            if self.workers != "auto":
+                raise ValueError(
+                    f"ingest workers {self.workers!r} invalid "
+                    "(a positive integer, or 'auto')"
+                )
+        elif self.workers < 1:
+            raise ValueError("ingest workers must be >= 1")
+
+    @classmethod
+    def parse(cls, text: str) -> "IngestConfig":
+        """CLI spelling: a positive integer or ``auto``."""
+        if text.strip().lower() == "auto":
+            return cls(workers="auto")
+        try:
+            n = int(text)
+        except ValueError:
+            raise ValueError(
+                f"bad --ingest-workers {text!r}: expected a positive "
+                "integer or 'auto'"
+            ) from None
+        return cls(workers=n)
+
+    def resolve(self, num_partitions: int) -> int:
+        """Concrete worker count for a topic with ``num_partitions``
+        partitions (workers beyond the partition count would sit idle —
+        each partition lives in exactly one worker)."""
+        if self.workers == "auto":
+            # Cores this process may actually run on: in a cgroup- or
+            # affinity-limited container os.cpu_count() reports the
+            # host's cores, and sizing from it would oversubscribe.
+            try:
+                cores = len(os.sched_getaffinity(0))
+            except AttributeError:  # non-Linux
+                cores = os.cpu_count() or 1
+            want = max(1, cores - 1)
+        else:
+            want = int(self.workers)
+        return max(1, min(want, num_partitions))
+
+
 #: Valid --on-corruption policies, in escalation order.
 CORRUPTION_POLICIES = ("fail", "skip", "quarantine")
 
@@ -134,8 +194,9 @@ class DataLossConfig:
     code reflects the loss:
 
     - ``fail``: abort the scan with the classified error and
-      `cli.EXIT_DATA_LOSS` (the port writes no checkpoint: snapshots are
-      not ported);
+      `cli.EXIT_DATA_LOSS`; with ``--snapshot-dir`` a fold-consistent
+      checkpoint is written first, so a ``--resume`` continues past the
+      named gap;
     - ``report``: keep scanning the surviving records, print the loss
       as a DATA-LOSS block after the report, exit 0 (the default);
     - ``ignore``: keep scanning and exit 0 with no block — for logs

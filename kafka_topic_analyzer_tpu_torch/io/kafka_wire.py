@@ -1,9 +1,10 @@
 """Kafka wire-protocol record source (librdkafka replacement; port of the
 reference's ``io/kafka_wire.py``).
 
-The port leaves out, for now: the fleet's all-topics discovery, the
-follow mode's watermark refresh and healing, and the snapshot hooks
-(resume validation, seeded spans, the checkpointed partition facts).  The
+The port leaves out, for now: the fleet's all-topics discovery and the
+follow mode's watermark refresh and healing.  The snapshot hooks (resume
+validation, seeded spans, the checkpointed partition facts) are the
+reference's.  The
 fused sink's fallbacks are counted on the sink by reason
 (`packing.FusedPackSink.fallbacks`, booked on ``kta_fused_fallback_total``)
 and logged.
@@ -652,6 +653,16 @@ class KafkaWireSource(RecordSource):
             d["spans"].append(s)
         return out
 
+    def seed_corrupt_spans(self, spans: "list[dict]") -> None:
+        """Pre-load spans a previous run already skipped (snapshot resume):
+        re-encountering one skips it immediately — no disambiguating
+        re-fetch, no re-count, no re-quarantine."""
+        with self._corrupt_lock:
+            for s in spans:
+                key = (int(s["partition"]), int(s["anchor"]))
+                if key not in self._corrupt_spans:
+                    self._corrupt_spans[key] = dict(s, seeded=True)
+
     def _note_corrupt(
         self,
         p: int,
@@ -798,6 +809,16 @@ class KafkaWireSource(RecordSource):
             d["spans"].append(s)
         return out
 
+    def seed_lost_spans(self, spans: "List[dict]") -> None:
+        """Adopt lost spans recorded by a previous run (snapshot resume) so
+        the final report covers the whole logical scan.  Seeded spans are
+        NOT re-booked to metrics — the run that lost them already counted
+        them — and they never re-trip the fail policy."""
+        with self._lost_lock:
+            for s in spans:
+                key = (int(s["partition"]), int(s["start"]))
+                self._lost_spans.setdefault(key, dict(s, seeded=True))
+
     def _note_lost(
         self, p: int, start: int, end: int, reason: str
     ) -> None:
@@ -879,6 +900,19 @@ class KafkaWireSource(RecordSource):
         with self._epoch_lock:
             self._leader_epochs.pop(p, None)
 
+    def partition_meta(self) -> Dict[int, dict]:
+        """Per-partition durable-fencing facts for checkpoints:
+        {partition: {leader_epoch, log_start_offset}}."""
+        with self._epoch_lock:
+            parts = set(self._leader_epochs) | set(self._log_starts)
+            return {
+                int(p): {
+                    "leader_epoch": int(self._leader_epochs.get(p, -1)),
+                    "log_start_offset": int(self._log_starts.get(p, -1)),
+                }
+                for p in parts
+            }
+
     def check_divergence(
         self, p: int, cursor: int, ask_epoch: int
     ) -> Optional[int]:
@@ -943,6 +977,43 @@ class KafkaWireSource(RecordSource):
         return None
 
     # -- connections ---------------------------------------------------------
+
+    def validate_resume(
+        self, offsets: Dict[int, int], saved_meta: Dict[int, dict]
+    ) -> None:
+        """Resumed-scan honesty gate, run before fetch #1.  Seeds the
+        tracked epochs from the checkpoint, then checks each saved cursor
+        against the live log: a cursor below the live log start is a named
+        retention loss (and the cursor re-anchors forward, in place, so
+        the first fetch doesn't re-detect it); a leader epoch that moved
+        since the checkpoint runs the OffsetForLeaderEpoch divergence
+        check, and truncation below the cursor is a named truncation loss
+        with the fold marked non-authoritative."""
+        saved_epochs: Dict[int, int] = {}
+        for p, m in (saved_meta or {}).items():
+            saved_epochs[int(p)] = int(m.get("leader_epoch", -1))
+        live_start, _live_end = self.watermarks()
+        with self._epoch_lock:
+            live_epochs = dict(self._leader_epochs)
+        for p in sorted(offsets):
+            cursor = int(offsets[p])
+            start = live_start.get(p)
+            if start is not None and cursor < start:
+                self._note_lost(p, cursor, start, "resume-below-log-start")
+                offsets[p] = start
+                continue
+            saved_epoch = saved_epochs.get(p, -1)
+            if saved_epoch < 0:
+                continue
+            live_epoch = live_epochs.get(p, -1)
+            if live_epoch >= 0 and live_epoch != saved_epoch:
+                div = self.check_divergence(p, cursor, saved_epoch)
+                if div is not None:
+                    self._note_lost(p, div, cursor, "truncation")
+            else:
+                # The broker reported no epoch at watermark time (classic
+                # wire): trust the checkpoint's view until data says more.
+                self._observe_epoch(p, saved_epoch)
 
     def _connect(self, host: str, port: int) -> BrokerConnection:
         key = (host, port)

@@ -377,6 +377,13 @@ class TeeSource(RecordSource):
     def corruption_spans(self):
         return self.inner.corruption_spans()
 
+    def seed_corrupt_spans(self, spans):
+        # The engine discovers this by hasattr; forward only when the inner
+        # source implements it (the RecordSource base does not).
+        seed = getattr(self.inner, "seed_corrupt_spans", None)
+        if seed is not None:
+            seed(spans)
+
     def batches(self, batch_size, partitions=None, start_at=None):
         self.writer.set_base_offsets(self.inner.watermarks()[0])
         for batch in self.inner.batches(batch_size, partitions, start_at):

@@ -11,7 +11,8 @@ device; the step updates them in place.
 boundary as a dict of numpy arrays keyed by leaf path
 (``"metrics.per_partition"``, ``"alive.words"``, ...), with alive words as
 ``uint32`` — the reference's leaves, so a scan can start in one package
-and finish in the other.
+and finish in the other; `copy_from_numpy_` loads such a dict into an
+existing state (a snapshot resume, `checkpoint.py`).
 """
 
 from __future__ import annotations
@@ -169,3 +170,32 @@ def state_from_numpy(
     if "quantiles.counts" in leaves:
         quantiles = DDSketchState(counts=tensor(leaves["quantiles.counts"], np.int64))
     return AnalyzerState(metrics=metrics, alive=alive, hll=hll, quantiles=quantiles)
+
+
+
+def copy_from_numpy_(state: AnalyzerState, leaves: Dict[str, np.ndarray]) -> None:
+    """Copy ``leaves`` (`state_to_numpy`'s form) into ``state``'s own
+    tensors, in place, on the calling thread's current stream: the same
+    tensors, dtypes and device, alive words as ``int32`` bit patterns.
+    Raises unless ``leaves`` holds exactly the state's leaves, each of
+    the leaf's shape."""
+    want = {f"metrics.{name}" for name in _METRIC_LEAVES} | {
+        path for path, sub in (("alive.words", state.alive), ("hll.regs", state.hll),
+                               ("quantiles.counts", state.quantiles))
+        if sub is not None
+    }
+    if set(leaves) != want:
+        raise ValueError(
+            f"state leaves {sorted(leaves)} do not match the backend's "
+            f"{sorted(want)}"
+        )
+    for path, arr in leaves.items():
+        sub, name = path.split(".")
+        dst = getattr(getattr(state, sub), name)
+        src = u32_to_i32(arr) if path == "alive.words" else np.require(arr, requirements="C")
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(
+                f"state leaf {path} has shape {src.shape}, the backend's "
+                f"{tuple(dst.shape)}"
+            )
+        dst.copy_(torch.from_numpy(src))

@@ -2,8 +2,8 @@
 of the reference's ``obs/metrics.py``: the whole catalog, with the same
 names, types, labels and merge policies, so a port scan exposes the
 reference's metric families.  Instruments of features the port does not
-have yet (parallel ingest, superbatch K > 1, snapshots, the remote
-segment tier, follow, fleet, health) stay declared and read zero).
+have yet (superbatch K > 1, the remote segment tier, follow, fleet,
+health) stay declared and read zero).
 
 One module so the full surface is auditable in one place (README
 "Observability" documents it verbatim).  All instruments live on the

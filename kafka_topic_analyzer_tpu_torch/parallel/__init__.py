@@ -1,2 +1,2 @@
-"""Ingest staging (port of the reference's ``parallel`` package, its
-single-stream part)."""
+"""Ingest staging and partition-sharded parallel ingest (port of the
+reference's ``parallel`` package, its single-device part)."""

@@ -190,8 +190,8 @@ def _by_label(snapshot: "Optional[dict]", name: str, label: str) -> "Dict[str, f
 class IngestStats:
     """Parallel-ingest accounting from a telemetry snapshot: per-worker
     record counts and backpressure stalls.  Empty (``workers == {}``)
-    until parallel ingest is ported: the sequential scan never touches
-    the per-worker instruments."""
+    after a sequential scan, which never touches the per-worker
+    instruments."""
 
     #: worker label -> valid records that worker produced.
     workers: "Dict[str, int]"

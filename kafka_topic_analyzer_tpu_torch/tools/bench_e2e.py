@@ -1,7 +1,11 @@
-"""A fast loopback Kafka broker for end-to-end runs of the wire scan
-(port of the broker half of the reference's ``tools/bench_e2e.py``:
-`build_templates`, `TemplateBroker` and `BrokerProcess`; its benchmark
-runner, ``run``, is not ported yet).
+"""A fast loopback Kafka broker for end-to-end runs of the wire scan, and
+the runner that scans it (port of the reference's ``tools/bench_e2e.py``:
+`build_templates`, `TemplateBroker`, `BrokerProcess` and ``run`` with the
+flags of the ingest-workers runner: an uncompressed v5 template topic on
+the torch backend).
+
+    python -m kafka_topic_analyzer_tpu_torch.tools.bench_e2e \
+        --records 16000000 --brokers 4 --ingest-workers auto
 
 The serving side must be far faster than the client under test, so the
 broker never encodes per record at fetch time.  It pre-encodes a small set
@@ -24,9 +28,13 @@ template ``w % templates``.
 
 from __future__ import annotations
 
+import argparse
+import json
 import socket
 import struct
+import sys
 import threading
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -368,3 +376,121 @@ class BrokerProcess:
         self._proc.join(5)
         if self._proc.is_alive():
             self._proc.terminate()
+
+
+def run(argv: "list[str] | None" = None) -> int:
+    """Scan a `BrokerProcess` topic end to end through the engine and
+    print one JSON line: records/s, the resolved ingest workers, the
+    scan doctor's verdict with ``--flight-record``."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--partitions", type=int, default=16)
+    ap.add_argument("--records", type=int, default=50_000_000,
+                    help="total logical records served across partitions")
+    ap.add_argument("--batch-size", type=int, default=1 << 20)
+    ap.add_argument("--records-per-batch", type=int, default=4096,
+                    help="records per wire RecordBatch (template size)")
+    ap.add_argument("--features", default="counters",
+                    help="comma set: counters,alive,hll,quantiles")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the torch backend runs")
+    ap.add_argument("--brokers", type=int, default=1,
+                    help="advertised broker nodes (partition p led by "
+                         "p %% N) — exercises leader-parallel fetching")
+    ap.add_argument("--alive-bits", type=int, default=26)
+    ap.add_argument("--ingest-workers", default="1", metavar="N|auto",
+                    help="partition-sharded parallel ingest workers for "
+                         "the scan (engine --ingest-workers)")
+    ap.add_argument("--flight-record", action="store_true",
+                    help="run the pipeline flight recorder during the "
+                         "scan and print the doctor's BOTTLENECK verdict")
+    ap.add_argument("--quiet", action="store_true")
+    args = ap.parse_args(argv)
+
+    from kafka_topic_analyzer_tpu_torch.io import native
+    from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
+    from kafka_topic_analyzer_tpu_torch.cli import resolve_ingest_workers
+    from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
+    from kafka_topic_analyzer_tpu_torch.engine import run_scan
+    from kafka_topic_analyzer_tpu_torch.io.kafka_wire import KafkaWireSource
+    from kafka_topic_analyzer_tpu_torch.obs import flight as obs_flight
+    from kafka_topic_analyzer_tpu_torch.obs.doctor import diagnose_scan
+
+    feats = {f.strip() for f in args.features.split(",") if f.strip()}
+    R = args.records_per_batch
+    windows = max(1, args.records // (args.partitions * R))
+    total = windows * R * args.partitions
+    config = AnalyzerConfig(
+        num_partitions=args.partitions,
+        batch_size=args.batch_size,
+        count_alive_keys="alive" in feats,
+        alive_bitmap_bits=args.alive_bits,
+        enable_hll="hll" in feats,
+        enable_quantiles="quantiles" in feats,
+    )
+    try:
+        ingest_workers = resolve_ingest_workers(args, args.partitions)
+    except ValueError as e:
+        ap.error(str(e))
+    use_native = native.native_available()
+    backend = TorchBackend(config, device=args.device, use_native=use_native)
+    with BrokerProcess(
+        topic="bench-e2e", partitions=args.partitions, windows=windows,
+        R=R, n_templates=16, vmin=100, vmax=420,
+        compression=kc.COMPRESSION_NONE, tombstone_every=0,
+        brokers=args.brokers,
+    ) as port:
+        source = KafkaWireSource(
+            f"127.0.0.1:{port}", "bench-e2e", use_native_hashing=use_native
+        )
+        recorder = None
+        if args.flight_record:
+            recorder = obs_flight.FlightRecorder()
+            obs_flight.set_active(recorder)
+            recorder.start()
+        try:
+            t0 = time.perf_counter()
+            # finalize copies the state to the host: the device is done.
+            result = run_scan(
+                "bench-e2e", source, backend, args.batch_size,
+                ingest_workers=ingest_workers,
+            )
+            elapsed = time.perf_counter() - t0
+            # Read inside the recorder's life, as --stats reads it.
+            diagnosis = diagnose_scan(result) if recorder is not None else None
+        finally:
+            if recorder is not None:
+                recorder.stop()
+                obs_flight.set_active(None)
+            source.close()
+    got = int(result.metrics.overall_count)
+    if got != total:
+        print(f"bench-e2e: scanned {got} records, expected {total}",
+              file=sys.stderr)
+        return 1
+    doc = {
+        "metric": "e2e_msgs_per_sec",
+        "value": round(total / elapsed),
+        "unit": "msgs/s",
+        "records": total,
+        "seconds": elapsed,
+        "device": str(backend.device),
+        "dispatch_depth": result.dispatch_depth,
+        "ingest_workers": result.ingest_workers,
+        "batch_size": args.batch_size,
+        "brokers": args.brokers,
+    }
+    if diagnosis is not None:
+        from kafka_topic_analyzer_tpu_torch.report import render_bottleneck
+
+        if not args.quiet:
+            sys.stderr.write(render_bottleneck(diagnosis))
+        doc["flight"] = {
+            "verdict": diagnosis.verdict,
+            "stages": {k: round(v, 4) for k, v in diagnosis.stages.items()},
+        }
+    print(json.dumps(doc))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(run())
