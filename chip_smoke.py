@@ -222,6 +222,14 @@ SNAPSHOT_EVERY_S = 2.0
 INTERRUPT_AFTER = 31
 #: The parallel-ingest sweeps' ``--ingest-workers`` values.
 SEGFILE_WORKERS = ("1", "2", "4", "auto")
+#: The superbatch phase's K, in-flight bound and ingest-worker counts, and
+#: the row after which its killed scan dies (8 superbatches of 4 folded,
+#: 2 rows pending for the failure path to fold).
+SUPERBATCH = ["--superbatch", "4", "--dispatch-depth", "2"]
+SUPERBATCH_WORKERS = ("1", "7")
+SUPERBATCH_KILL_AFTER = 34
+#: Where the remote phase's segment cache lives (deleted at the end).
+CACHE_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke_cache"
 KAFKA_WORKERS = ("1", "4", "auto")
 #: Advertised brokers of the parallel-ingest Kafka topic (partition p led
 #: by broker p % 4, all served by one child process).
@@ -1221,7 +1229,8 @@ def session_run(cli, kernels, argv, tag: str, telemetry: bool, profile_dir=None)
     if rc != 0:
         fail(f"{tag}: CLI exited {rc}: {err.getvalue()[-2000:]}")
     return dict(result=result, wall=wall, rate=result.records / wall,
-                stats=err.getvalue(), diagnosis=diagnosis, trace=trace, events=events,
+                stats=err.getvalue(), stdout=out.getvalue(), diagnosis=diagnosis,
+                trace=trace, events=events,
                 launches={name: fn.launches for name, fn in kernels.items()})
 
 
@@ -1459,7 +1468,7 @@ def fanin_groups(source, workers: int):
 
 def snapshot_scan(torch, np, cli, kernels, label: str, argv, kernel: str,
                   want_report: str, total: int, workers: str = "1", cost=False,
-                  replay=None) -> int:
+                  replay=None, superbatch: str = "1", limit=None) -> int:
     """A full-size scan on the card with snapshots, killed mid-stream
     (each of n ingest streams dies after `INTERRUPT_AFTER` // n rows of
     its own), then resumed
@@ -1470,8 +1479,11 @@ def snapshot_scan(torch, np, cli, kernels, label: str, argv, kernel: str,
     the alive-key line is held instead to ``replay``, a numpy replay of
     the interrupted fan-in's order up to the snapshot and the resumed
     fan-in's after it.  With ``cost``, prints the snapshot's own cost:
-    the state's device→host copy and the ``.npz`` write.  Returns the
-    resumed scan's launches of ``kernel``."""
+    the state's device→host copy and the ``.npz`` write.  With
+    ``superbatch`` K the interrupted scan folds K rows per dispatch and
+    dies after ``limit`` rows (the resumed one runs at K = 1): its
+    failure path folds the pending rows, so the snapshot holds exactly
+    ``limit`` rows.  Returns the resumed scan's launches of ``kernel``."""
     from kafka_topic_analyzer_tpu_torch import checkpoint
     from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
     from kafka_topic_analyzer_tpu_torch.engine import run_scan
@@ -1483,17 +1495,22 @@ def snapshot_scan(torch, np, cli, kernels, label: str, argv, kernel: str,
         ["-t", "scan", *argv, *SKETCH_FLAGS, "--native", "on", "--device", "cuda",
          "--ingest-workers", workers])
     n = cli.resolve_ingest_workers(args, FULL_PARTITIONS)
+    killed = cli.build_parser().parse_args(
+        ["-t", "scan", *argv, *SKETCH_FLAGS, "--native", "on", "--device", "cuda",
+         "--ingest-workers", workers, "--superbatch", superbatch])
 
-    def fresh():
-        source, config, use_native = cli.setup(args)
-        return source, TorchBackend(config, device="cuda", use_native=use_native)
+    def fresh(flags=args):
+        source, config, use_native = cli.setup(flags)
+        return source, TorchBackend(config, device="cuda", use_native=use_native,
+                                    dispatch=cli.resolve_dispatch(flags))
 
-    source, backend = fresh()
+    source, backend = fresh(killed)
     default_registry().reset()
     t0 = time.perf_counter()
     try:
         # Each of n streams dies half-way through its share of the rows.
-        run_scan(args.topic, Interrupting(source, max(1, INTERRUPT_AFTER // n)), backend,
+        run_scan(args.topic, Interrupting(source, limit or max(1, INTERRUPT_AFTER // n)),
+                 backend,
                  args.batch_size, snapshot_dir=str(directory),
                  snapshot_every_s=SNAPSHOT_EVERY_S, ingest_workers=n)
     except Interrupt:
@@ -1507,7 +1524,11 @@ def snapshot_scan(torch, np, cli, kernels, label: str, argv, kernel: str,
     info = checkpoint.snapshot_info(str(directory))
     seen = info["records_seen"]
     nbytes = os.path.getsize(directory / checkpoint.SNAPSHOT_NAME)
-    print(f"snapshot {label}: {n} worker(s), killed after {seen} of {total} records "
+    if limit is not None and seen != limit * args.batch_size:
+        fail(f"snapshot {label}: records_seen {seen}, not the {limit} rows observed "
+             f"(the pending superbatch tail was not folded)")
+    print(f"snapshot {label}: {n} worker(s), K={backend.superbatch_k}, killed after "
+          f"{seen} of {total} records "
           f"in {wall:.3f} s; {saved:.0f} snapshots (every {SNAPSHOT_EVERY_S} s and "
           f"the failure's) in {stage:.3f} s, {stage / max(saved, 1):.3f} s each; "
           f"file {nbytes} B")
@@ -1645,7 +1666,259 @@ def workers_sweep(np, cli, kernels, label: str, argv, kernel: str, specs,
                      f"{cpu / run['wall']:.4f} of one core")
         print(line)
         out[n] = {"launches": launches[kernel], "rate": run["rate"],
-                  "verdict": d.verdict, "alive": alive}
+                  "verdict": d.verdict, "alive": alive,
+                  "dispatch": d.stages.get("dispatch", 0.0)}
+    return out
+
+#: The per-partition table's integer columns and the ``--json`` row keys
+#: they print.
+TABLE_KEYS = {"< OS": "start_offset", "> OS": "end_offset", "Total": "total",
+              "Alive": "alive", "Tmb": "tombstones", "K Null": "key_null",
+              "K !Null": "key_non_null", "K-Bytes": "key_size_sum",
+              "V-Bytes": "value_size_sum", "A K-Sz": "key_size_avg",
+              "A V-Sz": "value_size_avg", "A M-Sz": "message_size_avg"}
+
+
+def check_json_doc(label: str, doc: dict, report: str, result) -> None:
+    """Holds a ``--json`` document against the report printed for the
+    same scan: every integer of the per-partition table, the alive keys
+    and the overall count, then the whole metrics part against the
+    result's own `to_dict`; ``superbatch_k`` must be 4 and the ``flight``
+    and ``wire`` blocks present."""
+    from kafka_topic_analyzer_tpu_torch.report import TABLE_HEADER
+
+    rows = [line for line in report.splitlines()
+            if line.startswith("|") and line.split("|")[1].strip().isdigit()]
+    if len(rows) != len(doc["partitions"]):
+        fail(f"json {label}: {len(doc['partitions'])} partitions, the report {len(rows)}")
+    checked = 0
+    for line in rows:
+        cells = [c.strip() for c in line.strip().strip("|").split("|")]
+        got = doc["partitions"][cells[0]]
+        for name, cell in zip(TABLE_HEADER, cells):
+            if name in TABLE_KEYS:
+                if int(cell) != got[TABLE_KEYS[name]]:
+                    fail(f"json {label}: partition {cells[0]} {name} {cell} in the "
+                         f"report, {got[TABLE_KEYS[name]]} in the document")
+                checked += 1
+    if f"Alive keys: {doc['alive_keys']}\n" not in report:
+        fail(f"json {label}: alive keys {doc['alive_keys']} not in the report")
+    want = json.loads(json.dumps(result.metrics.to_dict(result.start_offsets,
+                                                        result.end_offsets)))
+    for key, value in want.items():
+        if doc[key] != value:
+            fail(f"json {label}: {key} differs from the scan's metrics")
+    if doc["overall"]["count"] != result.records or \
+            f"Topic Size: {doc['overall']['size_bytes']} bytes\n" not in report:
+        fail(f"json {label}: overall count {doc['overall']['count']} or size "
+             f"{doc['overall']['size_bytes']} differs from the report")
+    if doc["superbatch_k"] != 4 or "flight" not in doc or "wire" not in doc:
+        fail(f"json {label}: superbatch_k {doc['superbatch_k']}, keys {sorted(doc)}")
+    print(f"json {label}: {checked} table integers, the alive keys and the overall "
+          f"count equal the report's; superbatch_k 4; flight verdict "
+          f"{doc['flight']['verdict']}; wire {doc['wire']['bytes_total']} B "
+          f"({doc['wire']['bytes_per_record']} B/record)")
+
+
+def superbatch_runs(np, cli, kernels, label: str, argv, kernel: str, specs,
+                    want_report: str, k1: dict, alive_of=None, want=None,
+                    json_doc: bool = False) -> dict:
+    """The CLI's scan of one topic at ``--superbatch 4 --dispatch-depth 2``
+    and each ``--ingest-workers`` of ``specs``, with the doctor's
+    telemetry on: the report must equal ``want_report`` (the K = 1,
+    1-worker scan's; at n workers every line but the alive keys, which
+    must equal ``alive_of(n)``, or for a template topic ``want``), the
+    format's kernel must launch once per row (62 at one worker) and the
+    other never.  Each K = 4 run is followed by a K = 1 run of the same
+    flags (held to the same report), so the two are timed in turns on one
+    card; prints records/s and the doctor's dispatch share of both,
+    beside the workers phase's K = 1 run (``k1``, earlier in the call).
+    With
+    ``json_doc`` the first run also prints ``--json``, which
+    `check_json_doc` holds against its report.  Returns launches and
+    records/s by worker count."""
+    out = {}
+    for i, spec in enumerate(specs):
+        flags = argv + SUPERBATCH + ["--ingest-workers", spec]
+        if json_doc and i == 0:
+            flags = flags + ["--json"]
+        run = session_run(cli, kernels, flags,
+                          f"superbatch-{label.replace(' ', '-')}-{spec}", True)
+        result, d = run["result"], run["diagnosis"]
+        n = result.ingest_workers
+        got = rendered(result)
+        if result.superbatch_k != 4:
+            fail(f"superbatch {label} {spec}: K = {result.superbatch_k}")
+        if n == 1 and want is None:
+            if got != want_report:
+                fail(f"superbatch {label} {spec}: the report differs from the K = 1 "
+                     f"scan's:\n{want_report}\n{got}")
+        else:
+            if drop_alive_keys(got) != drop_alive_keys(want_report):
+                fail(f"superbatch {label} {spec}: the report differs from the K = 1 "
+                     f"scan's beyond the alive keys:\n{want_report}\n{got}")
+            if alive_of is not None and result.metrics.alive_keys != alive_of(n):
+                fail(f"superbatch {label} {spec}: {result.metrics.alive_keys} alive "
+                     f"keys, the fan-in replay {alive_of(n)}")
+            if want is not None:
+                check_template_scan(np, f"superbatch {label} {spec}", result.metrics, want)
+        launches = run["launches"]
+        if not 62 <= launches[kernel] <= 62 + n - 1 or (n == 1 and launches[kernel] != 62) \
+                or any(v for name, v in launches.items() if name != kernel):
+            fail(f"superbatch {label} {spec}: {n} workers launched {launches}")
+        dispatches = metric_total(result.telemetry, "kta_stager_slots_total")
+        adjacent = session_run(cli, kernels, argv + ["--ingest-workers", spec],
+                               f"superbatch-k1-{label.replace(' ', '-')}-{spec}", True)
+        if rendered(adjacent["result"]) != got or adjacent["result"].superbatch_k != 1:
+            fail(f"superbatch {label} {spec}: the adjacent K = 1 run's report differs")
+        d1 = adjacent["diagnosis"]
+        base = k1.get(n, {})
+        print(f"superbatch {label} {spec} ({n}): K=4 depth 2, {result.records} records in "
+              f"{run['wall']:.3f} s = {run['rate']:.1f} records/s (adjacent K=1 "
+              f"{adjacent['rate']:.1f}, workers phase K=1 "
+              f"{base.get('rate', float('nan')):.1f}); {dispatches:.0f} superbatch "
+              f"dispatches, launches {launches[kernel]}; verdict {d.verdict} (adjacent K=1 "
+              f"{d1.verdict}); dispatch share {d.stages.get('dispatch', 0.0):.4f} "
+              f"(adjacent K=1 {d1.stages.get('dispatch', 0.0):.4f}, workers phase K=1 "
+              f"{base.get('dispatch', float('nan')):.4f}); throttle wait "
+              f"{d.evidence.get('throttle_wait', 0.0):.4f}; stage shares "
+              + ", ".join(f"{k} {v:.4f}" for k, v in d.stages.items())
+              + "; adjacent K=1 stage shares "
+              + ", ".join(f"{k} {v:.4f}" for k, v in d1.stages.items()))
+        if json_doc and i == 0:
+            check_json_doc(f"{label} {spec}", json.loads(run["stdout"].splitlines()[-1]),
+                           want_report if n == 1 else got, result)
+        out[n] = {"launches": launches[kernel], "rate": run["rate"],
+                  "dispatch": d.stages.get("dispatch", 0.0),
+                  "k1_rate": adjacent["rate"]}
+    return out
+
+
+class ObjectStoreChild:
+    """The port's ``tools/objstore_serve`` serving ``root`` from a child
+    process on loopback; ``url`` is the store's ``--segment-dir``."""
+
+    def __init__(self, root: str):
+        self.root = root
+
+    def __enter__(self) -> str:
+        self._proc = subprocess.Popen(
+            [sys.executable, "-m", "kafka_topic_analyzer_tpu_torch.tools.objstore_serve",
+             "--root", self.root, "--port", "0"],
+            stdout=subprocess.PIPE, text=True,
+            cwd=str(Path(__file__).resolve().parent))
+        line = self._proc.stdout.readline()
+        if not line.startswith("objstore_serve: http://"):
+            self._proc.kill()
+            fail(f"remote: the object-store child announced {line!r}")
+        return line.split()[1]
+
+    def __exit__(self, *exc) -> None:
+        self._proc.terminate()
+        try:
+            self._proc.wait(10)
+        except subprocess.TimeoutExpired:
+            self._proc.kill()
+            self._proc.wait()
+
+
+def remote_digest(telemetry: dict) -> str:
+    t = lambda name: metric_total(telemetry, name) if name in telemetry else 0.0  # noqa: E731
+    return (f"{t('kta_segstore_gets_total'):.0f} GETs, "
+            f"{t('kta_segstore_bytes_fetched_total'):.0f} B fetched, "
+            f"{t('kta_segstore_retries_total'):.0f} retries, fetch wait "
+            f"{t('kta_fetch_sched_wait_seconds_total'):.3f} s, cache "
+            f"{t('kta_segstore_cache_hits_total'):.0f} hits / "
+            f"{t('kta_segstore_cache_misses_total'):.0f} misses, verify-latched "
+            f"{t('kta_segstore_cache_verify_latched_total'):.0f}, verify "
+            f"{t('kta_segstore_cache_verify_seconds_total'):.3f} s")
+
+
+def remote_run(np, cli, kernels, label: str, argv, kernel: str, want_report: str,
+               alive_of, tag: str) -> dict:
+    """One CLI scan from the object store with the doctor's telemetry on:
+    the report must equal the local segment-file scan's (at n workers all
+    but the alive keys, which must equal the fan-in replay), the format's
+    kernel must launch 62 times at one worker (62 to 62 + n - 1 at n) and
+    the other never.  Prints records/s and the remote tier's digest."""
+    run = session_run(cli, kernels, argv, tag, True)
+    result = run["result"]
+    n = result.ingest_workers
+    got = rendered(result)
+    if drop_alive_keys(got) != drop_alive_keys(want_report) or (
+            n == 1 and got != want_report) or result.metrics.alive_keys != alive_of(n):
+        fail(f"remote {label}: the report differs from the local scan's "
+             f"(alive keys {result.metrics.alive_keys}, replay {alive_of(n)}):"
+             f"\n{want_report}\n{got}")
+    launches = run["launches"]
+    if not 62 <= launches[kernel] <= 62 + n - 1 or (n == 1 and launches[kernel] != 62) \
+            or any(v for name, v in launches.items() if name != kernel):
+        fail(f"remote {label}: {n} workers launched {launches}")
+    if result.degraded_partitions:
+        fail(f"remote {label}: degraded {result.degraded_partitions}")
+    print(f"remote {label} ({n}): {result.records} records in {run['wall']:.3f} s = "
+          f"{run['rate']:.1f} records/s; launches {launches[kernel]}; verdict "
+          f"{run['diagnosis'].verdict}; {remote_digest(result.telemetry)}")
+    return {"launches": launches[kernel], "rate": run["rate"],
+            "telemetry": result.telemetry}
+
+
+def phase_remote(np, cli, kernels, dump: str, reports: dict, alive_of) -> dict:
+    """The segment-file scans again, from the port's object-store server
+    in a child process (``http://127.0.0.1:PORT/segments``): v5 and v4
+    at 1 and 7 ingest workers, then v5 at 7 workers cold and warm through
+    ``--segment-cache``, then v5 at 7 workers from an in-process server
+    that answers the first GET of one chunk with a 503.  Every report
+    equals the local scan's.  Returns launches by path."""
+    from kafka_topic_analyzer_tpu_torch.io import fetchsched
+    from kafka_topic_analyzer_tpu_torch.tools.objstore_serve import ObjectStoreHttpServer
+
+    out = {}
+    v4 = ["--wire-format", "v4"]
+    shutil.rmtree(CACHE_ROOT, ignore_errors=True)
+    with ObjectStoreChild(dump) as url:
+        print(f"remote: serving {dump} at {url} from a child process")
+        base = ["-t", "scan", "--source", "segfile", "--segment-dir", url, *SKETCH_FLAGS,
+                "--native", "on", "--backend", "gpu"]
+        for label, fmt, kernel in (("segfile v5", [], "counters_merge"),
+                                   ("segfile v4", v4, "counters_update")):
+            for spec in SUPERBATCH_WORKERS:
+                row = remote_run(np, cli, kernels, f"{label} {spec}",
+                                 base + fmt + ["--ingest-workers", spec], kernel,
+                                 reports[label], alive_of,
+                                 f"remote-{label.replace(' ', '-')}-{spec}")
+                out[f"remote {label} {spec} workers"] = (kernel, row["launches"])
+        for temp in ("cold", "warm"):
+            row = remote_run(np, cli, kernels, f"segfile v5 7 cache {temp}",
+                             base + ["--ingest-workers", "7", "--segment-cache",
+                                     str(CACHE_ROOT)], "counters_merge",
+                             reports["segfile v5"], alive_of, f"remote-cache-{temp}")
+            out[f"remote segfile v5 7 workers, cache {temp}"] = (
+                "counters_merge", row["launches"])
+            tel = row["telemetry"]
+            hits = metric_total(tel, "kta_segstore_cache_hits_total")
+            if temp == "warm" and not hits:
+                fail("remote: the warm cache scan served no chunk from the cache")
+    shutil.rmtree(CACHE_ROOT, ignore_errors=True)
+    served = []
+
+    def first_get_503(key, rng, index):
+        if rng is None and key == "scan-3.ktaseg" and not served:
+            served.append(key)
+            return ("status", 503)
+        return None
+
+    with ObjectStoreHttpServer(dump, fault_hook=first_get_503) as store:
+        row = remote_run(np, cli, kernels, "segfile v5 7 one 503",
+                         ["-t", "scan", "--source", "segfile", "--segment-dir", store.url,
+                          *SKETCH_FLAGS, "--native", "on", "--backend", "gpu",
+                          "--ingest-workers", "7"],
+                         "counters_merge", reports["segfile v5"], alive_of, "remote-503")
+        if not served or not metric_total(row["telemetry"], "kta_segstore_retries_total"):
+            fail(f"remote: the scripted 503 was not served and retried ({served})")
+        out["remote segfile v5 7 workers, one 503"] = ("counters_merge", row["launches"])
+    print(f"remote: every report equals the local segment-file scan's; fetch "
+          f"scheduler width {fetchsched.get_scheduler().concurrency}")
     return out
 
 
@@ -1752,17 +2025,34 @@ def main() -> int:
                     *replay.fanin(fanin_groups(catalog, n), SCAN_BATCH))
             return replayed[n]
 
+        sweeps = {}
         for label, argv, kernel in (("segfile v5", cli_segments, "counters_merge"),
                                     ("segfile v4", cli_segments + v4, "counters_update")):
-            sweep = workers_sweep(np, cli, kernels, label, argv, kernel, SEGFILE_WORKERS,
-                                  reports[label], DEVICE_MS[label], alive_of=alive_of)
-            for n, row in sweep.items():
+            sweeps[label] = workers_sweep(np, cli, kernels, label, argv, kernel,
+                                          SEGFILE_WORKERS, reports[label],
+                                          DEVICE_MS[label], alive_of=alive_of)
+            for n, row in sweeps[label].items():
                 launches[kernel][f"segfile {n} workers"] = row["launches"]
                 rates[f"{label} {n} workers"] = row["rate"]
+        for label, argv, kernel in (("segfile v5", cli_segments, "counters_merge"),
+                                    ("segfile v4", cli_segments + v4, "counters_update")):
+            sweep = superbatch_runs(np, cli, kernels, label, argv, kernel,
+                                    SUPERBATCH_WORKERS, reports[label], sweeps[label],
+                                    alive_of=alive_of, json_doc=label == "segfile v5")
+            for n, row in sweep.items():
+                launches[kernel][f"segfile superbatch K=4, {n} workers"] = row["launches"]
+                rates[f"{label} superbatch K=4 {n} workers"] = row["rate"]
+        launches["counters_merge"]["segfile K=4 killed, resumed at K=1"] = snapshot_scan(
+            torch, np, cli, kernels, "segfile v5 superbatch", segments, "counters_merge",
+            reports["segfile v5"], total, superbatch="4", limit=SUPERBATCH_KILL_AFTER)
+        for path, (kernel, n) in phase_remote(np, cli, kernels, dump, reports,
+                                              alive_of).items():
+            launches[kernel][path] = n
     finally:
         shutil.rmtree(dump, ignore_errors=True)
         shutil.rmtree(TELEMETRY_ROOT, ignore_errors=True)
         shutil.rmtree(SNAPSHOT_ROOT, ignore_errors=True)
+        shutil.rmtree(CACHE_ROOT, ignore_errors=True)
     t0 = time.perf_counter()
     want = {order: host_alive_keys(np, FULL_SPEC, order == "partition")
             for order in ("interleaved", "partition")}
@@ -1825,6 +2115,13 @@ def main() -> int:
                         row["launches"]
                     rates[f"{label} {n} workers"] = row["rate"]
                     verdicts[f"{label} {n} workers"] = {"verdict": row["verdict"]}
+                if label == "kafka v5":
+                    k4 = superbatch_runs(np, cli, kernels, label, cli_kafka, kernel, ("7",),
+                                         kafka[label], sweep, want=want)
+                    for n, row in k4.items():
+                        launches[kernel][f"kafka {KAFKA_BROKERS} brokers, superbatch K=4, "
+                                         f"{n} workers"] = row["launches"]
+                        rates[f"{label} superbatch K=4 {n} workers"] = row["rate"]
         finally:
             shutil.rmtree(TELEMETRY_ROOT, ignore_errors=True)
     print(f"workers: every N-worker report equals its 1-worker scan's but for the "

@@ -2,9 +2,9 @@
 ``backends/base.py``).
 
 The reference bounds in-flight *superbatch* dispatches with its
-`DispatchQueue`; the port runs it at superbatch K = 1, one dispatch per
-packed row, with a CUDA event recorded behind each fold as the completion
-token.  Superbatch K > 1 is not ported yet.
+`DispatchQueue`; so does the port, with a CUDA event recorded behind each
+dispatch (one packed row at K = 1, K rows at ``--superbatch K``) as the
+completion token.
 """
 
 from __future__ import annotations
@@ -137,6 +137,9 @@ class MetricBackend(abc.ABC):
     #: Folds allowed in flight (``--dispatch-depth``); 1 where `update`
     #: finishes before it returns.
     dispatch_depth = 1
+    #: Batches folded per dispatch (``--superbatch``, resolved); above 1
+    #: the engine hands K staged batches to `update_superbatch`.
+    superbatch_k = 1
     #: Pack through the native shim (loaded), and whether ``--native``
     #: asked for it (loaded or not).
     use_native = False
@@ -162,6 +165,11 @@ class MetricBackend(abc.ABC):
         """Retire every in-flight dispatch without launching one (the
         engine's failure path, before its snapshot); nothing to do where
         `update` finishes before it returns."""
+
+    def update_superbatch(self, staged: list) -> None:
+        """Fold up to `superbatch_k` staged batches in one dispatch, in
+        list order; only a backend with ``superbatch_k`` > 1 has one."""
+        raise NotImplementedError(f"{type(self).__name__} has no superbatch")
 
     def prepare(self, batch: RecordBatch):
         """Stage a decoded batch for `update`, on the ingest side: the
@@ -209,14 +217,16 @@ def make_backend(
     config: AnalyzerConfig,
     device: "str | None" = None,
     use_native: bool = False,
-    dispatch_depth: int = 2,
     native_requested: "bool | None" = None,
+    dispatch=None,
 ) -> MetricBackend:
     """Factory for ``--backend {cpu,tpu,gpu}``: ``cpu`` is the numpy exact
     oracle, which never touches torch's device layer (``device`` is not
     read); ``gpu`` and its reference spelling ``tpu`` are the torch
     backend on ``device`` (CUDA unless the caller asks for the CPU), which
-    raises when CUDA is asked for and absent."""
+    raises when CUDA is asked for and absent.  ``dispatch`` (a
+    `config.DispatchConfig`) sizes the torch backend's superbatch and
+    in-flight bound; the oracle dispatches nothing."""
     if name == "cpu":
         from kafka_topic_analyzer_tpu_torch.backends.cpu import CpuExactBackend
 
@@ -226,7 +236,7 @@ def make_backend(
 
         return TorchBackend(
             config, device=device, use_native=use_native,
-            dispatch_depth=dispatch_depth, native_requested=native_requested,
+            native_requested=native_requested, dispatch=dispatch,
         )
     raise ValueError(
         f"unknown backend {name!r} (expected 'cpu', 'gpu' or 'tpu')"

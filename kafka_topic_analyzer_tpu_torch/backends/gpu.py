@@ -1,5 +1,5 @@
 """TorchBackend: the streaming reduction with its state resident on one
-device (port of the reference's ``TpuBackend`` at superbatch K=1).
+device (port of the reference's ``TpuBackend``, superbatch K >= 1).
 
 Per batch:
 - `prepare` packs the row (wire v5 or v4, per-row alive pairs inside it
@@ -17,6 +17,20 @@ Per batch:
   records a CUDA event behind the fold as its completion token in the
   launch-site `base.DispatchQueue` (``dispatch_depth`` folds in flight;
   the throttle's wait is the device's backpressure on the drive loop).
+
+At superbatch K > 1 (``--superbatch``) `update_superbatch` folds K staged
+rows per dispatch: one throttle, the K folds in list order
+(`step.superbatch_fold`: one counter-kernel launch per row), then, under
+alive compaction, ONE pair table — the last-writer-wins merge of the K
+rows' raw pairs, packed into a pinned `packing.SuperbatchStager` slot on
+the main thread and copied up once — and one CUDA event.  Staging is K =
+1's: every row still leaves its ingest stream's ring slot through its own
+asynchronous copy, so a pending superbatch holds device rows and host
+pair arrays, never a ring slot, and no slot can be rewritten while its
+row waits for the flush (the reference stacks K host rows into one
+transfer instead).  The pair table's capacity is the K-row one,
+``min(K·B, 2^bits)``, which also picks its form (masks or list) and
+whether the pair scatter needs its scratch.
 
 Nothing synchronizes until `finalize` (or a snapshot's `get_state`) but
 the two real waits — a ring slot whose copy is still in flight, and the
@@ -58,8 +72,9 @@ from kafka_topic_analyzer_tpu_torch.backends.finalize import metrics_from_state
 from kafka_topic_analyzer_tpu_torch.backends.step import (
     analyzer_step,
     apply_pair_table,
+    superbatch_fold,
 )
-from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
+from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig, DispatchConfig
 from kafka_topic_analyzer_tpu_torch.models.state import (
     AnalyzerState,
     copy_from_numpy_,
@@ -69,6 +84,7 @@ from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
 from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_scratch
 from kafka_topic_analyzer_tpu_torch.packing import (
     FusedPackSink,
+    SuperbatchStager,
     alive_table_mode,
     batch_alive_pairs,
     pack_batch,
@@ -120,14 +136,19 @@ class StagingRing:
 
 class StagedBatch:
     """A batch packed and on its way to the device: ``row`` is the packed
-    row, ``pairs`` the compacted pair table (None unless the config
-    compacts alive pairs), both device ``uint8`` tensors."""
+    row, ``pairs`` its compacted pair table (at K = 1 under compaction;
+    else None), both device ``uint8`` tensors.  ``raw_pairs`` are the
+    batch's (slot, alive) host arrays at K > 1 under compaction, which
+    the superbatch's table merges (owned by this batch: fresh arrays,
+    never views of a buffer the packer reuses); else None."""
 
-    __slots__ = ("row", "pairs")
+    __slots__ = ("row", "pairs", "raw_pairs")
 
-    def __init__(self, row: torch.Tensor, pairs: "torch.Tensor | None"):
+    def __init__(self, row: torch.Tensor, pairs: "torch.Tensor | None",
+                 raw_pairs=None):
         self.row = row
         self.pairs = pairs
+        self.raw_pairs = raw_pairs
 
 
 def _host_view(t: torch.Tensor, dtype) -> np.ndarray:
@@ -219,9 +240,11 @@ class TorchBackend(MetricBackend):
         device: "str | torch.device | None" = None,
         use_native: bool = False,
         prefetch_depth: int = 2,
-        dispatch_depth: int = 2,
         native_requested: "bool | None" = None,
+        dispatch: "DispatchConfig | None" = None,
     ):
+        """``dispatch`` sizes the superbatch and the in-flight bound
+        (``--superbatch``, ``--dispatch-depth``; default K = 1, depth 2)."""
         super().__init__(config)
         self.device = resolve_device(device)
         #: Pack through the native shim when it loads (``--native``).
@@ -240,7 +263,16 @@ class TorchBackend(MetricBackend):
         self_check_unpack(self.device)
         self.state = AnalyzerState.init(config, self.device)
         b = config.batch_size
-        self._pair_cap = pair_table_capacity(config, b) if config.compact_alive else 0
+        self.dispatch_config = dispatch if dispatch is not None else DispatchConfig()
+        #: Rows folded per dispatch (``--superbatch``, resolved).
+        self.superbatch_k = self.dispatch_config.resolve(b)
+        #: Superbatches allowed in flight (``--dispatch-depth``).
+        self.dispatch_depth = self.dispatch_config.depth
+        k = self.superbatch_k
+        # One dispatch's pair table covers K rows.
+        self._pair_cap = (
+            pair_table_capacity(config, b, k) if config.compact_alive else 0
+        )
         # Pair lists (per row, or a compacted table in its list form)
         # scatter through a persistent word accumulator.
         pair_lists = config.count_alive_keys and (
@@ -253,20 +285,31 @@ class TorchBackend(MetricBackend):
         )
         self._row_nbytes = packed_nbytes(config, b)
         # The pair table starts on a 16-byte boundary of the staging row.
+        # Only at K = 1 does a slot carry one (its own batch's); at K > 1
+        # the table spans the superbatch and the stager holds it.
         self._pair_off = -(-self._row_nbytes // 16) * 16
+        self._slot_pairs = config.compact_alive and k == 1
         self._nbytes = self._pair_off + (
-            pair_table_nbytes(config, self._pair_cap) if config.compact_alive else 0
+            pair_table_nbytes(config, self._pair_cap) if self._slot_pairs else 0
         )
         self._slots = ring_slots(prefetch_depth)
         #: Pinned bytes of one ingest stream's ring (each staging thread
         #: and each fused sink holds one).
         self.ring_nbytes = self._slots * self._nbytes
         self._thread_rings = threading.local()
-        #: Batches folded into the state (one dispatch each at K=1).
+        #: Rows folded into the state: one counter-kernel launch each, at
+        #: any K.
         self.dispatches = 0
-        #: Folds allowed in flight (``--dispatch-depth``).
-        self.dispatch_depth = dispatch_depth
-        self._queue = DispatchQueue(dispatch_depth)
+        self._queue = DispatchQueue(self.dispatch_depth)
+        self._stager = (
+            SuperbatchStager(
+                pair_table_nbytes(config, self._pair_cap)
+                if config.compact_alive else 0,
+                self.dispatch_depth,
+                pin=self.device.type == "cuda",
+            )
+            if k > 1 else None
+        )
 
     def _on_stream(self):
         """Make the backend's stream current on the calling thread."""
@@ -284,7 +327,7 @@ class TorchBackend(MetricBackend):
             ring = self._thread_rings.ring = self._new_ring()
         return ring
 
-    def _send(self, ring: StagingRing, slot: int) -> StagedBatch:
+    def _send(self, ring: StagingRing, slot: int, raw_pairs=None) -> StagedBatch:
         """Start the one asynchronous copy of a filled slot to the device,
         and record the event that frees the slot.  Ingest threads issue it
         on the backend's stream: the copy is enqueued before its item is
@@ -300,22 +343,25 @@ class TorchBackend(MetricBackend):
                 ring.events[slot] = event
         return StagedBatch(
             dev[: self._row_nbytes],
-            dev[self._pair_off :] if self.config.compact_alive else None,
+            dev[self._pair_off :] if self._slot_pairs else None,
+            raw_pairs,
         )
 
-    def _pack_pairs(self, pairs, view: np.ndarray) -> None:
-        """Pack one dispatch's compacted pair table into a slot's pair
-        region (``view``), booking the raw→emitted compaction split."""
+    def _pack_pairs(self, pair_lists, out: np.ndarray) -> None:
+        """Merge and pack one dispatch's compacted pair table into ``out``
+        (a slot's pair region at K = 1, a stager buffer at K > 1),
+        booking the raw→emitted compaction split."""
         _, raw, emitted = pack_pair_table(
-            [pairs], self.config, self._pair_cap, use_native=self.use_native,
-            out=view[self._pair_off :],
+            pair_lists, self.config, self._pair_cap, use_native=self.use_native,
+            out=out,
         )
         obs_metrics.ALIVE_PAIRS_RAW.inc(raw)
         obs_metrics.ALIVE_PAIRS_EMITTED.inc(emitted)
 
     def prepare(self, batch: RecordBatch) -> StagedBatch:
         """Pack a batch into the next slot of the calling thread's ring
-        and start its copy to the device."""
+        and start its copy to the device (with its pair table at K = 1,
+        its raw pairs kept on the host at K > 1)."""
         ring = self._thread_ring()
         slot = ring.claim()
         view = ring.views[slot]
@@ -323,11 +369,13 @@ class TorchBackend(MetricBackend):
             batch, self.config, use_native=self.use_native,
             out=view[: self._row_nbytes],
         )
+        pairs = None
         if self.config.compact_alive:
-            self._pack_pairs(
-                batch_alive_pairs(batch, self.config, self.use_native), view
-            )
-        return self._send(ring, slot)
+            pairs = batch_alive_pairs(batch, self.config, self.use_native)
+            if self._slot_pairs:
+                self._pack_pairs([pairs], view[self._pair_off :])
+                pairs = None
+        return self._send(ring, slot, pairs)
 
     def make_fused_sink(self, dense_of) -> FusedPackSink:
         """A sink whose rows are packed straight into the slots of a ring
@@ -341,9 +389,10 @@ class TorchBackend(MetricBackend):
 
         def stage(row: np.ndarray, pairs=None) -> StagedBatch:
             slot = ptrs.index(row.ctypes.data)
-            if self.config.compact_alive:
-                self._pack_pairs(pairs, ring.views[slot])
-            return self._send(ring, slot)
+            if self._slot_pairs:
+                self._pack_pairs([pairs], ring.views[slot][self._pair_off :])
+                pairs = None
+            return self._send(ring, slot, pairs)
 
         return FusedPackSink(
             self.config, self.config.batch_size, dense_of,
@@ -363,7 +412,11 @@ class TorchBackend(MetricBackend):
     def update(self, batch: "RecordBatch | StagedBatch") -> None:
         """Fold one batch (packed here if it was not prepared) into the
         state, once fewer than ``dispatch_depth`` folds are in flight.
-        Asynchronous on CUDA."""
+        Asynchronous on CUDA.  At K > 1 the batch is a superbatch of
+        one."""
+        if self.superbatch_k > 1:
+            self.update_superbatch([batch])
+            return
         if isinstance(batch, RecordBatch):
             batch = self.prepare(batch)
         obs_metrics.WIRE_BYTES.inc(int(batch.row.numel()))
@@ -385,6 +438,54 @@ class TorchBackend(MetricBackend):
             token = self._completion_token()
         self._queue.launched(token, 1)
         self.dispatches += 1
+
+    def update_superbatch(
+        self, staged: "list[StagedBatch | RecordBatch]"
+    ) -> None:
+        """Fold up to K batches in one dispatch, in list order (the state
+        K sequential `update` calls would leave).  Blocks in the dispatch
+        queue's throttle while ``dispatch_depth`` superbatches are in
+        flight, before anything is staged; then folds every row, applies
+        the superbatch's merged pair table once, records one CUDA event
+        and books the dispatch with ``len(staged)`` batches.  Only the
+        rows given are folded: the reference pads a partial tail with
+        empty rows so that one compiled step serves every length, which
+        the port does not need (so ``kta_wire_bytes_total`` books no
+        padding)."""
+        k = self.superbatch_k
+        if not staged or len(staged) > k:
+            raise ValueError(f"superbatch of {len(staged)} batches (K={k})")
+        self._queue.throttle()  # before staging: bounds the stager's ring
+        slot = self._stager.next_slot()
+        items = [
+            self.prepare(b) if isinstance(b, RecordBatch) else b for b in staged
+        ]
+        for item in items:
+            obs_metrics.WIRE_BYTES.inc(int(item.row.numel()))
+        with self._on_stream():
+            pairs = None
+            if self.config.compact_alive:
+                self._pack_pairs(
+                    [item.raw_pairs for item in items
+                     if item.raw_pairs is not None],
+                    self._stager.views[slot],
+                )
+                host = self._stager.hosts[slot]
+                dev = torch.empty(host.numel(), dtype=torch.uint8,
+                                  device=self.device)
+                dev.copy_(host, non_blocking=True)
+                obs_metrics.WIRE_BYTES.inc(int(dev.numel()))
+                if self.stream is not None:
+                    self._stager.record(slot, self._completion_token())
+                pairs = unpack_pair_table_device(dev, self.config, self._pair_cap)
+            superbatch_fold(
+                self.state, [item.row for item in items],
+                lambda row: unpack_device(row, self.config), self.config,
+                pairs=pairs, scratch=self._scratch,
+            )
+            token = self._completion_token()
+        self._queue.launched(token, len(items))
+        self.dispatches += len(items)
 
     snapshots = True
 

@@ -1,6 +1,7 @@
 """The analyzer step: fold one batch and its pair table into the state
 (port of the reference's ``analyzer_step``, ``_analyzer_step_v5``,
-``_apply_alive`` and ``apply_pair_table``, without the mesh branches).
+``_apply_alive``, ``apply_pair_table`` and ``superbatch_fold``, without
+the mesh branches).
 
 Under wire v5 every fold is an elementwise table merge — integer adds for
 the counters and DDSketch buckets, min/max for the extremes, max for HLL
@@ -60,6 +61,34 @@ def apply_pair_table(
             bits=config.alive_bitmap_bits,
             scratch=scratch,
         )
+    return state
+
+
+def superbatch_fold(
+    state: AnalyzerState,
+    rows,
+    unpack,
+    config: AnalyzerConfig,
+    pairs: "dict | None" = None,
+    scratch: "torch.Tensor | None" = None,
+) -> AnalyzerState:
+    """Fold a superbatch — K packed device rows — into the state, in
+    list order, then apply its merged pair table once.
+
+    The reference folds the stacked rows with one ``lax.scan`` inside
+    one jitted dispatch; here the K folds are enqueued one after the
+    other on the caller's stream, each `analyzer_step` on
+    ``unpack(rows[k])``, k = 0..K-1 — the order the one-row-per-dispatch
+    path folds them, so every fold (the order-sensitive alive bitmap
+    included) ends in the same state.  ``pairs`` (the compacted alive
+    path, `packing.unpack_pair_table_device`) is the host's
+    last-writer-wins merge of the K rows' pairs in fold order, applied
+    after the last row: the same bitmap the per-row applies would
+    leave, since every other fold is order-free."""
+    for row in rows:
+        analyzer_step(state, unpack(row), config, scratch=scratch)
+    if pairs is not None:
+        apply_pair_table(state, pairs, config, scratch=scratch)
     return state
 
 

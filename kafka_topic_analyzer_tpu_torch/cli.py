@@ -5,24 +5,30 @@ single-scan paths).
     python -m kafka_topic_analyzer_tpu_torch -t T \\
         ([--source kafka] -b HOST:PORT [--librdkafka K=V,...] \\
          | --source synthetic --synthetic SPEC \\
-         | --source segfile --segment-dir DIR) \\
+         | --source segfile --segment-dir DIR|URL \\
+           [--segment-readahead N|auto] [--fetch-concurrency N|auto] \\
+           [--segment-cache DIR [--segment-cache-bytes B]]) \\
         [-c] [--distinct-keys] [--distinct-keys-per-partition] \\
         [--quantiles] [--quantiles-per-partition] [--extremes-table] \\
         [--pallas] [--batch-size B] [--alive-bitmap-bits N] \\
         [--wire-format auto|v4|v5] [--alive-compaction auto|off] \\
         [--native auto|on|off] [--backend gpu|tpu|cpu] [--device cuda|cpu] \\
-        [--dispatch-depth D] [--ingest-workers N|auto] \\
+        [--superbatch K|auto] [--dispatch-depth D] [--ingest-workers N|auto] \\
         [--snapshot-dir DIR [--snapshot-every S] [--resume]] [--check-crcs] \\
         [--on-corruption fail|skip|quarantine] [--quarantine-dir DIR] \\
         [--on-data-loss fail|report|ignore] \\
         [--from-timestamp ISO8601|EPOCH_MS] [--dump-segments DIR] \\
-        [--quiet] [--stats] [--profile-dir DIR] [--metrics-port PORT] \\
+        [--quiet] [--json] [--stats] [--profile-dir DIR] [--metrics-port PORT] \\
         [--events-jsonl FILE] [--trace-json FILE] [--flight-record]
 
 Prints the same report bytes as the reference CLI for the same inputs
 (apart from the two timing lines), with the reference's DEGRADED, CORRUPT
-and DATA-LOSS blocks after it.  ``--source kafka`` (the default) reads the
-topic over the Kafka wire protocol.
+and DATA-LOSS blocks after it; ``--json`` prints the reference's JSON
+document instead (banners on stderr).  ``--source kafka`` (the default)
+reads the topic over the Kafka wire protocol; ``--source segfile`` reads
+``.ktaseg`` dumps from a local directory or, through the remote segment
+tier, from an S3-shaped object store (``http(s)://host[:port]/bucket
+[/prefix]`` or ``s3://bucket[/prefix]``).
 
 ``--backend`` takes the reference's names: ``cpu`` is the numpy exact
 oracle (`backends.cpu.CpuExactBackend`, which touches no device), and
@@ -46,7 +52,9 @@ paths).  ``--ingest-workers`` shards the partitions over N ingest
 threads merged in a fixed round-robin order; ``--snapshot-dir`` saves
 resumable snapshots (every ``--snapshot-every`` seconds, on a failure or
 an interrupt, and when the scan degraded or skipped records) that
-``--resume`` continues from, in this CLI or the reference's.  Exit
+``--resume`` continues from, in this CLI or the reference's.
+``--superbatch K`` folds K rows per device dispatch (the torch backend
+only).  Exit
 status: 254 for an empty topic (the reference's ``exit(-2)``), 1 for an
 error, 3 when partitions degraded, 4 when corrupt frames were skipped, 5
 when ``--on-data-loss fail`` aborted the scan (after its checkpoint, with
@@ -56,6 +64,8 @@ when ``--on-data-loss fail`` aborted the scan (after its checkpoint, with
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import sys
 from typing import Dict, Optional
 
@@ -65,7 +75,10 @@ from kafka_topic_analyzer_tpu_torch.config import (
     AnalyzerConfig,
     CorruptionConfig,
     DataLossConfig,
+    DispatchConfig,
     IngestConfig,
+    SegmentFetchConfig,
+    TransportRetryConfig,
 )
 from kafka_topic_analyzer_tpu_torch.engine import ScanResult, run_scan
 from kafka_topic_analyzer_tpu_torch.io import native
@@ -80,6 +93,8 @@ from kafka_topic_analyzer_tpu_torch.io.source import RecordSource
 from kafka_topic_analyzer_tpu_torch.io.synthetic import SyntheticSource, SyntheticSpec
 from kafka_topic_analyzer_tpu_torch.obs import telemetry_session
 from kafka_topic_analyzer_tpu_torch.report import (
+    attach_issue_blocks,
+    build_json_doc,
     render_bottleneck,
     render_corrupt_block,
     render_data_loss_block,
@@ -151,10 +166,40 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Synthetic workload spec, comma separated k=v: "
                         "partitions,messages,keys,key_null,tombstones,vmin,"
                         "vmax,seed")
-    p.add_argument("--segment-dir", metavar="DIR",
-                   help="Local directory (or file://DIR) of .ktaseg dumps "
-                        "(--source segfile); remote stores are not yet "
-                        "ported")
+    p.add_argument("--segment-dir", metavar="DIR|URL",
+                   help="Segment store of .ktaseg dumps (--source segfile): "
+                        "a local directory (or file://DIR), or a remote "
+                        "object store — http(s)://host[:port]/bucket"
+                        "[/prefix] for any S3-compatible endpoint "
+                        "(path-style), s3://bucket[/prefix] through "
+                        "KTA_S3_ENDPOINT. Composes with --ingest-workers, "
+                        "--superbatch, --segment-readahead and "
+                        "--segment-cache")
+    p.add_argument("--segment-readahead", default="auto", metavar="N|auto",
+                   help="Remote chunks kept in flight ahead of each ingest "
+                        "stream (the per-stream window over the shared "
+                        "fetch scheduler). 'auto' = 4 for remote stores, "
+                        "0 (demand-only) for local directories. Results "
+                        "are byte-identical at any depth. Default: auto")
+    p.add_argument("--fetch-concurrency", default="auto", metavar="N|auto",
+                   help="Worker count of the ONE process-wide fetch "
+                        "scheduler every remote segment byte is admitted "
+                        "through. Demand requests outrank speculative "
+                        "read-ahead; streams share the pool fairly. 'auto' "
+                        "sizes from the host and grows with the resolved "
+                        "stream count. Default: auto")
+    p.add_argument("--segment-cache", metavar="DIR",
+                   help="Local chunk cache for remote segment stores: "
+                        "fetched chunks land here (atomic rename-in, "
+                        "sha256 sidecar), are sha256-verified at first "
+                        "touch each process (then latched as trusted and "
+                        "served as zero-copy mmap views); a flipped byte "
+                        "is detected, booked and re-fetched, never served")
+    p.add_argument("--segment-cache-bytes", type=int, default=1 << 30,
+                   metavar="BYTES",
+                   help="Size bound of --segment-cache: inserts evict "
+                        "least-recently-used entries past it. "
+                        "Default: 1 GiB")
     p.add_argument("--batch-size", type=int, default=1 << 18,
                    help="Records per device step")
     p.add_argument("--alive-bitmap-bits", type=int, default=32,
@@ -169,10 +214,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantiles-per-partition", action="store_true",
                    help="Track one size-quantile sketch per partition "
                         "(implies --quantiles)")
+    p.add_argument("--superbatch", default="1", metavar="K|auto",
+                   help="Superbatch dispatch: fold K packed rows per "
+                        "device dispatch (one throttle, one completion "
+                        "event and, under alive compaction, one merged "
+                        "pair table per K rows) with byte-identical "
+                        "results. 'auto' targets 2^20 records per "
+                        "dispatch (min 1, max 16), capped at 2^18 records "
+                        "per dispatch; an explicit K is never capped. "
+                        "Default: 1. Requires --backend gpu or tpu")
     p.add_argument("--dispatch-depth", type=int, default=2, metavar="D",
-                   help="Folds allowed in flight while the device works; "
-                        "the drive loop blocks (backpressuring ingest) "
-                        "beyond it. Default: 2")
+                   help="Superbatches allowed in flight while the device "
+                        "folds; the drive loop blocks (backpressuring "
+                        "ingest) beyond it. Default: 2")
     p.add_argument("--ingest-workers", default="1", metavar="N|auto",
                    help="Parallel partition-sharded ingest for one scan: "
                         "shard the partition set over N private "
@@ -244,6 +298,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "'report' (default) finishes with exit 0 and a "
                         "DATA-LOSS block naming every lost range, 'ignore' "
                         "finishes with exit 0 and no block")
+    p.add_argument("--json", action="store_true",
+                   help="Emit the report as JSON on stdout instead of the "
+                        "terminal tables")
     p.add_argument("--extremes-table", action="store_true",
                    help="Also print a per-partition first/last-timestamp and "
                         "min/max-size table")
@@ -343,6 +400,11 @@ def make_source(args, use_native: bool) -> RecordSource:
             "--on-corruption/--quarantine-dir require --source kafka "
             "(only the wire scan can classify and re-fetch frames)"
         )
+    if args.source != "segfile" and args.segment_cache:
+        raise ValueError(
+            "--segment-cache requires --source segfile (it caches chunks "
+            "fetched from a remote segment store)"
+        )
     if args.source == "segfile":
         if not args.segment_dir:
             raise SystemExit(
@@ -350,7 +412,21 @@ def make_source(args, use_native: bool) -> RecordSource:
                 "directory of .ktaseg dumps, or a remote store spec like "
                 "http(s)://host:port/bucket or s3://bucket/prefix)"
             )
-        return SegmentFileSource(args.segment_dir, topic=args.topic)
+        fetch = SegmentFetchConfig.parse(
+            readahead=args.segment_readahead,
+            cache_dir=args.segment_cache,
+            cache_max_bytes=args.segment_cache_bytes,
+            fetch_concurrency=args.fetch_concurrency,
+        )
+        # The remote tier runs the wire scan's retry substrate, so the
+        # same --librdkafka knobs tune it (retry.backoff.ms,
+        # reconnect.backoff.max.ms, transport.retry.budget).
+        retry_overrides = parse_kv_pairs(args.librdkafka)
+        if retry_overrides:
+            fetch = dataclasses.replace(
+                fetch, retry=TransportRetryConfig.from_overrides(retry_overrides)
+            )
+        return SegmentFileSource(args.segment_dir, topic=args.topic, fetch=fetch)
     if args.source == "synthetic":
         spec = SyntheticSpec.from_kv(parse_kv_pairs(args.synthetic))
         if use_native:
@@ -402,6 +478,22 @@ def resolve_ingest_workers(args, num_partitions: int) -> int:
     return IngestConfig.parse(args.ingest_workers).resolve(num_partitions)
 
 
+def resolve_dispatch(args) -> "DispatchConfig | None":
+    """--superbatch/--dispatch-depth → the torch backend's
+    `config.DispatchConfig`, or None for the numpy oracle, which has no
+    device dispatch to amortize: an explicit K > 1 there is refused (the
+    reference's message), ``auto`` resolves to no superbatching."""
+    cfg = DispatchConfig.parse(args.superbatch, args.dispatch_depth)
+    if args.backend == "cpu":
+        if cfg.superbatch != "auto" and int(cfg.superbatch) > 1:
+            raise ValueError(
+                "--superbatch requires --backend tpu (the cpu oracle has "
+                "no device dispatch to amortize)"
+            )
+        return None
+    return cfg
+
+
 def setup(args) -> "tuple[RecordSource, AnalyzerConfig, bool]":
     """Source, config and the resolved ``--native`` from parsed flags;
     raises ValueError on a bad flag value."""
@@ -442,39 +534,47 @@ def resolve_start_offsets(source, from_ts_ms, label):
     return start_at, False
 
 
-def scan_issue_exit(result: ScanResult, data_loss_policy: str) -> int:
-    """Print the warning blocks of what the scan booked (data loss, unless
-    ignored; corrupt frames; degraded partitions) after the report, and
-    pick the exit status: degraded wins over corrupt."""
+def scan_issue_exit(result: ScanResult, doc: "dict | None" = None,
+                    render: bool = False,
+                    data_loss_policy: str = "report") -> int:
+    """Surface what the scan booked — into ``doc`` as the str-keyed
+    ``corrupt_partitions``/``degraded_partitions``/``data_loss`` maps
+    (``--json``) and/or, with ``render``, as the warning blocks after the
+    report (data loss unless ignored, corrupt frames, degraded
+    partitions) — and pick the exit status: degraded wins over
+    corrupt."""
     rc = 0
-    if result.lost_partitions and data_loss_policy != "ignore":
+    if doc is not None:
+        attach_issue_blocks(doc, result)
+    if result.lost_partitions and render and data_loss_policy != "ignore":
         sys.stdout.write(render_data_loss_block(result.lost_partitions))
     if result.corrupt_partitions:
-        sys.stdout.write(render_corrupt_block(result.corrupt_partitions))
+        if render:
+            sys.stdout.write(render_corrupt_block(result.corrupt_partitions))
         rc = EXIT_CORRUPT
     if result.degraded_partitions:
-        sys.stdout.write(render_degraded_block(result.degraded_partitions))
+        if render:
+            sys.stdout.write(render_degraded_block(result.degraded_partitions))
         rc = EXIT_DEGRADED
     return rc
 
 
-def print_stats(result: ScanResult) -> None:
+def print_stats(result: ScanResult, diagnosis) -> None:
     """``--stats`` stderr digest: the stage timings and the telemetry
     counters from the scan's registry snapshot, then the scan doctor's
-    BOTTLENECK verdict from the same snapshot (plus the flight recorder's
-    series when one runs)."""
-    from kafka_topic_analyzer_tpu_torch.obs.doctor import diagnose_scan
-
+    BOTTLENECK verdict (``diagnosis``, from the same snapshot plus the
+    flight recorder's series when one runs)."""
     sys.stderr.write(render_stage_stats(result.telemetry))
     sys.stderr.write(
         render_telemetry_stats(
             result.telemetry,
             ingest_workers=result.ingest_workers,
+            superbatch_k=result.superbatch_k,
             dispatch_depth=result.dispatch_depth,
             wire=result.wire,
         )
     )
-    sys.stderr.write(render_bottleneck(diagnose_scan(result)))
+    sys.stderr.write(render_bottleneck(diagnosis))
 
 
 def run(args) -> "tuple[int, ScanResult | None]":
@@ -485,6 +585,7 @@ def run(args) -> "tuple[int, ScanResult | None]":
     try:
         try:
             from_ts_ms = parse_from_timestamp_flag(args)
+            dispatch = resolve_dispatch(args)
             source, config, use_native = setup(args)
             ingest_workers = resolve_ingest_workers(args, config.num_partitions)
             start_at, exhausted = resolve_start_offsets(
@@ -503,11 +604,11 @@ def run(args) -> "tuple[int, ScanResult | None]":
             return EXIT_EMPTY_TOPIC, None
         backend = make_backend(
             args.backend, config, device=args.device, use_native=use_native,
-            dispatch_depth=args.dispatch_depth,
-            native_requested=args.native != "off",
+            native_requested=args.native != "off", dispatch=dispatch,
         )
-        print(f"Subscribing to {args.topic}")
-        print("Starting message consumption...")
+        banner_out = sys.stderr if args.json else sys.stdout
+        print(f"Subscribing to {args.topic}", file=banner_out)
+        print("Starting message consumption...", file=banner_out)
         with maybe_torch_trace(args.profile_dir, backend.device):
             result = run_scan(
                 args.topic, source, backend, args.batch_size,
@@ -517,8 +618,15 @@ def run(args) -> "tuple[int, ScanResult | None]":
                 resume=args.resume,
                 ingest_workers=ingest_workers,
             )
+        # Only the --stats digest and the --json flight block read the
+        # doctor's diagnosis; the plain report skips the pass.
+        diagnosis = None
+        if args.stats or args.json:
+            from kafka_topic_analyzer_tpu_torch.obs.doctor import diagnose_scan
+
+            diagnosis = diagnose_scan(result)
         if args.stats:
-            print_stats(result)
+            print_stats(result, diagnosis)
     except DataLossError as e:
         # --on-data-loss fail: the loss is booked and, with
         # --snapshot-dir, the engine wrote a fold-consistent checkpoint
@@ -534,6 +642,14 @@ def run(args) -> "tuple[int, ScanResult | None]":
     finally:
         if source is not None and hasattr(source, "close"):
             source.close()  # flush segment dumps, release broker connections
+    if args.json:
+        # The reference adds a ``health`` block under --metrics-port (its
+        # alert engine); the port has no health layer yet, so the
+        # document has no such key.
+        doc = build_json_doc(args.topic, result, diagnosis=diagnosis)
+        rc = scan_issue_exit(result, doc=doc)
+        print(json.dumps(doc))
+        return rc, result
     sys.stdout.write(
         render_report(
             args.topic,
@@ -546,7 +662,9 @@ def run(args) -> "tuple[int, ScanResult | None]":
     )
     if args.extremes_table:
         sys.stdout.write(render_extremes_table(result.metrics))
-    return scan_issue_exit(result, args.on_data_loss), result
+    return scan_issue_exit(
+        result, render=True, data_loss_policy=args.on_data_loss
+    ), result
 
 
 def main(argv: "list[str] | None" = None) -> int:

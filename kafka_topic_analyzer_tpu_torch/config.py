@@ -1,8 +1,10 @@
 """Static configuration of one analysis run (port of the reference's
 ``AnalyzerConfig``), the Kafka wire scan's three transport policies
 (``TransportRetryConfig``, ``CorruptionConfig``, ``DataLossConfig``) and
-the parallel-ingest sizing (``IngestConfig``), the reference's, with the
-same validation and error text.
+the parallel-ingest sizing (``IngestConfig``), the superbatch dispatch
+sizing (``DispatchConfig``) and the remote segment tier's knobs
+(``SegmentFetchConfig``), the reference's, with the same validation and
+error text.
 
 Same fields, defaults and validation as the reference, restricted to what
 the port runs: wire format 4 or 5, alive-pair compaction auto or off, one
@@ -132,6 +134,204 @@ class IngestConfig:
             want = int(self.workers)
         return max(1, min(want, num_partitions))
 
+
+
+@dataclasses.dataclass(frozen=True)
+class DispatchConfig:
+    """Superbatch device-dispatch sizing (``--superbatch``/``--dispatch-depth``).
+
+    Like `IngestConfig`, deliberately NOT part of `AnalyzerConfig`: how many
+    packed batches ride one dispatch (and how many superbatches may
+    be in flight) changes neither state shapes nor fold semantics — the
+    superbatch fold applies the K batches in exactly the order the
+    sequential path would (backends/step.py::superbatch_fold), so results
+    stay byte-identical and it must not churn the checkpoint fingerprint.
+    A snapshot taken by a K-superbatch scan resumes under any other K or D
+    (snapshots land only at superbatch boundaries — engine.py).
+    """
+
+    #: Packed batches folded per dispatch: one throttle, one completion
+    #: event and, under alive compaction, one merged pair table for K
+    #: rows.  ``1`` = the one-dispatch-per-batch path;
+    #: ``"auto"`` targets 2^20 records per dispatch:
+    #: max(1, min(16, 2^20 // batch_size)), capped below.
+    superbatch: "int | str" = 1
+    #: Bound on superbatches staged/transferring while the device folds
+    #: (the in-flight dispatch queue, backends/base.py::DispatchQueue).
+    #: 2 = transfer of superbatch i+1 overlaps the fold of i; higher
+    #: values deepen the pipeline at the cost of host+device memory for
+    #: the extra staged buffers.
+    depth: int = 2
+    #: Guardrail on ``auto``'s fold size: at most this many records per
+    #: dispatch, the reference's cap (its measurements on its own rigs
+    #: found that one long synchronous fold starves the ingest overlap).
+    #: At the default batch of 2^18 ``auto`` therefore resolves to K = 1.
+    #: Explicit K is never capped: an operator who asks for 16 gets 16.
+    auto_fold_cap_records: int = 1 << 18
+
+    def __post_init__(self) -> None:
+        if isinstance(self.superbatch, str):
+            if self.superbatch != "auto":
+                raise ValueError(
+                    f"superbatch {self.superbatch!r} invalid "
+                    "(a positive integer, or 'auto')"
+                )
+        elif self.superbatch < 1:
+            raise ValueError("superbatch must be >= 1")
+        if self.depth < 1:
+            raise ValueError("dispatch depth must be >= 1")
+        if self.auto_fold_cap_records < 1:
+            raise ValueError("auto fold cap must be >= 1 record")
+
+    @classmethod
+    def parse(cls, superbatch: str, depth: int = 2) -> "DispatchConfig":
+        """CLI spelling: ``--superbatch K|auto`` + ``--dispatch-depth D``."""
+        text = superbatch.strip().lower()
+        if text == "auto":
+            return cls(superbatch="auto", depth=depth)
+        try:
+            k = int(text)
+        except ValueError:
+            raise ValueError(
+                f"bad --superbatch {superbatch!r}: expected a positive "
+                "integer or 'auto'"
+            ) from None
+        return cls(superbatch=k, depth=depth)
+
+    def resolve(self, batch_size: int) -> int:
+        """Concrete K for a given batch size.  ``auto`` targets 2^20
+        records per dispatch, capped at 16 rows and at
+        ``auto_fold_cap_records`` records per dispatch (the reference's
+        rule, carried over exactly)."""
+        if self.superbatch == "auto":
+            k = max(1, min(16, (1 << 20) // max(1, batch_size)))
+            fold_cap = max(1, self.auto_fold_cap_records // max(1, batch_size))
+            return min(k, fold_cap)
+        return int(self.superbatch)
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentFetchConfig:
+    """Remote-segment-tier knobs (``--segment-readahead``/``--segment-cache``;
+    io/objstore.py + io/segstore.py, DESIGN.md §21).
+
+    Like `IngestConfig`, deliberately NOT part of `AnalyzerConfig`: how a
+    chunk's bytes ARRIVE (read ahead over the network, served from a local
+    cache, or memory-mapped) changes neither state shapes nor fold
+    semantics — a remote scan is byte-identical to the local-directory
+    scan of the same chunks — so none of it may churn the checkpoint
+    fingerprint.  A snapshot taken against one store resumes against any
+    other store holding the same segments (cross-store resume).
+    """
+
+    #: Chunks kept in flight ahead of each consuming ingest stream (the
+    #: per-stream WINDOW; the process-wide fetch scheduler in
+    #: io/fetchsched.py supplies the workers).  In-flight chunk memory
+    #: stays bounded by streams × (readahead + 1) chunks.  ``"auto"``
+    #: resolves per store: 0 for local directories (the memmap faults
+    #: pages in for free) and 4 for remote stores (enough speculation in
+    #: flight to hide tens of ms of per-GET latency behind the fused
+    #: decode→pack pass).  0 disables speculation: every chunk is a
+    #: demand fetch at first touch — still admitted through the
+    #: scheduler.
+    readahead: "int | str" = "auto"
+    #: Worker count of the ONE process-wide fetch scheduler
+    #: (``--fetch-concurrency N|auto``) — the single admission point for
+    #: every remote byte.  Sized once per process, NOT per stream: total
+    #: connection count no longer multiplies with ingest workers.
+    #: ``"auto"`` sizes from the host (min(16, max(4, cpu_count))) and
+    #: grows with the resolved ingest-stream count; an explicit N pins it.
+    fetch_concurrency: "int | str" = "auto"
+    #: Local chunk-cache directory (``--segment-cache``); None disables.
+    #: Remote stores only — caching a local directory would just copy it.
+    cache_dir: "str | None" = None
+    #: Cache size bound in bytes (``--segment-cache-bytes``): inserts
+    #: evict least-recently-used entries past it.
+    cache_max_bytes: int = 1 << 30
+    #: Per-request socket timeout (connect and read) in seconds.  A stall
+    #: past it is a transient transport failure: backoff, retry, budget.
+    timeout_s: float = 30.0
+    #: Transport retry pacing + per-partition budget — the SAME recovery
+    #: substrate the live wire scan runs (io/retry.py): a partition whose
+    #: chunks stay unreachable past the budget is degraded, not fatal.
+    retry: TransportRetryConfig = dataclasses.field(
+        default_factory=TransportRetryConfig
+    )
+
+    def __post_init__(self) -> None:
+        if isinstance(self.readahead, str):
+            if self.readahead != "auto":
+                raise ValueError(
+                    f"segment readahead {self.readahead!r} invalid "
+                    "(an integer >= 0, or 'auto')"
+                )
+        elif self.readahead < 0:
+            raise ValueError("segment readahead must be >= 0")
+        if isinstance(self.fetch_concurrency, str):
+            if self.fetch_concurrency != "auto":
+                raise ValueError(
+                    f"fetch concurrency {self.fetch_concurrency!r} invalid "
+                    "(an integer >= 1, or 'auto')"
+                )
+        elif self.fetch_concurrency < 1:
+            raise ValueError("fetch concurrency must be >= 1")
+        if self.cache_max_bytes < 1:
+            raise ValueError("--segment-cache-bytes must be >= 1")
+        if self.timeout_s <= 0:
+            raise ValueError("segment fetch timeout must be > 0 seconds")
+
+    @classmethod
+    def parse(
+        cls,
+        readahead: str = "auto",
+        cache_dir: "str | None" = None,
+        cache_max_bytes: int = 1 << 30,
+        fetch_concurrency: str = "auto",
+    ) -> "SegmentFetchConfig":
+        """CLI spelling: ``--segment-readahead N|auto``,
+        ``--fetch-concurrency N|auto``, + cache flags."""
+        text = str(readahead).strip().lower()
+        if text == "auto":
+            ra: "int | str" = "auto"
+        else:
+            try:
+                ra = int(text)
+            except ValueError:
+                raise ValueError(
+                    f"bad --segment-readahead {readahead!r}: expected an "
+                    "integer >= 0 or 'auto'"
+                ) from None
+        fc_text = str(fetch_concurrency).strip().lower()
+        if fc_text == "auto":
+            fc: "int | str" = "auto"
+        else:
+            try:
+                fc = int(fc_text)
+            except ValueError:
+                raise ValueError(
+                    f"bad --fetch-concurrency {fetch_concurrency!r}: "
+                    "expected an integer >= 1 or 'auto'"
+                ) from None
+        return cls(
+            readahead=ra, cache_dir=cache_dir, cache_max_bytes=cache_max_bytes,
+            fetch_concurrency=fc,
+        )
+
+    def resolve_readahead(self, remote: bool) -> int:
+        """Concrete per-stream read-ahead depth: ``auto`` = 4 for remote
+        stores (hide per-GET wire latency behind the running decode→pack
+        pass), 0 for local directories (nothing to hide — page faults)."""
+        if self.readahead == "auto":
+            return 4 if remote else 0
+        return int(self.readahead)
+
+    def resolve_concurrency(self) -> "int | None":
+        """Concrete scheduler pool size, or None for ``auto`` (the
+        scheduler sizes itself from the host and the engine's resolved
+        ingest-stream count — io/fetchsched.py)."""
+        if self.fetch_concurrency == "auto":
+            return None
+        return int(self.fetch_concurrency)
 
 #: Valid --on-corruption policies, in escalation order.
 CORRUPTION_POLICIES = ("fail", "skip", "quarantine")

@@ -1,5 +1,5 @@
 """The scan drive loop (port of the reference's ``engine.run_scan``, its
-single-device path at superbatch K = 1).
+single-device path).
 
 One full earliest→latest pass: fix the watermarks, stream every batch
 through the backend in per-partition offset order, finalize once.
@@ -20,6 +20,14 @@ to where the batches are cut, and the same report.  The numpy oracle
 (`backends.cpu.CpuExactBackend`) packs no rows (`MetricBackend.packs_rows`):
 its ``prepare`` is the identity and it folds the decoded batches on the
 main thread.
+
+With a backend whose ``superbatch_k`` is K > 1 (``--superbatch``) the
+loop accumulates K staged items and hands them to
+``backend.update_superbatch`` in one dispatch (`make_superbatch`).  The
+fold order is unchanged, and so is the result.  Progress commits, and
+so snapshots, happen only at superbatch boundaries; on a failure the
+pending tail is flushed first, so the failure snapshot still covers
+every batch the loop observed.
 
 Every wall second of the loop is booked in one `utils.profiling.
 ScanProfile` stage: ``ingest`` (waiting on the prefetch queue or the
@@ -134,6 +142,9 @@ class ScanResult:
     telemetry: "Optional[dict]" = None
     #: Ingest streams the scan ran (``--ingest-workers``, resolved).
     ingest_workers: int = 1
+    #: Batches folded per dispatch (``--superbatch``, resolved; 1 for the
+    #: oracle).
+    superbatch_k: int = 1
     #: Bound on in-flight dispatches (``--dispatch-depth``; 1 for the
     #: oracle, which dispatches nothing).
     dispatch_depth: int = 1
@@ -181,10 +192,16 @@ class _ProgressTracker:
 
 
 def _note_fetch_streams(source: RecordSource, workers: int) -> None:
-    """Tell the fetch scheduler of the remote segment tier how many
-    ingest streams the scan resolved.  The port has no remote tier yet,
-    so there is no scheduler to tell: a no-op kept at the reference's
-    call site."""
+    """Tell the process-wide fetch scheduler how many ingest streams this
+    scan just resolved: under ``--fetch-concurrency auto`` the shared
+    pool grows so every stream can keep a demand fetch plus some
+    speculation in flight (an explicit size is never overridden).  Only
+    remote segment sources feed the scheduler; for every other source
+    this is a no-op."""
+    if bool(getattr(getattr(source, "store", None), "is_remote", False)):
+        from kafka_topic_analyzer_tpu_torch.io import fetchsched
+
+        fetchsched.note_streams(workers)
 
 
 def _accepts_sink(source: RecordSource) -> bool:
@@ -426,6 +443,50 @@ def run_scan(
     def stage(b: RecordBatch):
         return backend.prepare(pindex.dense_batch(b))
 
+    # Superbatch dispatch: accumulate K staged items and fold them in one
+    # dispatch.  Progress commits (and therefore snapshots) happen ONLY at
+    # superbatch boundaries: between them the tracker runs ahead of the
+    # device state by the pending tail, and a snapshot there would skip
+    # those records on resume.  On a failure the pending tail is flushed
+    # as a partial superbatch (`fault_flush`), so every observed batch is
+    # folded and committed before the failure snapshot.
+    super_k = backend.superbatch_k
+    pend: dict = {"items": [], "valid": 0, "nbytes": 0,
+                  "offsets": None, "seq": 0}
+
+    def add(staged, nvalid: int, nbytes: int) -> None:
+        """Append one staged item, recording the tracker's offsets as of
+        it: the flush commits the last appended item's offsets, never the
+        live tracker, which may already have observed the next item."""
+        nonlocal seq
+        pend["items"].append(staged)
+        pend["valid"] += nvalid
+        pend["nbytes"] += nbytes
+        seq += nvalid
+        pend["offsets"] = dict(tracker.next_offsets)
+        pend["seq"] = seq
+        # Staging fill level (0..K): the flight recorder's stager track.
+        obs_metrics.SUPERBATCH_FILL.set(len(pend["items"]))
+        if len(pend["items"]) == super_k:
+            flush()
+
+    def flush() -> None:
+        """Dispatch the accumulated (possibly partial) superbatch and
+        commit its progress: the only point the superbatch path
+        snapshots."""
+        nonlocal committed_offsets, committed_seq
+        if not pend["items"]:
+            return
+        with profile.stage("dispatch", items=pend["valid"], nbytes=pend["nbytes"]):
+            backend.update_superbatch(pend["items"])
+        pend["items"] = []
+        pend["valid"] = 0
+        pend["nbytes"] = 0
+        obs_metrics.SUPERBATCH_FILL.set(0)
+        committed_offsets = pend["offsets"]
+        committed_seq = pend["seq"]
+        maybe_snapshot(offsets=committed_offsets, records_seen=committed_seq)
+
     used_workers = ingest_cfg.resolve(len(pindex))
     obs_metrics.INGEST_RESOLVED_WORKERS.set(used_workers)
     _note_fetch_streams(source, used_workers)
@@ -484,14 +545,17 @@ def run_scan(
                     if item.offsets is not None else "~"
                 )
                 last_ts = int(item.ts_s[last])
-            # nbytes is the decoded batch's size on either path, so the
-            # stat compares across backends and fused/chained.
-            with profile.stage("dispatch", items=nvalid, nbytes=item.nbytes):
-                backend.update(staged)
-            seq += nvalid
-            committed_offsets = dict(tracker.next_offsets)
-            committed_seq = seq
-            maybe_snapshot()
+            if super_k > 1:
+                add(staged, nvalid, item.nbytes)
+            else:
+                # nbytes is the decoded batch's size on either path, so
+                # the stat compares across backends and fused/chained.
+                with profile.stage("dispatch", items=nvalid, nbytes=item.nbytes):
+                    backend.update(staged)
+                seq += nvalid
+                committed_offsets = dict(tracker.next_offsets)
+                committed_seq = seq
+                maybe_snapshot()
             obs_metrics.SCAN_RECORDS.inc(nvalid)
             obs_metrics.SCAN_BATCHES.inc()
             obs_metrics.SCAN_BYTES.inc(item.nbytes)
@@ -501,11 +565,21 @@ def run_scan(
                 f"[Sq: {seq} | T: {topic} | P: {last_partition} | "
                 f"O: {last_offset} | Ts: {format_utc_seconds(last_ts)}]"
             )
+        flush()  # the partial superbatch tail at stream end
     except BaseException:
-        # A failure or an interrupt mid-scan: retire the in-flight folds,
-        # then save what was folded so a rerun with --resume continues
-        # here instead of rescanning from earliest.  Best effort — the
-        # original failure is what must surface.
+        # A failure or an interrupt mid-scan: fold the pending superbatch
+        # tail, retire the in-flight folds, then save what was folded so
+        # a rerun with --resume continues here instead of rescanning from
+        # earliest.  Best effort — the original failure is what must
+        # surface.
+        try:
+            flush()
+        except Exception:
+            log.exception(
+                "pending superbatch tail could not be flushed; the "
+                "failure snapshot falls back to the last committed "
+                "superbatch boundary"
+            )
         try:
             backend.drain_dispatch()
         except Exception:
@@ -575,6 +649,7 @@ def run_scan(
         lost_partitions=lost,
         telemetry=default_registry().snapshot(),
         ingest_workers=used_workers,
+        superbatch_k=super_k,
         dispatch_depth=backend.dispatch_depth,
         wire=wire,
         next_offsets=dict(tracker.next_offsets),

@@ -263,11 +263,13 @@ def hll_idx_rho_numpy(
 # compacted alive-pair table
 
 
-def pair_table_capacity(config: AnalyzerConfig, batch_size: int) -> int:
-    """Capacity of one dispatch's pair table: a dispatch folds at most
-    ``batch_size`` records and distinct slots cannot exceed the slot space,
-    so ``min(B, 2^bits)`` bounds the merge with no overflow path."""
-    return min(int(batch_size), 1 << config.alive_bitmap_bits)
+def pair_table_capacity(config: AnalyzerConfig, batch_size: int,
+                        k: int = 1) -> int:
+    """Capacity of one dispatch's pair table: a dispatch of ``k`` rows
+    folds at most ``k * batch_size`` records and distinct slots cannot
+    exceed the slot space, so ``min(k·B, 2^bits)`` bounds the merge with
+    no overflow path."""
+    return min(int(k) * int(batch_size), 1 << config.alive_bitmap_bits)
 
 
 #: Mask-form cap: set/clear word masks may grow to at most this many bytes
@@ -779,6 +781,53 @@ class PackedRow:
 #: ``salvaged``, ``frame-fallback``: native per-frame decodes) reads
 #: ``frame-fallback``.
 FALLBACK_LABEL = {"legacy": "python-decode", "python-decode": "python-decode"}
+
+
+class SuperbatchStager:
+    """Pinned host staging for the one buffer a superbatch dispatch
+    assembles on the main thread: its merged alive-pair table.
+
+    The reference stacks a superbatch's K rows into one ``uint8[K, N]``
+    array and ships it in one transfer; the port does not: each row has
+    already left its ingest stream's staging slot through its own
+    asynchronous copy, so what is left to stage per dispatch is the
+    table `pack_pair_table` merges from the K rows' raw pairs.  The
+    stager owns a ring of ``depth + 1`` such buffers (pinned when
+    ``pin``), so assembling superbatch ``i`` never allocates and never
+    overwrites a buffer whose copy may still be in flight: the slot
+    reused was last dispatched as superbatch ``i - depth - 1``, which the
+    dispatch queue (backends/base.py::DispatchQueue) retired before
+    dispatch ``i`` could pass its throttle.  ``record(slot, event)``
+    keeps the event recorded behind a slot's copy too, and `next_slot`
+    waits on it, so the ring stays safe without that argument."""
+
+    def __init__(self, nbytes: int, depth: int, pin: bool = False):
+        if depth < 1:
+            raise ValueError("dispatch depth must be >= 1")
+        self.hosts = [
+            torch.empty(int(nbytes), dtype=torch.uint8, pin_memory=pin)
+            for _ in range(depth + 1)
+        ]
+        self.views = [host.numpy() for host in self.hosts]
+        self._events: list = [None] * len(self.hosts)
+        self._next = 0
+
+    def next_slot(self) -> int:
+        """The index of the buffer to assemble the next superbatch's
+        table into (`hosts`/`views`), once its last copy completed."""
+        slot = self._next
+        self._next = (slot + 1) % len(self.hosts)
+        if self._events[slot] is not None:
+            self._events[slot].synchronize()
+            self._events[slot] = None
+        # Ring activity for the flight recorder: the hand-out rate is the
+        # superbatch assembly rate.
+        obs_metrics.STAGER_SLOTS.inc()
+        return slot
+
+    def record(self, slot: int, event) -> None:
+        """Remember the event that completes with ``slot``'s last copy."""
+        self._events[slot] = event
 
 
 class FusedPackSink:

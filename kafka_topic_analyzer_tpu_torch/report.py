@@ -2,7 +2,8 @@
 the reference's ``report.py``: `render_report` and its extension lines,
 `render_extremes_table`, and the ``--stats`` digests `render_stage_stats`,
 `render_telemetry_stats` and `render_bottleneck`, each with the lines of
-the features the port has).
+the features the port has, and `build_json_doc`, which assembles the
+``--json`` document).
 
 Reproduces the report block of xenji/kafka-topic-analyzer's
 ``src/main.rs:123-179``: the global lines, the optional alive-keys block,
@@ -317,13 +318,14 @@ def render_bottleneck(diagnosis) -> str:
 def render_telemetry_stats(
     snapshot: Optional[Dict],
     ingest_workers: int = 1,
+    superbatch_k: int = 1,
     dispatch_depth: int = 1,
     wire=None,
 ) -> str:
     """``--stats`` telemetry section from a registry snapshot: the
     reference's counter digest, with the lines of the features the port
-    has (the remote segment tier, the follow service and the
-    multi-controller split come with those features)."""
+    has (the follow service and the multi-controller split come with
+    those features)."""
     from kafka_topic_analyzer_tpu_torch.results import (
         DispatchStats,
         FusedStats,
@@ -393,6 +395,21 @@ def render_telemetry_stats(
             f"({seg.bytes_mapped / 1e6:,.1f} MB mapped), "
             f"{seg.records:,.0f} records in {seg.batches:,.0f} batches"
         )
+    # Remote-tier digest: what the object-store client fetched, retried
+    # and served from the local cache (only when the scan spoke to one).
+    if seg.gets:
+        line = (
+            f"  segstore: {seg.gets:,} GETs "
+            f"({seg.bytes_fetched / 1e6:,.1f} MB fetched), "
+            f"{seg.retries:,} retries"
+        )
+        if seg.cache_hits or seg.cache_misses or seg.cache_evictions:
+            line += (
+                f", cache {seg.cache_hits:,} hit(s) / "
+                f"{seg.cache_misses:,} miss(es) / "
+                f"{seg.cache_evictions:,} eviction(s)"
+            )
+        lines.append(line)
     if wire is not None:
         lines.append(
             f"  wire-format: v{wire.format}, "
@@ -438,8 +455,74 @@ def render_telemetry_stats(
     if dispatch.dispatches:
         lines.append(
             f"  dispatch: {dispatch.dispatches:,} superbatch dispatches "
-            f"(K=1, depth={dispatch_depth}), "
+            f"(K={superbatch_k}, depth={dispatch_depth}), "
             f"{dispatch.batches:,} batches folded, "
             f"{dispatch.mean_latency_ms:.1f} ms mean dispatch latency"
         )
     return "\n".join(lines) + "\n"
+
+
+def attach_scan_digests(doc: dict, result, diagnosis=None) -> None:
+    """The digest blocks every ``--json`` document carries: ``segments``
+    when the scan read a segment store, ``wire`` for backends that pack
+    rows, ``flight`` when a diagnosis was computed."""
+    from kafka_topic_analyzer_tpu_torch.results import SegmentStats
+
+    seg = SegmentStats.from_telemetry(result.telemetry)
+    if seg.files:
+        doc["segments"] = seg.as_dict()
+    if result.wire is not None:
+        doc["wire"] = result.wire.as_dict()
+    if diagnosis is not None:
+        doc["flight"] = diagnosis.as_dict()
+
+
+def attach_issue_blocks(doc: dict, result) -> None:
+    """The str-keyed ``corrupt_partitions``/``degraded_partitions``/
+    ``data_loss`` maps of what the scan booked."""
+    if result.corrupt_partitions:
+        doc["corrupt_partitions"] = {
+            str(p): d for p, d in result.corrupt_partitions.items()
+        }
+    if result.degraded_partitions:
+        doc["degraded_partitions"] = {
+            str(p): r for p, r in result.degraded_partitions.items()
+        }
+    if result.lost_partitions:
+        doc["data_loss"] = {str(p): d for p, d in result.lost_partitions.items()}
+
+
+def build_json_doc(
+    topic: str,
+    result,
+    diagnosis=None,
+    follow: "Optional[dict]" = None,
+    windows: "Optional[dict]" = None,
+    fleet: "Optional[dict]" = None,
+    health: "Optional[dict]" = None,
+) -> dict:
+    """The machine-readable report document (``--json``), the reference's
+    schema: ``result`` is an `engine.ScanResult`, ``diagnosis`` the scan
+    doctor's verdict (`obs.doctor.diagnose_scan`); ``follow``,
+    ``windows``, ``fleet`` and ``health`` are the service layer's blocks,
+    which no batch scan carries."""
+    doc = result.metrics.to_dict(result.start_offsets, result.end_offsets)
+    doc["topic"] = topic
+    doc["duration_secs"] = result.duration_secs
+    doc["ingest_workers"] = result.ingest_workers
+    # One controller: the reference's per-process list has one entry.
+    doc["ingest_workers_per_controller"] = [result.ingest_workers]
+    doc["superbatch_k"] = result.superbatch_k
+    doc["dispatch_depth"] = result.dispatch_depth
+    doc["telemetry"] = result.telemetry
+    attach_scan_digests(doc, result, diagnosis)
+    if follow is not None:
+        doc["follow"] = follow
+    if windows is not None:
+        doc["windows"] = windows
+    if fleet is not None:
+        doc["fleet"] = fleet
+    if health is not None:
+        doc["health"] = health
+    attach_issue_blocks(doc, result)
+    return doc

@@ -2,7 +2,9 @@
 (port of the reference's ``results.py``: `TopicMetrics`,
 `QuantileSummary`, `finalize_extremes`, and the telemetry digests the
 ``--stats`` report renders — `StageDigest`, `WireStats`, `FusedStats`,
-`IngestStats`, `SegmentStats` (local tier), `LossStats`, `DispatchStats`).
+`IngestStats`, `SegmentStats`, `LossStats`, `DispatchStats`) — with the
+``--json`` document's pieces (`TopicMetrics.to_dict` and the digests'
+``as_dict``).
 
 The derived metrics reproduce ``src/metric.rs`` of xenji's
 kafka-topic-analyzer exactly, quirks included (documented per method).
@@ -51,6 +53,9 @@ class QuantileSummary:
 
     probs: "list[float]"
     values: "list[float]"
+
+    def as_dict(self) -> Dict[float, float]:
+        return dict(zip(self.probs, self.values))
 
 
 @dataclasses.dataclass
@@ -151,6 +156,76 @@ class TopicMetrics:
                 None if no_sized else s,
                 None if no_sized else g,
             )
+
+    def to_dict(
+        self,
+        start_offsets: "Optional[Dict[int, int]]" = None,
+        end_offsets: "Optional[Dict[int, int]]" = None,
+    ) -> dict:
+        """Machine-readable report (``--json``): the same numbers as the
+        terminal report, keyed by name."""
+        out: dict = {
+            "overall": {
+                "count": self.overall_count,
+                "size_bytes": self.overall_size,
+                "earliest_ts": self.earliest_ts_s,
+                "latest_ts": self.latest_ts_s,
+                "largest_message": self.largest_message,
+                "smallest_message": self.smallest_message_reported(),
+            },
+            "partitions": {},
+        }
+        for p in self.partitions:
+            row = {
+                name: int(self._row(p)[i])
+                for name, i in CH.items()
+            }
+            row["dirty_ratio"] = self.dirty_ratio(p)
+            row["key_size_avg"] = self.key_size_avg(p)
+            row["value_size_avg"] = self.value_size_avg(p)
+            row["message_size_avg"] = self.message_size_avg(p)
+            if start_offsets is not None:
+                row["start_offset"] = start_offsets[p]
+            if end_offsets is not None:
+                row["end_offset"] = end_offsets[p]
+            out["partitions"][str(p)] = row
+        if self.alive_keys is not None:
+            out["alive_keys"] = self.alive_keys
+        if self.distinct_keys_hll is not None:
+            out["distinct_keys_hll"] = self.distinct_keys_hll
+        if self.distinct_keys_exact is not None:
+            out["distinct_keys_exact"] = self.distinct_keys_exact
+        if self.distinct_keys_hll_per_partition is not None:
+            out["distinct_keys_hll_per_partition"] = {
+                str(p): est
+                for p, est in zip(self.partitions, self.distinct_keys_hll_per_partition)
+            }
+        if self.distinct_keys_exact_per_partition is not None:
+            out["distinct_keys_exact_per_partition"] = {
+                str(p): n
+                for p, n in zip(
+                    self.partitions, self.distinct_keys_exact_per_partition
+                )
+            }
+        if self.quantiles is not None:
+            out["size_quantiles"] = self.quantiles.as_dict()
+        if self.quantiles_per_partition is not None:
+            out["size_quantiles_per_partition"] = {
+                str(p): q.as_dict()
+                for p, q in zip(self.partitions, self.quantiles_per_partition)
+            }
+        if self.per_partition_extremes is not None:
+            out["extremes_per_partition"] = {
+                str(p): {
+                    "earliest_ts": e,
+                    "latest_ts": l,
+                    "smallest": s,
+                    "largest": g,
+                }
+                for p, e, l, s, g in self.extremes_decoded()
+            }
+        return out
+
 
 
 def finalize_extremes(
@@ -279,27 +354,78 @@ class WireStats:
         """emitted/raw pairs (0.0 when the compacted path saw none)."""
         return self.pairs_emitted / self.pairs_raw if self.pairs_raw else 0.0
 
+    def as_dict(self) -> dict:
+        doc = {
+            "format": self.format,
+            "batch_size": self.batch_size,
+            "per_record_bytes": self.per_record_bytes,
+            "table_bytes": self.table_bytes,
+            "packed_nbytes": self.packed_nbytes,
+            "bytes_total": self.bytes_total,
+            "bytes_per_record": round(self.bytes_per_record, 2),
+            "alive_compaction": self.alive_compaction,
+        }
+        if self.alive_compaction == "on":
+            doc["alive_pairs_raw"] = self.pairs_raw
+            doc["alive_pairs_emitted"] = self.pairs_emitted
+            doc["alive_compaction_ratio"] = round(self.compaction_ratio, 4)
+        return doc
+
+
 
 @dataclasses.dataclass
 class SegmentStats:
     """Cold-path accounting from a telemetry snapshot: segment chunks the
-    catalog opened, bytes it mapped, and the records/batches read from
-    them; empty (``files == 0``) for scans that read no segment store.
-    The remote tier's GET and cache counters come with that tier."""
+    catalog opened, bytes it mapped (or, remotely, catalogued), and the
+    records/batches read from them; empty (``files == 0``) for scans that
+    read no segment store.  The remote tier adds its object-store GETs,
+    bytes fetched and retries, and the segment cache's hits, misses and
+    evictions (all zero for local scans)."""
 
     files: int
     bytes_mapped: int
     records: int
     batches: int
+    gets: int = 0
+    bytes_fetched: int = 0
+    retries: int = 0
+    cache_hits: int = 0
+    cache_misses: int = 0
+    cache_evictions: int = 0
 
     @classmethod
     def from_telemetry(cls, snapshot: "Optional[dict]") -> "SegmentStats":
+        t = lambda name: int(_total(snapshot, name))  # noqa: E731
         return cls(
-            files=int(_total(snapshot, "kta_segment_files_opened_total")),
-            bytes_mapped=int(_total(snapshot, "kta_segment_bytes_mapped_total")),
-            records=int(_total(snapshot, "kta_segment_records_total")),
-            batches=int(_total(snapshot, "kta_segment_batches_total")),
+            files=t("kta_segment_files_opened_total"),
+            bytes_mapped=t("kta_segment_bytes_mapped_total"),
+            records=t("kta_segment_records_total"),
+            batches=t("kta_segment_batches_total"),
+            gets=t("kta_segstore_gets_total"),
+            bytes_fetched=t("kta_segstore_bytes_fetched_total"),
+            retries=t("kta_segstore_retries_total"),
+            cache_hits=t("kta_segstore_cache_hits_total"),
+            cache_misses=t("kta_segstore_cache_misses_total"),
+            cache_evictions=t("kta_segstore_cache_evictions_total"),
         )
+
+    def as_dict(self) -> dict:
+        doc = {
+            "files": self.files,
+            "bytes_mapped": self.bytes_mapped,
+            "records": self.records,
+            "batches": self.batches,
+        }
+        if self.gets:
+            # The remote block only when the scan spoke to an object
+            # store: local cold scans keep the local shape.
+            doc["store_gets"] = self.gets
+            doc["store_bytes_fetched"] = self.bytes_fetched
+            doc["store_retries"] = self.retries
+            doc["cache_hits"] = self.cache_hits
+            doc["cache_misses"] = self.cache_misses
+            doc["cache_evictions"] = self.cache_evictions
+        return doc
 
 
 @dataclasses.dataclass
@@ -340,8 +466,8 @@ class LossStats:
 class DispatchStats:
     """Dispatch-queue accounting from a telemetry snapshot: dispatches
     launched, batches folded through them, and launch-to-retire latency
-    totals.  The port's queue runs at K = 1, so every dispatch is one
-    batch; empty for the oracle, which has no device dispatch."""
+    totals (a superbatch dispatch folds up to K batches); empty for the
+    oracle, which has no device dispatch."""
 
     dispatches: int
     batches: int

@@ -37,7 +37,8 @@ from kafka_topic_analyzer_tpu_torch.report import render_report
 
 args = cli.build_parser().parse_args(json.loads(sys.argv[1]))
 source, config, use_native = cli.setup(args)
-backend = TorchBackend(config, device=args.device, use_native=use_native)
+backend = TorchBackend(config, device=args.device, use_native=use_native,
+                       dispatch=cli.resolve_dispatch(args))
 sync = torch.cuda.synchronize if backend.device.type == "cuda" else (lambda: None)
 sync()
 t0 = time.perf_counter()

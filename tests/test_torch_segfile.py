@@ -4,8 +4,9 @@ The port writes the reference writer's bytes, each package reads the
 other's dumps (gapless and gappy, with the offsets column), damaged dumps
 are classified as the reference classifies them (bad magic, truncated
 header and payload, impossible header, header/file-name mismatch,
-overlapping chunks, a topic whose name extends another's), and remote
-store specs are refused rather than read as something else.
+overlapping chunks, a topic whose name extends another's), remote store
+specs open the object-store tier, and unknown schemes are refused rather
+than read as something else.
 """
 
 import os
@@ -14,6 +15,7 @@ import shutil
 import numpy as np
 import pytest
 
+from kafka_topic_analyzer_tpu.io import segstore as ref_segstore
 from kafka_topic_analyzer_tpu.io import segfile as ref_segfile
 from kafka_topic_analyzer_tpu.io.synthetic import SyntheticSource as RefSource
 from kafka_topic_analyzer_tpu.io.synthetic import SyntheticSpec as RefSpec
@@ -204,16 +206,36 @@ def test_topic_name_prefix_not_confused(seg_dir):
 
 @pytest.mark.parametrize(
     "spec, match",
-    [("http://127.0.0.1:1/bucket", "remote segment stores are not yet ported"),
-     ("https://host/bucket/prefix", "remote segment stores are not yet ported"),
-     ("s3://bucket/prefix", "remote segment stores are not yet ported"),
-     ("gs://bucket", "scheme 'gs' is not supported")],
+    [("gs://bucket", "scheme 'gs' is not supported"),
+     ("ftp://host/bucket", "scheme 'ftp' is not supported")],
 )
 def test_remote_and_unknown_store_specs_are_refused(spec, match):
+    """Schemes outside the port's store set are refused, with the same
+    message as the reference's."""
     with pytest.raises(ValueError, match=match):
         segstore.open_segment_store(spec)
     with pytest.raises(ValueError, match=match):
         SegmentFileSource(spec, "t")
+    with pytest.raises(ValueError) as ref:
+        ref_segstore.open_segment_store(spec)
+    with pytest.raises(ValueError) as got:
+        segstore.open_segment_store(spec)
+    assert str(got.value) == str(ref.value)
+
+
+@pytest.mark.parametrize(
+    "spec, host, port, bucket, prefix",
+    [("http://127.0.0.1:1/bucket", "127.0.0.1", 1, "/bucket", ""),
+     ("https://host/bucket/prefix", "host", 443, "/bucket", "prefix/"),
+     ("s3://bucket/prefix", "s3.amazonaws.com", 443, "/bucket", "prefix/")],
+)
+def test_remote_store_specs_open_the_object_store(spec, host, port, bucket, prefix):
+    """``http(s)://`` and ``s3://`` open the remote tier (no connection
+    is made until the catalog lists the store)."""
+    store = segstore.open_segment_store(spec)
+    assert isinstance(store, segstore.ObjectSegmentStore) and store.is_remote
+    t = store.transport
+    assert (t.host, t.port, t.bucket_path, t.key_prefix) == (host, port, bucket, prefix)
 
 
 def test_missing_directory_refused_and_file_url_accepted(tmp_path):

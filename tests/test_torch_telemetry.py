@@ -42,7 +42,7 @@ from kafka_topic_analyzer_tpu.obs.registry import default_registry as ref_regist
 from kafka_topic_analyzer_tpu_torch import cli
 from kafka_topic_analyzer_tpu_torch.backends.base import DispatchQueue
 from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
-from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
+from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig, DispatchConfig
 from kafka_topic_analyzer_tpu_torch.engine import run_scan
 from kafka_topic_analyzer_tpu_torch.io import native
 from kafka_topic_analyzer_tpu_torch.io.synthetic import SyntheticSource, SyntheticSpec
@@ -295,7 +295,7 @@ class SlowDevice(TorchBackend):
     launch, behind a dispatch queue of depth 1."""
 
     def __init__(self, config, dt: float):
-        super().__init__(config, device="cpu", dispatch_depth=1)
+        super().__init__(config, device="cpu", dispatch=DispatchConfig(depth=1))
         self._dt = dt
 
     def _completion_token(self):
