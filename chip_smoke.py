@@ -136,7 +136,48 @@ Phases, in order; any failure exits non-zero:
   shares, each worker's busy fraction from ``kta_ingest_worker_*``, the
   device busy share (the ``breakdown`` copy + fold per launch over the
   wall) and, for Kafka, the broker child's CPU seconds per record and
-  its share of one core.
+  its share of one core;
+- follow: the port's ``--follow`` service through the CLI's own session
+  and ``cli.run`` (``--poll-interval 0.25 --follow-idle-exit 3
+  --metrics-port P --sse --window-secs 5``) against the 16M-record
+  template topic led by 4 brokers, whose head (``BrokerProcess(head=)``)
+  starts at 125 of 250 windows (8M records) and is moved 4 times (to 156,
+  187, 218 and 250 windows, 1,984,000 to 2,048,000 records each) by a
+  probe beside the service, in v5 at ``--ingest-workers 7``: the final
+  report must equal the 16M batch scan's (timing lines aside) and every
+  exact line numpy's; ``/report.json``, scraped every 20 ms while the
+  service folds, must parse and its record count never decrease; an
+  ``If-None-Match`` with the served ETag must get 304 and a gzip request
+  the gzip body; ``/healthz`` must answer 200; the ``/events``
+  subscriber's frames must carry the publish ids 1..n with no gap, one
+  per pass (the last publish may race the session's shutdown).  Prints
+  the passes, polls, ``counters_merge`` launches of the initial and the
+  tail passes, the seconds from each head advance to the report at lag 0,
+  the p50/p99 of the scrapes, the initial pass's records/s beside the
+  7-worker batch scan's, and the finalize seconds per pass (each pass
+  ends in ``run_scan``'s finalize, which copies the state, the 512 MiB
+  bitmap among it, to the host).  Then a v4 follow at 1 worker over a
+  topic of the same templates in windows of 2,500 records (head 4M, 5M,
+  then 6M records), launching ``counters_update``, held against a batch
+  scan of the same 6M topic and numpy;
+- follow-resume: the same v5 follow with ``--snapshot-dir`` under
+  ``build/``, sent SIGTERM once the second advance settled: exit 0 and a
+  checkpoint at exactly the records folded; then the head moves to the
+  whole topic and ``--follow --resume`` runs to its idle exit: its report
+  must equal the uninterrupted one (no loss, no double count);
+- multitopic: ``-t fan-a,fan-b,fan-c --source synthetic`` (each topic 16
+  partitions x 350,000 records, 3,000 keys per partition, topic i seeded
+  with seed + i: 16.8M records, 48 state rows) with ``-c`` and the
+  sketches, on the card in v5 (``--json`` and the text report) and v4
+  (``--json``); the numpy oracle (``--backend cpu --json``, same flags)
+  runs in a child process beside them.  Every exact field of each topic
+  and of the union must equal the oracle's, every HLL estimate and size
+  quantile stay within DESIGN.md §7's budgets, each topic's report and
+  document equal that topic's own scan on the card (alive keys aside,
+  which a slice cannot carry), the v4 document the v5 one, and the
+  union's alive keys the sum of the topics' own scans (no salted slot is
+  shared by two topics' keys: checked with numpy).  The fan-in takes the
+  chained path; each run prints records/s and its kernel's launches.
 
 Every CLI run passes ``--quiet``; the torch backend on the host is
 ``--device cpu``.  Telemetry files and traces go under ``build/`` and are
@@ -148,7 +189,8 @@ JSON line (each kernel's back-to-back ``ms``, ``device_ms`` and
 for ``counters_merge`` the chain's ``chain_ms``; ``launches`` counts the
 16M-record Kafka scan of the kernel's format, the slice's main path, and
 ``launches_by_path`` every full-size scan, the resumed and the N-worker
-scans among them), and as its last line
+scans, the follow services' initial and tail passes, the resumed follow
+and the fan-ins among them), and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1922,6 +1964,683 @@ def phase_remote(np, cli, kernels, dump: str, reports: dict, alive_of) -> dict:
     return out
 
 
+#: The follow phase's service flags: poll every 0.25 s, exit after 3 s
+#: at the head, serve /report.json, /healthz and /events, 5 s windows.
+FOLLOW_FLAGS = ["--follow", "--poll-interval", "0.25", "--follow-idle-exit", "3",
+                "--window-secs", "5"]
+#: The v5 follow: the 16M-record Kafka topic led by 4 brokers, its head
+#: at 125 of 250 windows (8M records) at the start and advanced 4 times
+#: (about 2M records each) to the whole topic, at 7 ingest workers.
+FOLLOW_HEADS = (125, 156, 187, 218, 250)
+FOLLOW_WORKERS = "7"
+#: The v4 follow at 1 worker: a topic of the same templates cut into
+#: windows of 2,500 records, its head 4M, 5M, then 6M records.
+FOLLOW_V4 = dict(KAFKA_FULL, topic="scan4", windows=150, R=2500)
+FOLLOW_V4_HEADS = (100, 125, 150)
+#: The follow-resume phase: SIGTERM once the second advance has settled.
+FOLLOW_KILL_AFTER = 2
+#: Dashboards polling the v5 follow in its serving-cost runs (the
+#: default of ``tools/bench_serve.py --pollers``).
+SERVE_POLLERS = 1000
+#: The multi-topic fan-in: 3 synthetic topics of 16 partitions x 350,000
+#: records (16.8M records, 48 state rows), topic i seeded with seed + i,
+#: at the generator's default of 10,000 keys per partition.  Keys of two
+#: topics can share a salted bitmap slot; the bitmap keeps one bit per
+#: slot, last writer wins, as the reference's does, so the union's alive
+#: keys are the numpy replay of the fan-in's order (`fanin_alive_keys`),
+#: which differs from the topics' sum by at most the shared slots.
+MULTI_TOPICS = ("fan-a", "fan-b", "fan-c")
+MULTI_SPEC = "partitions=16,messages=350000"
+MULTI_SEED = 0x5EED
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(port: int, path: str, headers=None) -> "tuple[int, dict, bytes, float]":
+    """(status, headers, body, ms) of one GET on the local service."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", headers=headers or {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            status, hdr, body = resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        status, hdr, body = e.code, dict(e.headers), e.read()
+    except OSError:
+        status, hdr, body = 0, {}, b""
+    return status, hdr, body, (time.perf_counter() - t0) * 1e3
+
+
+class HeadProbe:
+    """Drives a follow service from beside it, on threads: moves the
+    broker's head through ``heads`` (windows visible per partition),
+    scrapes ``/report.json`` every 20 ms while the service folds (latency,
+    parse, a record count that never decreases), times each advance to
+    the report that shows it at lag 0, reads the launch counters when the
+    initial pass has been published, subscribes to ``/events`` before the
+    first publish, and once the last advance settled checks a conditional
+    GET (304) and ``/healthz`` (200).  With ``kill_after`` it sends the
+    process SIGTERM once that advance has settled instead.  ``settled``
+    is called once the last advance has settled (or the probe failed)."""
+
+    def __init__(self, broker, port: int, heads, records_per_window: int, kernels,
+                 kill_after=None, sse: bool = True, settled=None):
+        import threading
+
+        self.settled = settled
+        self.broker, self.port, self.heads = broker, port, heads
+        self.per_window = records_per_window
+        self.kernels, self.kill_after, self.sse = kernels, kill_after, sse
+        self.errors: list = []
+        self.lat_ms: list = []
+        self.counts: list = []
+        self.settle_s: list = []
+        self.frames: list = []
+        self.t_start = time.perf_counter()
+        self.t_initial = None
+        self.initial_launches = None
+        self.checks: dict = {}
+        self._threads = [threading.Thread(target=self._drive, daemon=True)]
+        if sse:
+            self._threads.append(threading.Thread(target=self._subscribe, daemon=True))
+        for t in self._threads:
+            t.start()
+
+    def _scrape(self):
+        status, hdr, body, ms = http_get(self.port, "/report.json")
+        if status != 200:
+            return None
+        doc = json.loads(body)  # must parse while the service folds
+        self.lat_ms.append(ms)
+        self.counts.append(doc["overall"]["count"])
+        return doc
+
+    def _wait(self, records: int, what: str, deadline_s: float = 240.0) -> None:
+        deadline = time.perf_counter() + deadline_s
+        while time.perf_counter() < deadline:
+            doc = self._scrape()
+            if doc is not None and doc["overall"]["count"] == records \
+                    and doc["follow"]["lag_records"] == 0:
+                return
+            time.sleep(0.02)
+        raise RuntimeError(f"no report of {records} records at lag 0 ({what}) "
+                           f"within {deadline_s} s")
+
+    def _drive(self) -> None:
+        import signal
+
+        try:
+            self._wait(self.heads[0] * self.per_window, "initial pass")
+            self.t_initial = time.perf_counter()
+            self.initial_launches = {n: fn.launches for n, fn in self.kernels.items()}
+            for i, head in enumerate(self.heads[1:], start=1):
+                t0 = time.perf_counter()
+                self.broker.set_head(head)
+                self._wait(head * self.per_window, f"advance {i}")
+                self.settle_s.append(time.perf_counter() - t0)
+                if i == self.kill_after:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                    return
+            if self.settled:
+                self.settled()
+            status, hdr, _, _ = http_get(self.port, "/report.json")
+            inm = http_get(self.port, "/report.json", {"If-None-Match": hdr.get("ETag", "")})
+            self.checks["etag"] = hdr.get("ETag")
+            self.checks["conditional"] = inm[0]
+            self.checks["gzip"] = http_get(
+                self.port, "/report.json", {"Accept-Encoding": "gzip"})[1].get(
+                "Content-Encoding")
+            self.checks["healthz"] = http_get(self.port, "/healthz")[0]
+        except BaseException as e:  # surfaced by join()
+            self.errors.append(e)
+            if self.settled:
+                self.settled()
+
+    def _subscribe(self) -> None:
+        import http.client
+
+        deadline = time.perf_counter() + 60
+        while True:
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=300)
+                conn.request("GET", "/events")
+                resp = conn.getresponse()
+                break
+            except OSError:
+                if time.perf_counter() > deadline:
+                    self.errors.append(RuntimeError("/events never answered"))
+                    return
+                time.sleep(0.01)
+        try:
+            frame = {}
+            while True:
+                line = resp.readline()
+                if not line:
+                    return  # the publisher stopped with the session
+                line = line.rstrip(b"\r\n")
+                if not line:
+                    if frame:
+                        self.frames.append(frame)
+                        frame = {}
+                elif not line.startswith(b":"):
+                    key, _, value = line.partition(b": ")
+                    frame[key.decode()] = value.decode()
+        except OSError as e:
+            self.errors.append(e)
+        finally:
+            conn.close()
+
+    def join(self) -> None:
+        for t in self._threads:
+            t.join(timeout=300)
+            if t.is_alive():
+                fail("follow: the probe's thread outlived the service")
+        if self.errors:
+            fail(f"follow: the probe failed: {self.errors[0]!r}")
+        if any(b < a for a, b in zip(self.counts, self.counts[1:])):
+            fail("follow: a /report.json record count decreased")
+
+
+class PollerFleet:
+    """``tools/bench_serve.run_fleet`` in a child process: ``pollers``
+    dashboards polling ``/report.json`` at 1 Hz each with the conditional
+    contract (ETag + gzip) and 8 SSE listeners, from `go` to `stop` (at
+    most ``seconds``).  The child loads the tool's file alone (stdlib
+    only), so it is ready before the service starts and its threads hold
+    no lock of the service's process: the service pays only its own side
+    of the traffic, its HTTP handler threads, as it would for remote
+    dashboards."""
+
+    def __init__(self, port: int, pollers: int, seconds: float = 300.0):
+        path = Path(__file__).resolve().parent / "kafka_topic_analyzer_tpu_torch" \
+            / "tools" / "bench_serve.py"
+        code = (
+            "import importlib.util, json, sys\n"
+            f"spec = importlib.util.spec_from_file_location('bench_serve', {str(path)!r})\n"
+            "m = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(m)\n"
+            "import threading\n"
+            "stop = threading.Event()\n"
+            "print('ready', flush=True)\n"
+            "sys.stdin.readline()\n"
+            "threading.Thread(target=lambda: (sys.stdin.readline(), stop.set()),"
+            " daemon=True).start()\n"
+            f"doc = m.run_fleet({port}, {pollers}, 1.0, {seconds}, True, sse=8, stop=stop)\n"
+            "print(json.dumps(doc), flush=True)\n"
+        )
+        self.seconds = seconds
+        self.proc = subprocess.Popen([sys.executable, "-c", code], stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, text=True)
+        if self.proc.stdout.readline().strip() != "ready":
+            self.proc.kill()
+            fail("follow-serving: the poller fleet did not start")
+
+    def go(self) -> None:
+        self.proc.stdin.write("go\n")
+        self.proc.stdin.flush()
+
+    def stop(self) -> None:
+        self.proc.stdin.write("stop\n")
+        self.proc.stdin.flush()
+
+    def join(self) -> dict:
+        try:
+            out, _ = self.proc.communicate(timeout=self.seconds + 60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            fail("follow-serving: the poller fleet outlived its window")
+        if self.proc.returncode != 0:
+            fail(f"follow-serving: the poller fleet exited {self.proc.returncode}")
+        return json.loads(out.strip().splitlines()[-1])
+
+
+def follow_run(cli, kernels, argv, broker, heads, per_window, label,
+               kill_after=None, sse=True, fleet=None) -> dict:
+    """One follow service through the CLI's own session and ``cli.run``
+    (on this, the main thread, so its SIGTERM handler is live) beside a
+    `HeadProbe`, and with ``fleet`` pollers beside a `PollerFleet` too,
+    polling until the last advance settled; returns the result, the report (banners and timing
+    lines aside), the probe, the fleet's numbers, the registry's follow
+    and stage totals and the launches."""
+    from kafka_topic_analyzer_tpu_torch.obs import telemetry_session
+    from kafka_topic_analyzer_tpu_torch.obs.registry import default_registry
+    from kafka_topic_analyzer_tpu_torch.serve import state as serve_state
+
+    # A service registers its report slot for the process and keeps it
+    # after it stops (one service per CLI process): clear the last run's.
+    serve_state.set_active(None)
+    port = free_port()
+    args = cli.build_parser().parse_args(
+        argv + ["--metrics-port", str(port), "--quiet"] + (["--sse"] if sse else []))
+    pollers = fleet and PollerFleet(port, fleet)
+    default_registry().reset()
+    zero(kernels)
+    out, err = io.StringIO(), io.StringIO()
+    with telemetry_session(metrics_port=port, sse=args.sse):
+        if pollers:
+            pollers.go()
+        probe = HeadProbe(broker, port, heads, per_window, kernels,
+                          kill_after=kill_after, sse=sse,
+                          settled=pollers.stop if pollers else None)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc, result = cli.run(args)
+        wall = time.perf_counter() - t0
+    probe.join()
+    fleet_doc = pollers.join() if pollers else None
+    if rc != 0:
+        fail(f"follow {label}: CLI exited {rc}: {err.getvalue()[-2000:]}")
+    snap = default_registry().snapshot()
+    report = "".join(line for line in drop_timing(out.getvalue()).splitlines(True)
+                     if not line.startswith(("Subscribing to", "Starting message")))
+    return dict(result=result, report=report, probe=probe, wall=wall, fleet=fleet_doc,
+                passes=int(metric_total(snap, "kta_follow_passes_total")),
+                polls=int(metric_total(snap, "kta_follow_polls_total")),
+                stages=stage_seconds(snap),
+                launches={n: fn.launches for n, fn in kernels.items()})
+
+
+def follow_summary(np, label: str, run: dict, kernel: str, heads, per_window: int,
+                   batch_rate=None) -> dict:
+    """Prints a follow run's numbers and holds its launches; returns the
+    launches of the initial and of the tail passes."""
+    d = run["probe"]
+    other = {n for n in run["launches"] if n != kernel}
+    if any(run["launches"][n] for n in other):
+        fail(f"follow {label}: launched the other format's kernel {run['launches']}")
+    initial = d.initial_launches[kernel]
+    tail = run["launches"][kernel] - initial
+    if initial <= 0 or (len(heads) > 1 and tail <= 0):
+        fail(f"follow {label}: {kernel} launched {initial} times in the initial "
+             f"pass and {tail} in the tail passes")
+    first = heads[0] * per_window
+    rate = first / (d.t_initial - d.t_start)
+    lat = sorted(d.lat_ms)
+    finalize = run["stages"].get("finalize", 0.0)
+    print(f"follow {label}: {run['passes']} passes, {run['polls']} polls, {kernel} "
+          f"launches {initial} in the initial pass + {tail} in the tail passes; "
+          f"initial pass {first} records in {d.t_initial - d.t_start:.3f} s = "
+          f"{rate:.1f} records/s (service start included)"
+          + (f" vs the batch scan's {batch_rate:.1f}" if batch_rate else ""))
+    print(f"follow {label}: seconds from each head advance to the report at lag 0: "
+          f"{[round(s, 3) for s in d.settle_s]}; finalize {finalize:.3f} s in "
+          f"{run['passes']} passes = {finalize / max(1, run['passes']):.3f} s per pass")
+    print(f"follow {label}: /report.json while folding: {len(lat)} scrapes, p50 "
+          f"{statistics.median(lat):.3f} ms, p99 {lat[int(0.99 * (len(lat) - 1))]:.3f} "
+          f"ms, max {lat[-1]:.3f} ms; record count never decreased; "
+          f"SSE frames {len(d.frames)}; checks {d.checks}")
+    return {"initial": initial, "tail": tail}
+
+
+def fold_seconds(run: dict) -> float:
+    """A follow run's seconds of work on the probe's clock: from the
+    service's start to the initial pass at lag 0, plus each advance's
+    seconds to lag 0 (the idle exit's wait aside).  A probe scrape opens
+    a connection of its own, so a slow accept shows here too."""
+    d = run["probe"]
+    return d.t_initial - d.t_start + sum(d.settle_s)
+
+
+def pass_seconds(run: dict) -> float:
+    """A follow run's seconds in its passes on the service's own clock:
+    the scan stages' totals over every pass."""
+    return sum(run["stages"].values())
+
+
+def follow_serving(cli, kernels, argv, broker, per: int, want_report: str,
+                   bare: dict) -> int:
+    """The serving plane's cost at the follow phase's own size: the same
+    v5 follow (16M records, 7 workers) under `SERVE_POLLERS` conditional
+    pollers and 8 SSE listeners, polling from the service's start until
+    the last advance settled, twice, then bare once more (bare, loaded,
+    loaded, bare with ``bare`` the first run).  Every run's report must
+    equal the batch scan's; prints each run's fold and pass seconds, the
+    interference on each clock (mean loaded over mean bare, less 1) and
+    the p50 / p99 of ``/report.json`` under the fleet; returns the first
+    loaded run's ``counters_merge`` launches."""
+    runs = [("bare", bare)]
+    for arm in ("loaded", "loaded", "bare"):
+        broker.set_head(FOLLOW_HEADS[0])
+        fleet = SERVE_POLLERS if arm == "loaded" else None
+        run = follow_run(cli, kernels, argv, broker, FOLLOW_HEADS, per, f"v5 {arm}",
+                         fleet=fleet)
+        if run["report"] != want_report:
+            fail(f"follow-serving: the {arm} run's report differs from the batch "
+                 f"scan's:\n{want_report}\n{run['report']}")
+        if run["launches"]["counters_merge"] <= 0:
+            fail(f"follow-serving: the {arm} run launched {run['launches']}")
+        runs.append((arm, run))
+    for i, (arm, run) in enumerate(runs):
+        d, f = run["probe"], run["fleet"]
+        lat = sorted(d.lat_ms)
+        print(f"follow-serving run {i + 1} ({arm}): fold {fold_seconds(run):.3f} s "
+              f"(initial {d.t_initial - d.t_start:.3f} s, advances "
+              f"{[round(x, 3) for x in d.settle_s]}), passes {pass_seconds(run):.3f} s "
+              f"on the service's clock (stages {json.dumps(run['stages'])}), finalize "
+              f"{run['stages'].get('finalize', 0.0) / max(1, run['passes']):.3f} s per "
+              f"pass, wall {run['wall']:.3f} s; probe scrapes p50 "
+              f"{statistics.median(lat):.3f} ms, p99 {lat[int(0.99 * (len(lat) - 1))]:.3f} ms"
+              + (f"; fleet {json.dumps(f)}" if f else ""))
+        if f and (not f["polls"] or f["sse_frames"] < run["passes"] - 1):
+            fail(f"follow-serving: the fleet saw {f}")
+
+    def interference(clock) -> str:
+        mean = {arm: statistics.mean(clock(r) for a, r in runs if a == arm)
+                for arm in ("bare", "loaded")}
+        return (f"{mean['loaded']:.3f} s loaded vs {mean['bare']:.3f} s bare = "
+                f"{(mean['loaded'] / mean['bare'] - 1) * 100:.1f}% interference")
+
+    loaded = [r["fleet"] for a, r in runs if a == "loaded"]
+    print(f"follow-serving: {SERVE_POLLERS} pollers at 1 Hz (conditional + gzip) and "
+          f"8 SSE listeners over the 16M v5 follow at 7 workers: fold "
+          f"{interference(fold_seconds)}; passes {interference(pass_seconds)}; "
+          f"/report.json under the fleet p50 {[x['lat_p50_ms'] for x in loaded]} ms, p99 "
+          f"{[x['lat_p99_ms'] for x in loaded]} ms, max {[x['lat_max_ms'] for x in loaded]} "
+          f"ms, {[x['polls'] for x in loaded]} polls in {[x['seconds'] for x in loaded]} s, "
+          f"{[x['missed_ticks'] for x in loaded]} missed ticks, "
+          f"{[x['bytes_per_poll'] for x in loaded]} bytes per poll, "
+          f"{[x['errors'] for x in loaded]} errors")
+    return runs[1][1]["launches"]["counters_merge"]
+
+
+def phase_follow(np, cli, kernels, want_report: str, want: dict, batch_rate) -> dict:
+    """The follow service on the card against a moving head (v5 at 7
+    workers over the 16M topic, then v4 at 1 worker over 6M): the final
+    report equals the batch scan's, every exact line numpy's; returns the
+    launches by path."""
+    from kafka_topic_analyzer_tpu_torch.tools.bench_e2e import BrokerProcess
+
+    launches = {"counters_merge": {}, "counters_update": {}}
+    per = KAFKA_FULL["R"] * KAFKA_FULL["partitions"]
+    broker = BrokerProcess(**KAFKA_FULL, compression=0, brokers=KAFKA_BROKERS,
+                           head=FOLLOW_HEADS[0])
+    with broker as port:
+        argv = ["-t", "scan", "-b", f"127.0.0.1:{port}", *SKETCH_FLAGS, "--native", "on",
+                "--backend", "gpu", "--ingest-workers", FOLLOW_WORKERS, *FOLLOW_FLAGS]
+        run = follow_run(cli, kernels, argv, broker, FOLLOW_HEADS, per, "v5")
+        serving = follow_serving(cli, kernels, argv, broker, per, want_report, run)
+    d = run["probe"]
+    if run["report"] != want_report:
+        fail(f"follow v5: the report differs from the batch scan's:\n{want_report}\n"
+             f"{run['report']}")
+    check_template_scan(np, "follow v5", run["result"].metrics, want)
+    ids = [int(f["id"]) for f in d.frames if f.get("event") == "publish"]
+    if ids != list(range(1, len(ids) + 1)) or len(ids) < run["passes"] - 1:
+        fail(f"follow v5: SSE frame ids {ids} for {run['passes']} passes")
+    if not d.checks.get("etag") or (d.checks.get("conditional"), d.checks.get("gzip"),
+                                    d.checks.get("healthz")) != (304, "gzip", 200):
+        fail(f"follow v5: service checks {d.checks}")
+    got = follow_summary(np, "v5", run, "counters_merge", FOLLOW_HEADS, per, batch_rate)
+    launches["counters_merge"]["follow v5 initial pass, 7 workers"] = got["initial"]
+    launches["counters_merge"]["follow v5 tail passes"] = got["tail"]
+    launches["counters_merge"][f"follow v5 under {SERVE_POLLERS} pollers"] = serving
+    print(f"follow v5: the report equals the 16M batch scan's (timing lines aside) "
+          f"and numpy's exact lines; one SSE frame per publish (ids 1..{len(ids)}, "
+          f"{run['passes']} passes); conditional GET 304; /healthz 200")
+    per4 = FOLLOW_V4["R"] * FOLLOW_V4["partitions"]
+    broker = BrokerProcess(**FOLLOW_V4, compression=0, head=FOLLOW_V4_HEADS[0])
+    with broker as port:
+        base = ["-t", FOLLOW_V4["topic"], "-b", f"127.0.0.1:{port}", *SKETCH_FLAGS,
+                "--native", "on", "--backend", "gpu", "--wire-format", "v4"]
+        run = follow_run(cli, kernels, base + FOLLOW_FLAGS, broker, FOLLOW_V4_HEADS,
+                         per4, "v4", sse=False)
+        zero(kernels)
+        t0 = time.perf_counter()
+        batch_out, batch = run_cli(cli, base)
+        rate4 = batch.records / (time.perf_counter() - t0)
+    batch_report = "".join(line for line in drop_timing(batch_out).splitlines(True)
+                           if not line.startswith(("Subscribing to", "Starting message")))
+    if run["report"] != batch_report:
+        fail(f"follow v4: the report differs from the batch scan's:\n{batch_report}\n"
+             f"{run['report']}")
+    check_template_scan(np, "follow v4", run["result"].metrics,
+                        template_expectations(np, FOLLOW_V4))
+    got = follow_summary(np, "v4", run, "counters_update", FOLLOW_V4_HEADS, per4, rate4)
+    launches["counters_update"]["follow v4 initial pass, 1 worker"] = got["initial"]
+    launches["counters_update"]["follow v4 tail passes"] = got["tail"]
+    print("follow v4: the report equals the batch scan's of the same 6M topic "
+          "(timing lines aside) and numpy's exact lines")
+    return launches
+
+
+def phase_follow_resume(np, cli, kernels, want_report: str, want: dict) -> dict:
+    """The v5 follow with ``--snapshot-dir``, sent SIGTERM once the second
+    advance settled: a clean exit with its checkpoint; then the head moves
+    to the whole topic and ``--follow --resume`` runs to its idle exit:
+    the report must equal the uninterrupted one (no loss, no double
+    count)."""
+    from kafka_topic_analyzer_tpu_torch.checkpoint import snapshot_info
+    from kafka_topic_analyzer_tpu_torch.tools.bench_e2e import BrokerProcess
+
+    per = KAFKA_FULL["R"] * KAFKA_FULL["partitions"]
+    snap = SNAPSHOT_ROOT / "follow"
+    shutil.rmtree(snap, ignore_errors=True)
+    broker = BrokerProcess(**KAFKA_FULL, compression=0, brokers=KAFKA_BROKERS,
+                           head=FOLLOW_HEADS[0])
+    try:
+        with broker as port:
+            argv = ["-t", "scan", "-b", f"127.0.0.1:{port}", *SKETCH_FLAGS,
+                    "--native", "on", "--backend", "gpu", "--ingest-workers",
+                    FOLLOW_WORKERS, *FOLLOW_FLAGS, "--snapshot-dir", str(snap)]
+            killed = follow_run(cli, kernels, argv, broker, FOLLOW_HEADS, per,
+                                "v5 killed", kill_after=FOLLOW_KILL_AFTER, sse=False)
+            at = FOLLOW_HEADS[FOLLOW_KILL_AFTER] * per
+            info = snapshot_info(str(snap))
+            if killed["result"].metrics.overall_count != at or info is None \
+                    or info["records_seen"] != at:
+                fail(f"follow-resume: SIGTERM'd at {at} records: folded "
+                     f"{killed['result'].metrics.overall_count}, checkpoint {info and info['records_seen']}")
+            print(f"follow-resume: SIGTERM after advance {FOLLOW_KILL_AFTER}: exit 0, "
+                  f"{killed['passes']} passes, checkpoint at {info['records_seen']} "
+                  f"records, {killed['launches']['counters_merge']} counters_merge "
+                  f"launches, wall {killed['wall']:.3f} s")
+            broker.set_head(FOLLOW_HEADS[-1])
+            resumed = follow_run(cli, kernels, argv + ["--resume"], broker,
+                                 FOLLOW_HEADS[-1:], per, "v5 resumed", sse=False)
+    finally:
+        shutil.rmtree(snap, ignore_errors=True)
+    if resumed["report"] != want_report:
+        fail(f"follow-resume: the resumed report differs from the uninterrupted "
+             f"one:\n{want_report}\n{resumed['report']}")
+    check_template_scan(np, "follow-resume", resumed["result"].metrics, want)
+    n = resumed["launches"]["counters_merge"]
+    if not 0 < n < killed["launches"]["counters_merge"] or resumed["launches"]["counters_update"]:
+        fail(f"follow-resume: the resumed service launched {resumed['launches']}")
+    print(f"follow-resume: the resumed service folded {resumed['result'].metrics.overall_count - at} "
+          f"records in {resumed['passes']} passes ({n} counters_merge launches, wall "
+          f"{resumed['wall']:.3f} s); its report equals the uninterrupted one "
+          "(timing lines aside) and numpy's exact lines")
+    return {"follow v5 resumed after SIGTERM": n}
+
+
+def fanin_alive_keys(np) -> "tuple[int, int]":
+    """(alive keys, shared slots) of the fan-in's union: the topics'
+    records, each key's fnv32 salted per topic as the fan-in salts it,
+    replayed last-writer-wins per bitmap slot with numpy in the order a
+    one-worker fan-in folds them (the topics one after the other, each in
+    its own scan order), and the slots that keys of two different topics
+    share."""
+    from kafka_topic_analyzer_tpu_torch.io.synthetic import SyntheticSource
+    from kafka_topic_analyzer_tpu_torch.ops.fnv import splitmix64
+
+    cols, owned = [], []
+    for i in range(len(MULTI_TOPICS)):
+        salt = np.uint32(splitmix64(i) & 0xFFFFFFFF if i else 0)
+        src = SyntheticSource(spec_of(f"{MULTI_SPEC},seed={MULTI_SEED + i}"))
+        topic = [(b.key_hash32 ^ salt, ~b.key_null, ~b.value_null)
+                 for b in src.batches(SCAN_BATCH)]
+        topic = tuple(np.concatenate(c) for c in zip(*topic))
+        cols.append(topic)
+        owned.append(np.unique(topic[0][topic[1]]))
+    slot, keyed, alive = (np.concatenate(c) for c in zip(*cols))
+    _, last = np.unique(slot[keyed][::-1], return_index=True)
+    everywhere = np.concatenate(owned)
+    return (int(np.count_nonzero(alive[keyed][::-1][last])),
+            len(everywhere) - len(np.unique(everywhere)))
+
+
+def phase_multitopic(np, cli, kernels) -> dict:
+    """``-t fan-a,fan-b,fan-c`` on the card in v5 and v4 against the numpy
+    oracle (a child process, started first, same flags): every exact
+    field equal for every topic and the union, the sketches within
+    DESIGN.md §7's budgets, the union's alive keys the sum of the topics'
+    own scans, the ``--json`` ``topics`` document equal to the reports."""
+    import dataclasses
+
+    from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
+    from kafka_topic_analyzer_tpu_torch.report import render_report
+
+    flags = ["-t", ",".join(MULTI_TOPICS), "--source", "synthetic", "--synthetic",
+             MULTI_SPEC, *SKETCH_FLAGS, "--distinct-keys", "--quantiles",
+             "--batch-size", str(SCAN_BATCH)]
+    TELEMETRY_ROOT.mkdir(parents=True, exist_ok=True)
+    oracle_path = TELEMETRY_ROOT / "multitopic-oracle.json"
+    code = (
+        "import contextlib, sys\n"
+        "from kafka_topic_analyzer_tpu_torch import cli\n"
+        f"with open({str(oracle_path)!r}, 'w') as f, contextlib.redirect_stdout(f):\n"
+        f"    rc = cli.main({flags + ['--backend', 'cpu', '--json', '--quiet']!r})\n"
+        "sys.exit(rc)\n"
+    )
+    t_oracle = time.perf_counter()
+    oracle_proc = subprocess.Popen([sys.executable, "-c", code],
+                                   cwd=Path(__file__).resolve().parent,
+                                   stderr=subprocess.PIPE, text=True)
+    try:
+        card = {}
+        launches = {}
+        for label, fmt, kernel in (("v5", [], "counters_merge"),
+                                   ("v4", ["--wire-format", "v4"], "counters_update")):
+            base = flags + fmt + ["--native", "on", "--backend", "gpu"]
+            runs = [("json", base + ["--json"])] + ([("text", base)] if label == "v5" else [])
+            for kind, argv in runs:
+                zero(kernels)
+                t0 = time.perf_counter()
+                out, result = run_cli(cli, argv)
+                wall = time.perf_counter() - t0
+                got = {n: fn.launches for n, fn in kernels.items()}
+                if any((n == kernel) != (v > 0) for n, v in got.items()):
+                    fail(f"multitopic {label}: launches {got}")
+                if result.fused:
+                    fail(f"multitopic {label}: the fan-in took the fused path")
+                card[f"{label} {kind}"] = (out, result)
+                launches[kernel] = got[kernel]
+                print(f"multitopic {label} {kind}: {result.records} records in "
+                      f"{wall:.3f} s = {result.records / wall:.1f} records/s, "
+                      f"{got[kernel]} {kernel} launches, {len(result.metrics.partitions)} "
+                      "state rows")
+        docs = {k: json.loads(v[0]) for k, v in card.items() if k.endswith("json")}
+        if docs["v5 json"]["topics"] != docs["v4 json"]["topics"] or \
+                docs["v5 json"]["union"] != docs["v4 json"]["union"]:
+            fail("multitopic: the v4 document differs from the v5 document")
+        text, fan = card["v5 text"]
+        text = drop_timing(text)
+        union_doc = docs["v5 json"]["union"]
+        alive_sum = 0
+        for i, topic in enumerate(MULTI_TOPICS):
+            doc = docs["v5 json"]["topics"][topic]
+            _, solo = run_cli(cli, [
+                "-t", topic, "--source", "synthetic", "--synthetic",
+                f"{MULTI_SPEC},seed={MULTI_SEED + i}", *SKETCH_FLAGS,
+                "--batch-size", str(SCAN_BATCH), "--native", "on", "--backend", "gpu"])
+            alive_sum += solo.metrics.alive_keys
+            want = json.loads(json.dumps(solo.metrics.to_dict(
+                solo.start_offsets, solo.end_offsets)))
+            for key in ("overall", "partitions", "extremes_per_partition",
+                        "distinct_keys_hll_per_partition", "size_quantiles_per_partition"):
+                if doc[key] != want[key]:
+                    fail(f"multitopic: topic {topic}: {key} differs from the topic's "
+                         "own scan")
+            # The fan-in prints each topic's report from its slice: no
+            # alive keys and no topic-wide sketch lines, which a slice of
+            # the merged state cannot carry.
+            section = drop_timing(render_report(
+                topic, dataclasses.replace(solo.metrics, alive_keys=None,
+                                           distinct_keys_hll=None, quantiles=None),
+                solo.start_offsets, solo.end_offsets, 0))
+            if section not in text:
+                fail(f"multitopic: the fan-in's {topic} report differs from the "
+                     f"topic's own scan:\n{section}\n{text}")
+        union_alive, shared = fanin_alive_keys(np)
+        if union_doc["alive_keys_sum_over_topics"] != union_alive or \
+                fan.metrics.alive_keys != union_alive:
+            fail(f"multitopic: union alive keys {union_doc['alive_keys_sum_over_topics']}, "
+                 f"the numpy replay of the fan-in {union_alive}")
+        if not 0 <= alive_sum - union_alive <= shared:
+            fail(f"multitopic: union alive keys {union_alive}, the topics' own scans "
+                 f"sum to {alive_sum}, with {shared} slots shared across topics")
+        if f"Alive keys (sum over topics): {union_alive}\n" not in text:
+            fail("multitopic: the union block lacks the union's alive keys")
+        print(f"multitopic: each topic's report and document equal its own scan's "
+              f"(alive keys aside, which its slice cannot carry); the union's alive "
+              f"keys {union_alive} equal the numpy replay of the fan-in's salted "
+              f"slots; the topics' own scans sum to {alive_sum}: {shared} slots are "
+              f"shared by two topics' keys and {alive_sum - union_alive} of them were "
+              "counted once")
+        rc = oracle_proc.wait(timeout=900)
+        if rc != 0:
+            fail(f"multitopic: the oracle child exited {rc}: {oracle_proc.stderr.read()[-2000:]}")
+        oracle_s = time.perf_counter() - t_oracle
+        oracle = json.loads(oracle_path.read_text())
+    finally:
+        if oracle_proc.poll() is None:
+            oracle_proc.kill()
+            oracle_proc.wait()
+    doc = docs["v5 json"]
+    exact = ("overall", "partitions", "extremes_per_partition")
+    for topic in MULTI_TOPICS:
+        for key in exact:
+            if doc["topics"][topic][key] != oracle["topics"][topic][key]:
+                fail(f"multitopic: topic {topic}: {key} differs from the oracle's")
+    for key in ("count", "size_bytes", "earliest_ts", "latest_ts",
+                "alive_keys_sum_over_topics"):
+        if doc["union"][key] != oracle["union"][key]:
+            fail(f"multitopic: union {key} {doc['union'][key]}, the oracle's "
+                 f"{oracle['union'][key]}")
+    config = AnalyzerConfig()
+    sigma = 1.04 / math.sqrt(1 << config.hll_p)
+    worst = 0.0
+    pairs = [("union", doc["union"]["distinct_keys_hll"],
+              oracle["union"]["distinct_keys_exact"])]
+    for topic in MULTI_TOPICS:
+        for p, est in doc["topics"][topic]["distinct_keys_hll_per_partition"].items():
+            pairs.append((f"{topic}/{p}", est, oracle["topics"][topic][
+                "distinct_keys_exact_per_partition"][p]))
+    for name, est, exact_n in pairs:
+        err = abs(est - exact_n) / exact_n
+        worst = max(worst, err)
+        if err > HLL_SIGMAS * sigma:
+            fail(f"multitopic: HLL {name} {est} outside {HLL_SIGMAS} sigma of {exact_n}")
+    qworst = 0.0
+    qpairs = [("union", doc["union"]["size_quantiles"], oracle["union"]["size_quantiles"])]
+    for topic in MULTI_TOPICS:
+        for p, q in doc["topics"][topic]["size_quantiles_per_partition"].items():
+            qpairs.append((f"{topic}/{p}", q, oracle["topics"][topic][
+                "size_quantiles_per_partition"][p]))
+    for name, got, exp in qpairs:
+        for prob, v in got.items():
+            w = exp[prob]
+            qworst = max(qworst, abs(v - w) / w)
+            if abs(v - w) > 2 * config.quantile_alpha * w + 1:
+                fail(f"multitopic: quantile {name} p{prob} {v} outside 2 alpha of {w}")
+    print(f"multitopic: oracle child {oracle_s:.3f} s (run beside the card's scans); "
+          f"every exact field of the 3 topics and the union equals the oracle's; "
+          f"{len(pairs)} HLL estimates within {HLL_SIGMAS} sigma (worst relative error "
+          f"{worst:.6f}, budget {HLL_SIGMAS * sigma:.6f}), {len(qpairs)} quantile "
+          f"triples within 2 alpha (worst relative error {qworst:.6f})")
+    return {"counters_merge": {"fan-in v5, 3 topics": launches["counters_merge"]},
+            "counters_update": {"fan-in v4, 3 topics": launches["counters_update"]}}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2129,6 +2848,18 @@ def main() -> int:
           f"1-worker scan's (Kafka templates, whose count no order changes); "
           f"records/s {json.dumps(rates)}")
     print("doctor: " + "; ".join(f"{label} {v['verdict']}" for label, v in verdicts.items()))
+    try:
+        for extra in (
+                phase_follow(np, cli, kernels, kafka["kafka v5"], want,
+                             rates.get(f"kafka v5 {FOLLOW_WORKERS} workers")),
+                {"counters_merge": phase_follow_resume(np, cli, kernels,
+                                                       kafka["kafka v5"], want)},
+                phase_multitopic(np, cli, kernels)):
+            for kernel, paths in extra.items():
+                launches[kernel].update(paths)
+    finally:
+        shutil.rmtree(TELEMETRY_ROOT, ignore_errors=True)
+        shutil.rmtree(SNAPSHOT_ROOT, ignore_errors=True)
     if kafka["kafka v4"] != kafka["kafka v5"]:
         fail("scan: the kafka v4 report differs from the kafka v5 report "
              "(timing lines aside)")

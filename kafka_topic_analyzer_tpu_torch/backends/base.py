@@ -166,6 +166,12 @@ class MetricBackend(abc.ABC):
         engine's failure path, before its snapshot); nothing to do where
         `update` finishes before it returns."""
 
+    def release_staging(self) -> None:
+        """A scan pass has ended and its ingest threads with it: take back
+        the staging buffers they held, for the next pass on this backend
+        (follow mode re-enters the scan on one backend).  Nothing to do
+        where nothing is staged."""
+
     def update_superbatch(self, staged: list) -> None:
         """Fold up to `superbatch_k` staged batches in one dispatch, in
         list order; only a backend with ``superbatch_k`` > 1 has one."""

@@ -45,10 +45,15 @@ current stream), whichever thread issues them.
 
 Pinned staging slots form rings of ``ring_slots(prefetch_depth)``, one
 ring per ingest stream: each thread that calls `prepare` has its own
-(thread-local), and each `make_fused_sink` call builds one for its sink.
+(thread-local), and each `make_fused_sink` call leases one for its sink.
 No slot is reachable from two threads, so N workers can never pack into
 a slot another is filling.  A slot is refilled only after the CUDA event
-recorded behind its last copy has completed.  A one-time pack→unpack
+recorded behind its last copy has completed.  Rings come from a pool the
+backend keeps: when a scan pass ends (`release_staging`), every ring its
+streams leased goes back to the pool, so the passes of a follow service
+re-entering the scan on this backend reuse the same pinned buffers, as
+they reuse its state, dispatch queue and superbatch stager
+(``rings_allocated`` counts the rings ever built).  A one-time pack→unpack
 self-check at construction holds the device-side byte views against the
 host layout.
 """
@@ -297,6 +302,16 @@ class TorchBackend(MetricBackend):
         #: and each fused sink holds one).
         self.ring_nbytes = self._slots * self._nbytes
         self._thread_rings = threading.local()
+        #: Rings free for the next stream, and those leased this pass.
+        self._free_rings: "list[StagingRing]" = []
+        self._leased_rings: "list[StagingRing]" = []
+        #: Bumped by `release_staging`: a thread-local ring leased in an
+        #: earlier pass is back in the pool and must be leased again.
+        self._ring_gen = 0
+        self._ring_lock = threading.Lock()
+        #: Staging rings built over the backend's life (one per
+        #: concurrent stream, however many passes).
+        self.rings_allocated = 0
         #: Rows folded into the state: one counter-kernel launch each, at
         #: any K.
         self.dispatches = 0
@@ -317,15 +332,35 @@ class TorchBackend(MetricBackend):
             return contextlib.nullcontext()
         return torch.cuda.stream(self.stream)
 
-    def _new_ring(self) -> StagingRing:
-        return StagingRing(self._slots, self._nbytes, self.device.type == "cuda")
+    def _lease_ring(self) -> StagingRing:
+        """A ring for one ingest stream: a pooled one when a stream of an
+        earlier pass gave one back, else a new one."""
+        with self._ring_lock:
+            if self._free_rings:
+                ring = self._free_rings.pop()
+            else:
+                ring = StagingRing(
+                    self._slots, self._nbytes, self.device.type == "cuda"
+                )
+                self.rings_allocated += 1
+            self._leased_rings.append(ring)
+            return ring
+
+    def release_staging(self) -> None:
+        """Return every ring leased since the last call to the pool (the
+        pass's streams have ended).  A slot's pending copy is still waited
+        for at its next claim."""
+        with self._ring_lock:
+            self._ring_gen += 1
+            self._free_rings.extend(self._leased_rings)
+            self._leased_rings = []
 
     def _thread_ring(self) -> StagingRing:
         """The calling thread's own ring for `prepare`."""
-        ring = getattr(self._thread_rings, "ring", None)
-        if ring is None:
-            ring = self._thread_rings.ring = self._new_ring()
-        return ring
+        held = getattr(self._thread_rings, "ring", None)
+        if held is None or held[0] != self._ring_gen:
+            held = self._thread_rings.ring = (self._ring_gen, self._lease_ring())
+        return held[1]
 
     def _send(self, ring: StagingRing, slot: int, raw_pairs=None) -> StagedBatch:
         """Start the one asynchronous copy of a filled slot to the device,
@@ -381,7 +416,7 @@ class TorchBackend(MetricBackend):
         """A sink whose rows are packed straight into the slots of a ring
         of its own and come out staged exactly like `prepare`'s (call only
         when the native shim is loaded; one sink per ingest stream)."""
-        ring = self._new_ring()
+        ring = self._lease_ring()
         ptrs = [view.ctypes.data for view in ring.views]
 
         def alloc() -> np.ndarray:

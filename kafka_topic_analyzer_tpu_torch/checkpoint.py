@@ -381,6 +381,18 @@ def snapshot_info(directory: str) -> "Optional[dict]":
         return json.loads(str(z["__meta__"]))
 
 
+HISTORY_DIR_NAME = "_kta_history"
+
+
+def history_dir(directory: str) -> str:
+    """Where the disk-backed telemetry history (obs/history.py,
+    ``--history-bytes``) lives: a reserved subdirectory of the
+    ``--snapshot-dir``, so a SIGTERM→restart that resumes the state from
+    its checkpoint resumes the telemetry series from the same place —
+    one directory to move, back up, or delete."""
+    return os.path.join(directory, HISTORY_DIR_NAME)
+
+
 def load_corrupt_spans(directory: str) -> list:
     """The ``corrupt_spans`` metadata of a snapshot, or [] when the
     snapshot (or the list) is absent."""

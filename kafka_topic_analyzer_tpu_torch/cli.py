@@ -19,7 +19,10 @@ single-scan paths).
         [--on-data-loss fail|report|ignore] \\
         [--from-timestamp ISO8601|EPOCH_MS] [--dump-segments DIR] \\
         [--quiet] [--json] [--stats] [--profile-dir DIR] [--metrics-port PORT] \\
-        [--events-jsonl FILE] [--trace-json FILE] [--flight-record]
+        [--sse] [--no-serve-gzip] [--history-bytes B] \\
+        [--events-jsonl FILE] [--trace-json FILE] [--flight-record] \\
+        [--follow [--poll-interval S] [--checkpoint-interval S] \\
+         [--follow-idle-exit S] [--window-secs S] [--window-count N]]
 
 Prints the same report bytes as the reference CLI for the same inputs
 (apart from the two timing lines), with the reference's DEGRADED, CORRUPT
@@ -54,7 +57,22 @@ resumable snapshots (every ``--snapshot-every`` seconds, on a failure or
 an interrupt, and when the scan degraded or skipped records) that
 ``--resume`` continues from, in this CLI or the reference's.
 ``--superbatch K`` folds K rows per device dispatch (the torch backend
-only).  Exit
+only).
+
+``--follow`` runs the scan as a service (`serve.follow.FollowService`):
+after the initial pass it re-polls the watermarks every
+``--poll-interval`` seconds and folds what arrived by re-entering the
+scan on the same backend, whose state stays on the device; it publishes
+the report document at ``/report.json`` on ``--metrics-port`` (with
+``/healthz``, and ``/events`` under ``--sse``), checkpoints every
+``--checkpoint-interval`` seconds with ``--snapshot-dir``, and stops at
+the next poll boundary on SIGINT/SIGTERM or after
+``--follow-idle-exit`` seconds at the head, then prints the report as a
+batch scan would.  ``-t a,b,c`` scans several topics through one
+backend (`io.multi.MultiTopicSource`): one report per topic and a
+cross-topic union block.  ``--history-bytes`` keeps the flight
+recorder's series on disk next to the snapshots and serves it at
+``/history``.  Exit
 status: 254 for an empty topic (the reference's ``exit(-2)``), 1 for an
 error, 3 when partitions degraded, 4 when corrupt frames were skipped, 5
 when ``--on-data-loss fail`` aborted the scan (after its checkpoint, with
@@ -91,18 +109,23 @@ from kafka_topic_analyzer_tpu_torch.io.segfile import (
 )
 from kafka_topic_analyzer_tpu_torch.io.source import RecordSource
 from kafka_topic_analyzer_tpu_torch.io.synthetic import SyntheticSource, SyntheticSpec
+from kafka_topic_analyzer_tpu_torch.obs import health as obs_health
+from kafka_topic_analyzer_tpu_torch.obs import history as obs_history
 from kafka_topic_analyzer_tpu_torch.obs import telemetry_session
 from kafka_topic_analyzer_tpu_torch.report import (
     attach_issue_blocks,
+    attach_scan_digests,
     build_json_doc,
     render_bottleneck,
     render_corrupt_block,
     render_data_loss_block,
     render_degraded_block,
     render_extremes_table,
+    render_health,
     render_report,
     render_stage_stats,
     render_telemetry_stats,
+    render_trends,
 )
 from kafka_topic_analyzer_tpu_torch.utils.log import init_logging
 from kafka_topic_analyzer_tpu_torch.utils.profiling import maybe_torch_trace
@@ -315,6 +338,62 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Serve Prometheus metrics on "
                         "http://127.0.0.1:PORT/metrics while the scan runs "
                         "(0 binds an ephemeral port)")
+    p.add_argument("--sse", action="store_true",
+                   help="Push a Server-Sent-Events stream of report "
+                        "publishes at /events on --metrics-port: each "
+                        "frame carries the new snapshot's seq and a "
+                        "compact delta summary, so dashboards re-fetch "
+                        "/report.json only when it actually changed "
+                        "(requires --metrics-port)")
+    p.add_argument("--no-serve-gzip", action="store_true",
+                   help="Disable publish-time gzip of /report.json "
+                        "bodies (the default compresses once per "
+                        "publish and serves the cached encoding to "
+                        "Accept-Encoding: gzip readers)")
+    p.add_argument("--history-bytes", type=int, default=0, metavar="BYTES",
+                   help="Persist the flight recorder's telemetry series "
+                        "to a crash-safe, multi-resolution on-disk store "
+                        "bounded by BYTES (recent history at full "
+                        "resolution, older history progressively halved), "
+                        "living next to the checkpoints (requires "
+                        "--snapshot-dir) so a restarted service resumes "
+                        "its series. Serves windowed queries at /history "
+                        "on --metrics-port and feeds the TRENDS digest of "
+                        "--stats")
+    p.add_argument("--follow", action="store_true",
+                   help="Run as a long-lived analyzer service: after the "
+                        "initial earliest→latest pass, keep re-polling "
+                        "watermarks and fold new records incrementally on "
+                        "the same device state, serving the evolving "
+                        "report at /report.json on --metrics-port. "
+                        "SIGINT/SIGTERM stop at the next poll boundary: "
+                        "final checkpoint, final report, clean exit. "
+                        "Resumes from any --snapshot-dir snapshot, "
+                        "including one a batch scan wrote")
+    p.add_argument("--poll-interval", type=float, default=1.0,
+                   metavar="SECONDS",
+                   help="Follow-mode watermark poll cadence; consecutive "
+                        "empty polls back off exponentially from here to "
+                        "10s. Default: 1.0")
+    p.add_argument("--checkpoint-interval", type=float, default=None,
+                   metavar="SECONDS",
+                   help="Follow-mode checkpoint cadence (committed only "
+                        "at superbatch boundaries; requires "
+                        "--snapshot-dir). Defaults to --snapshot-every")
+    p.add_argument("--follow-idle-exit", type=float, default=None,
+                   metavar="SECONDS",
+                   help="Exit the follow service cleanly after this long "
+                        "at the head with no new records (drain mode); "
+                        "default: follow forever")
+    p.add_argument("--window-secs", type=float, default=60.0,
+                   metavar="SECONDS",
+                   help="Width of one follow-mode report window (the "
+                        "time-windowed per-partition rate/cardinality/"
+                        "size folds served in /report.json). Default: 60")
+    p.add_argument("--window-count", type=int, default=8, metavar="N",
+                   help="Window states kept in the follow-mode ring "
+                        "(merged associatively for the whole-ring view); "
+                        "0 disables windowed folds. Default: 8")
     p.add_argument("--events-jsonl", metavar="FILE",
                    help="Append structured scan lifecycle + transport-fault "
                         "events to FILE as JSON lines")
@@ -392,7 +471,12 @@ def parse_from_timestamp_flag(args) -> "int | None":
     return parse_timestamp_ms(args.from_timestamp)
 
 
-def make_source(args, use_native: bool) -> RecordSource:
+def make_source(args, use_native: bool, topic: "str | None" = None,
+                seed_salt: int = 0) -> RecordSource:
+    """The record source the flags select, for ``topic`` (``-t`` by
+    default; a fan-in passes each of its topics with its index as the
+    synthetic ``seed_salt``)."""
+    topic = topic if topic is not None else args.topic
     if args.source != "kafka" and (
         args.on_corruption != "fail" or args.quarantine_dir
     ):
@@ -426,9 +510,9 @@ def make_source(args, use_native: bool) -> RecordSource:
             fetch = dataclasses.replace(
                 fetch, retry=TransportRetryConfig.from_overrides(retry_overrides)
             )
-        return SegmentFileSource(args.segment_dir, topic=args.topic, fetch=fetch)
+        return SegmentFileSource(args.segment_dir, topic=topic, fetch=fetch)
     if args.source == "synthetic":
-        spec = SyntheticSpec.from_kv(parse_kv_pairs(args.synthetic))
+        spec = SyntheticSpec.from_kv(parse_kv_pairs(args.synthetic), seed_salt)
         if use_native:
             return native.NativeSyntheticSource(spec)
         return SyntheticSource(spec)
@@ -448,7 +532,7 @@ def make_source(args, use_native: bool) -> RecordSource:
         data_loss = DataLossConfig(policy=args.on_data_loss)
     return KafkaWireSource(
         bootstrap_servers=args.bootstrap_server,
-        topic=args.topic,
+        topic=topic,
         overrides=overrides,
         use_native_hashing=use_native,
         # None lets a --librdkafka on.corruption/quarantine.dir (or
@@ -458,8 +542,10 @@ def make_source(args, use_native: bool) -> RecordSource:
     )
 
 
-def wrap_with_dump(args, source: RecordSource) -> RecordSource:
-    """The source behind a segment-dump tee when --dump-segments is set."""
+def wrap_with_dump(args, source: RecordSource,
+                   topic: "str | None" = None) -> RecordSource:
+    """The source behind a segment-dump tee when --dump-segments is set
+    (``topic``'s dump; ``-t`` by default)."""
     if not args.dump_segments:
         return source
     if args.resume:
@@ -469,7 +555,12 @@ def wrap_with_dump(args, source: RecordSource) -> RecordSource:
             "delete the snapshot — so the dump scan covers the topic "
             "from its earliest offset"
         )
-    return TeeSource(source, SegmentDumpWriter(args.dump_segments, args.topic))
+    return TeeSource(
+        source,
+        SegmentDumpWriter(
+            args.dump_segments, topic if topic is not None else args.topic
+        ),
+    )
 
 
 def resolve_ingest_workers(args, num_partitions: int) -> int:
@@ -494,15 +585,11 @@ def resolve_dispatch(args) -> "DispatchConfig | None":
     return cfg
 
 
-def setup(args) -> "tuple[RecordSource, AnalyzerConfig, bool]":
-    """Source, config and the resolved ``--native`` from parsed flags;
-    raises ValueError on a bad flag value."""
-    if args.dispatch_depth < 1:
-        raise ValueError("dispatch depth must be >= 1")
-    use_native = resolve_native(args)
-    source = wrap_with_dump(args, make_source(args, use_native))
-    config = AnalyzerConfig(
-        num_partitions=len(source.partitions()),
+def analyzer_config(args, num_partitions: int) -> AnalyzerConfig:
+    """The `config.AnalyzerConfig` the flags ask for over
+    ``num_partitions`` state rows."""
+    return AnalyzerConfig(
+        num_partitions=num_partitions,
         batch_size=args.batch_size,
         count_alive_keys=args.count_alive_keys,
         alive_bitmap_bits=args.alive_bitmap_bits,
@@ -514,7 +601,16 @@ def setup(args) -> "tuple[RecordSource, AnalyzerConfig, bool]":
         wire_format=resolve_wire_format(args),
         alive_compaction=args.alive_compaction,
     )
-    return source, config, use_native
+
+
+def setup(args) -> "tuple[RecordSource, AnalyzerConfig, bool]":
+    """Source, config and the resolved ``--native`` from parsed flags;
+    raises ValueError on a bad flag value."""
+    if args.dispatch_depth < 1:
+        raise ValueError("dispatch depth must be >= 1")
+    use_native = resolve_native(args)
+    source = wrap_with_dump(args, make_source(args, use_native))
+    return source, analyzer_config(args, len(source.partitions())), use_native
 
 
 def resolve_start_offsets(source, from_ts_ms, label):
@@ -563,7 +659,8 @@ def print_stats(result: ScanResult, diagnosis) -> None:
     """``--stats`` stderr digest: the stage timings and the telemetry
     counters from the scan's registry snapshot, then the scan doctor's
     BOTTLENECK verdict (``diagnosis``, from the same snapshot plus the
-    flight recorder's series when one runs)."""
+    flight recorder's series when one runs), then the HEALTH and TRENDS
+    digests."""
     sys.stderr.write(render_stage_stats(result.telemetry))
     sys.stderr.write(
         render_telemetry_stats(
@@ -575,49 +672,94 @@ def print_stats(result: ScanResult, diagnosis) -> None:
         )
     )
     sys.stderr.write(render_bottleneck(diagnosis))
+    print_health_stats()
 
 
-def run(args) -> "tuple[int, ScanResult | None]":
-    """One scan from parsed flags: the report and its warning blocks go to
-    stdout, errors to stderr.  Returns the exit status and the scan's
-    result (None when no scan ran)."""
+def print_health_stats() -> None:
+    """``--stats`` HEALTH + TRENDS digests: the alert engine's latest
+    document, and the trend doctor's findings over the history window
+    when ``--history-bytes`` ran."""
+    sys.stderr.write(render_health(health_doc()))
+    store = obs_history.active()
+    if store is not None:
+        from kafka_topic_analyzer_tpu_torch.obs.doctor import diagnose_trends
+
+        sys.stderr.write(render_trends(diagnose_trends(store.window())))
+
+
+def health_doc() -> "dict | None":
+    """The active alert engine's latest document — the ``health`` block of
+    ``--json`` and the HEALTH digest — or None when no engine runs (no
+    ``--metrics-port`` or history).  A scan shorter than the engine's
+    interval never reached a heartbeat boundary, so one evaluation runs
+    here: a missing block would read as "alerting never ran"."""
+    engine = obs_health.active()
+    if engine is None:
+        return None
+    if engine.doc() is None:
+        engine.evaluate()
+    return engine.doc()
+
+
+def validate_routing(args) -> None:
+    """Refuse the flag combinations the port cannot run, before any
+    broker handshake or dump directory creation."""
+    if "," in args.topic and args.follow:
+        raise ValueError(
+            "--follow with a multi-topic list (-t a,b,...) runs through "
+            "the fleet scheduler, which this port does not have yet; run "
+            "one --follow service per topic, or drop --follow for a "
+            "batch fan-in scan"
+        )
+    if args.follow and args.source == "segfile":
+        raise ValueError(
+            "--follow cannot tail --source segfile (a segment store "
+            "is immutable — there is no moving head to poll); run "
+            "the batch scan of the store, or --follow the live "
+            "topic with --source kafka (add --dump-segments to keep "
+            "the archive fresh)"
+        )
+
+
+def scan_session(args, open_source, start, banner: str, scan):
+    """The steps `run` and `run_multi_topic` share, in order: the flags
+    every scan reads; ``open_source(use_native)`` builds the source;
+    ``start(source, from_ts_ms)`` gives ``(start_at, rc)``, rc an exit
+    status for an empty or exhausted topic (the two paths check these in
+    the reference's two orders); the backend and the ``banner`` lines;
+    ``scan(source, backend, start_at, ingest_workers)`` under the
+    profiler, which returns the result or None once it printed why it
+    refused to start; then the doctor's diagnosis and ``--stats``.
+    Returns ``(rc, result, diagnosis)``, rc None when the scan ran; the
+    source is closed on every way out."""
     source = None
     try:
         try:
             from_ts_ms = parse_from_timestamp_flag(args)
             dispatch = resolve_dispatch(args)
-            source, config, use_native = setup(args)
+            if args.dispatch_depth < 1:
+                raise ValueError("dispatch depth must be >= 1")
+            use_native = resolve_native(args)
+            source = open_source(use_native)
+            config = analyzer_config(args, len(source.partitions()))
             ingest_workers = resolve_ingest_workers(args, config.num_partitions)
-            start_at, exhausted = resolve_start_offsets(
-                source, from_ts_ms, args.from_timestamp
-            )
+            start_at, rc = start(source, from_ts_ms)
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
-            return 1, None
-        if exhausted:
-            return 0, None
-        if source.is_empty():
-            print(
-                "Given topic has no content, no analysis possible. Exiting.",
-                file=sys.stderr,
-            )
-            return EXIT_EMPTY_TOPIC, None
+            return 1, None, None
+        if rc is not None:
+            return rc, None, None
         backend = make_backend(
             args.backend, config, device=args.device, use_native=use_native,
             native_requested=args.native != "off", dispatch=dispatch,
         )
         banner_out = sys.stderr if args.json else sys.stdout
-        print(f"Subscribing to {args.topic}", file=banner_out)
+        print(banner, file=banner_out)
         print("Starting message consumption...", file=banner_out)
         with maybe_torch_trace(args.profile_dir, backend.device):
-            result = run_scan(
-                args.topic, source, backend, args.batch_size,
-                start_at=start_at, spinner=Spinner(enabled=not args.quiet),
-                snapshot_dir=args.snapshot_dir,
-                snapshot_every_s=args.snapshot_every,
-                resume=args.resume,
-                ingest_workers=ingest_workers,
-            )
+            result = scan(source, backend, start_at, ingest_workers)
+        if result is None:
+            return 1, None, None
         # Only the --stats digest and the --json flight block read the
         # doctor's diagnosis; the plain report skips the pass.
         diagnosis = None
@@ -627,26 +769,110 @@ def run(args) -> "tuple[int, ScanResult | None]":
             diagnosis = diagnose_scan(result)
         if args.stats:
             print_stats(result, diagnosis)
+        return None, result, diagnosis
     except DataLossError as e:
         # --on-data-loss fail: the loss is booked and, with
         # --snapshot-dir, the engine wrote a fold-consistent checkpoint
         # on the way out, so the distinct exit code tells automation a
         # --resume will continue past the named gap.
         print(f"error: DATA-LOSS: {e}", file=sys.stderr)
-        return EXIT_DATA_LOSS, None
+        return EXIT_DATA_LOSS, None, None
     except (OSError, KafkaProtocolError) as e:
         # A broker or file fault, or a damaged frame or dump: one line,
         # as the reference prints it.
         print(f"error: {e}", file=sys.stderr)
-        return 1, None
+        return 1, None, None
     finally:
         if source is not None and hasattr(source, "close"):
             source.close()  # flush segment dumps, release broker connections
+
+
+def batch_scan(args):
+    """The ``scan`` of `scan_session` for a batch scan."""
+    def scan(source, backend, start_at, ingest_workers):
+        return run_scan(
+            args.topic, source, backend, args.batch_size,
+            start_at=start_at, spinner=Spinner(enabled=not args.quiet),
+            snapshot_dir=args.snapshot_dir,
+            snapshot_every_s=args.snapshot_every,
+            resume=args.resume,
+            ingest_workers=ingest_workers,
+        )
+    return scan
+
+
+def run(args) -> "tuple[int, ScanResult | None]":
+    """One scan (or follow service) from parsed flags: the report and its
+    warning blocks go to stdout, errors to stderr.  Returns the exit
+    status and the scan's result (None when no scan ran).  ``-t a,b,c``
+    goes to `run_multi_topic`."""
+    try:
+        validate_routing(args)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1, None
+    # Kafka topic names cannot contain commas, so "-t a,b,c" unambiguously
+    # selects the multi-topic fan-in.
+    if "," in args.topic:
+        return run_multi_topic(args, [t for t in args.topic.split(",") if t])
+
+    def start(source, from_ts_ms):
+        start_at, exhausted = resolve_start_offsets(
+            source, from_ts_ms, args.from_timestamp
+        )
+        if exhausted:
+            return None, 0
+        # A follow service skips the empty-topic guard: waiting on a
+        # still-empty topic for its first record is the job.
+        if source.is_empty() and not args.follow:
+            print(
+                "Given topic has no content, no analysis possible. Exiting.",
+                file=sys.stderr,
+            )
+            return None, EXIT_EMPTY_TOPIC
+        return start_at, None
+
+    follow_service = None
+
+    def follow(source, backend, start_at, ingest_workers):
+        nonlocal follow_service
+        try:
+            follow_service = make_follow_service(
+                args, source, backend, start_at, ingest_workers
+            )
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return None
+        restore_signals = follow_service.install_signal_handlers()
+        try:
+            return follow_service.run()
+        finally:
+            restore_signals()
+
+    rc, result, diagnosis = scan_session(
+        args,
+        lambda use_native: wrap_with_dump(args, make_source(args, use_native)),
+        start,
+        f"Subscribing to {args.topic}",
+        follow if args.follow else batch_scan(args),
+    )
+    if rc is not None:
+        return rc, None
     if args.json:
-        # The reference adds a ``health`` block under --metrics-port (its
-        # alert engine); the port has no health layer yet, so the
-        # document has no such key.
-        doc = build_json_doc(args.topic, result, diagnosis=diagnosis)
+        doc = build_json_doc(
+            args.topic,
+            result,
+            diagnosis=diagnosis,
+            follow=(
+                follow_service.follow_block()
+                if follow_service is not None else None
+            ),
+            windows=(
+                follow_service.windows_report()
+                if follow_service is not None else None
+            ),
+            health=health_doc(),
+        )
         rc = scan_issue_exit(result, doc=doc)
         print(json.dumps(doc))
         return rc, result
@@ -667,15 +893,195 @@ def run(args) -> "tuple[int, ScanResult | None]":
     ), result
 
 
+def make_follow_service(args, source, backend, start_at, ingest_workers):
+    """The `serve.follow.FollowService` the ``--follow`` flags ask for;
+    raises ValueError on a bad flag value."""
+    from kafka_topic_analyzer_tpu_torch.config import FollowConfig
+    from kafka_topic_analyzer_tpu_torch.serve.follow import FollowService
+
+    follow_cfg = FollowConfig(
+        poll_interval_s=args.poll_interval,
+        checkpoint_every_s=(
+            args.checkpoint_interval
+            if args.checkpoint_interval is not None
+            else args.snapshot_every
+        ),
+        idle_exit_s=args.follow_idle_exit,
+        window_secs=args.window_secs,
+        window_count=args.window_count,
+    )
+    return FollowService(
+        args.topic,
+        source,
+        backend,
+        batch_size=args.batch_size,
+        follow=follow_cfg,
+        spinner=Spinner(enabled=not args.quiet),
+        snapshot_dir=args.snapshot_dir,
+        resume=args.resume,
+        start_at=start_at,
+        ingest_workers=ingest_workers,
+        # /report.json assembly is pure waste when no HTTP server exists
+        # to serve it.
+        publish_reports=args.metrics_port is not None,
+        serve_gzip=not args.no_serve_gzip,
+    )
+
+
+def run_multi_topic(args, topics: "list[str]") -> "tuple[int, ScanResult | None]":
+    """Fan-in scan of several topics through one backend: per-topic
+    reports from row slices, plus a cross-topic union block whose sketch
+    lines come from the associatively merged state (io/multi.py)."""
+    from kafka_topic_analyzer_tpu_torch.io.multi import MultiTopicSource
+    from kafka_topic_analyzer_tpu_torch.results import slice_rows
+    from kafka_topic_analyzer_tpu_torch.utils.timefmt import format_utc_seconds
+
+    multi = None
+
+    def open_source(use_native):
+        nonlocal multi
+        # Dump tees attach per topic, before the fan-in remaps ids.
+        multi = MultiTopicSource([
+            (t, wrap_with_dump(
+                args, make_source(args, use_native, topic=t, seed_salt=i), t
+            ))
+            for i, t in enumerate(topics)
+        ])
+        return multi
+
+    def start(source, from_ts_ms):
+        if source.is_empty():
+            print(
+                "Given topic has no content, no analysis possible. Exiting.",
+                file=sys.stderr,
+            )
+            return None, EXIT_EMPTY_TOPIC
+        start_at, exhausted = resolve_start_offsets(
+            source, from_ts_ms, args.from_timestamp
+        )
+        return start_at, 0 if exhausted else None
+
+    rc, result, diagnosis = scan_session(
+        args, open_source, start,
+        f"Subscribing to {', '.join(topics)} ({len(topics)}-topic fan-in)",
+        batch_scan(args),
+    )
+    if rc is not None:
+        return rc, None
+
+    union = result.metrics
+    # Per-topic projections, computed once for both output formats.
+    slices = []
+    for topic in topics:
+        rows = multi.rows_for(topic)
+        ids = [multi.true_partition(r) for r in rows]
+        sliced = slice_rows(union, rows, ids)
+        start = {multi.true_partition(r): result.start_offsets[r] for r in rows}
+        end = {multi.true_partition(r): result.end_offsets[r] for r in rows}
+        slices.append((topic, sliced, start, end))
+
+    if args.json:
+        doc: dict = {
+            "topics": {},
+            "duration_secs": result.duration_secs,
+            "ingest_workers": result.ingest_workers,
+            # One controller: the reference's per-process list has one entry.
+            "ingest_workers_per_controller": [result.ingest_workers],
+            "superbatch_k": result.superbatch_k,
+            "dispatch_depth": result.dispatch_depth,
+        }
+        for topic, sliced, start, end in slices:
+            doc["topics"][topic] = sliced.to_dict(start, end)
+        union_doc = {
+            "count": union.overall_count,
+            "size_bytes": union.overall_size,
+            "earliest_ts": union.earliest_ts_s,
+            "latest_ts": union.latest_ts_s,
+        }
+        if union.alive_keys is not None:
+            union_doc["alive_keys_sum_over_topics"] = union.alive_keys
+        if union.distinct_keys_hll is not None:
+            union_doc["distinct_keys_hll"] = union.distinct_keys_hll
+        if union.distinct_keys_exact is not None:
+            union_doc["distinct_keys_exact"] = union.distinct_keys_exact
+        if union.quantiles is not None:
+            union_doc["size_quantiles"] = union.quantiles.as_dict()
+        doc["union"] = union_doc
+        doc["telemetry"] = result.telemetry
+        attach_scan_digests(doc, result, diagnosis)
+        # Degraded keys are dense fan-in rows; reasons carry topic/partition.
+        rc = scan_issue_exit(result, doc=doc)
+        print(json.dumps(doc))
+        return rc, result
+    for topic, sliced, start, end in slices:
+        # Only the per-row lines a slice can carry render (per-partition
+        # sketches); the merged union-only sketches are None here.
+        sys.stdout.write(
+            render_report(
+                topic, sliced, start, end, result.duration_secs,
+                show_alive_keys=False, show_extensions=True,
+            )
+        )
+        if args.extremes_table:
+            sys.stdout.write(render_extremes_table(sliced))
+    # Union block: totals + merged sketches (not sliceable per topic).
+    eq = "=" * 120
+    print(eq)
+    print(f"FAN-IN UNION of {len(topics)} topics: {', '.join(topics)}")
+    print(f"Messages: {union.overall_count}")
+    print(f"Bytes: {union.overall_size}")
+    print(f"Earliest Message: {format_utc_seconds(union.earliest_ts_s)}")
+    print(f"Latest Message: {format_utc_seconds(union.latest_ts_s)}")
+    if args.count_alive_keys and union.alive_keys is not None:
+        # Sum of per-topic alive keys (slots are salted per topic, so the
+        # count is interleaving-independent; io/multi.py).
+        print(f"Alive keys (sum over topics): {union.alive_keys}")
+    if union.distinct_keys_hll is not None:
+        print(f"Distinct keys (HLL est., union): {round(union.distinct_keys_hll)}")
+    if union.distinct_keys_exact is not None:
+        print(f"Distinct keys (exact, union): {union.distinct_keys_exact}")
+    if union.quantiles is not None:
+        qs = " ".join(
+            f"p{int(p * 100)}={v:.0f}B"
+            for p, v in zip(union.quantiles.probs, union.quantiles.values)
+        )
+        print(f"Message size quantiles (union): {qs}")
+    print(eq)
+    return scan_issue_exit(
+        result, render=True, data_loss_policy=args.on_data_loss
+    ), result
+
+
 def main(argv: "list[str] | None" = None) -> int:
     init_logging()  # env_logger parity: RUST_LOG / KTA_LOG
     args = build_parser().parse_args(argv)
+    history_dir = None
+    if args.history_bytes:
+        if args.history_bytes < 4096:
+            print("error: --history-bytes must be >= 4096", file=sys.stderr)
+            return 1
+        if not args.snapshot_dir:
+            print(
+                "error: --history-bytes requires --snapshot-dir (the "
+                "telemetry history lives next to the checkpoints so a "
+                "restarted service resumes both from one place)",
+                file=sys.stderr,
+            )
+            return 1
+        from kafka_topic_analyzer_tpu_torch.checkpoint import (
+            history_dir as _history_dir,
+        )
+
+        history_dir = _history_dir(args.snapshot_dir)
     try:
         with telemetry_session(
             metrics_port=args.metrics_port,
             events_jsonl=args.events_jsonl,
             trace_json=args.trace_json,
             flight_record=args.flight_record,
+            history_dir=history_dir,
+            history_bytes=args.history_bytes,
+            sse=args.sse,
         ):
             return run(args)[0]
     except OSError as e:

@@ -2,9 +2,10 @@
 ``AnalyzerConfig``), the Kafka wire scan's three transport policies
 (``TransportRetryConfig``, ``CorruptionConfig``, ``DataLossConfig``) and
 the parallel-ingest sizing (``IngestConfig``), the superbatch dispatch
-sizing (``DispatchConfig``) and the remote segment tier's knobs
-(``SegmentFetchConfig``), the reference's, with the same validation and
-error text.
+sizing (``DispatchConfig``), the remote segment tier's knobs
+(``SegmentFetchConfig``) and the service layer's (``FollowConfig``,
+``HealthConfig``, ``ServeConfig``), the reference's, with the same
+validation and error text.
 
 Same fields, defaults and validation as the reference, restricted to what
 the port runs: wire format 4 or 5, alive-pair compaction auto or off, one
@@ -208,6 +209,191 @@ class DispatchConfig:
             fold_cap = max(1, self.auto_fold_cap_records // max(1, batch_size))
             return min(k, fold_cap)
         return int(self.superbatch)
+
+
+@dataclasses.dataclass(frozen=True)
+class FollowConfig:
+    """Follow-mode service knobs (``--follow`` and friends; serve/follow.py).
+
+    Like `IngestConfig`, deliberately NOT part of `AnalyzerConfig`: how
+    often the service re-polls watermarks, checkpoints, or rotates report
+    windows changes neither state shapes nor fold semantics — a follow
+    run's cumulative metrics are byte-identical to a batch scan stopped at
+    the same offsets (DESIGN.md §18) — so none of it may churn the
+    checkpoint fingerprint.  A snapshot taken by a batch scan resumes
+    under ``--follow`` and vice versa.
+    """
+
+    #: Watermark re-poll cadence at the head (seconds).  Also the FLOOR of
+    #: the idle backoff schedule: consecutive empty polls back off
+    #: exponentially from here up to ``idle_backoff_max_s`` (reusing
+    #: io/retry.Backoff), so a quiet topic costs metadata queries, not
+    #: fetch spin.
+    poll_interval_s: float = 1.0
+    #: Idle backoff ceiling (seconds) — the longest the service sleeps
+    #: between polls of a quiet topic.  Any new data resets the schedule
+    #: to ``poll_interval_s``.
+    idle_backoff_max_s: float = 10.0
+    #: Checkpoint cadence (seconds, ``--checkpoint-interval``).  Commits
+    #: happen only at superbatch boundaries (the engine's long-standing
+    #: fold-consistency rule), so this is a floor, not an exact period.
+    checkpoint_every_s: float = 60.0
+    #: Exit cleanly after this long at the head with no new records
+    #: (``--follow-idle-exit``); None = follow forever.  The "drain and
+    #: stop" mode: catch up, wait out the idle window, report, exit 0.
+    idle_exit_s: "float | None" = None
+    #: Width of one report window (seconds) for the time-windowed folds
+    #: served at /report.json (serve/windows.py).
+    window_secs: float = 60.0
+    #: Number of window states kept in the ring (0 disables windowed
+    #: folds).  "What changed in the last 5 minutes" is the associative
+    #: merge of the last ceil(300/window_secs) states.
+    window_count: int = 8
+    #: HLL precision for the per-window per-partition cardinality fold
+    #: (2^p one-byte registers per partition per window — deliberately
+    #: smaller than the scan's cumulative sketch: window memory is
+    #: P * 2^p * window_count bytes).
+    window_hll_p: int = 10
+
+    def __post_init__(self) -> None:
+        if self.poll_interval_s <= 0:
+            raise ValueError("--poll-interval must be > 0 seconds")
+        if self.idle_backoff_max_s < self.poll_interval_s:
+            raise ValueError(
+                "idle backoff ceiling must be >= the poll interval"
+            )
+        if self.checkpoint_every_s < 0:
+            raise ValueError("--checkpoint-interval must be >= 0 seconds")
+        if self.idle_exit_s is not None and self.idle_exit_s < 0:
+            raise ValueError("--follow-idle-exit must be >= 0 seconds")
+        if self.window_secs <= 0:
+            raise ValueError("--window-secs must be > 0 seconds")
+        if self.window_count < 0:
+            raise ValueError("--window-count must be >= 0")
+        if not (4 <= self.window_hll_p <= 16):
+            raise ValueError("window hll precision must be in [4, 16]")
+
+
+#: Valid --lease-store selections: ``auto`` derives the store from the
+#: run (the object store when --segment-store is remote, else lease
+#: files in the checkpoint dir), the other two pin it.
+
+
+@dataclasses.dataclass(frozen=True)
+class HealthConfig:
+    """Alert-engine knobs (obs/health.py; DESIGN.md §22).
+
+    Like `FollowConfig`, deliberately NOT part of `AnalyzerConfig`: how
+    often health is evaluated (and what thresholds page) changes neither
+    state shapes nor fold semantics — the engine only READS registry
+    snapshots and observed windows — so none of it may churn the
+    checkpoint fingerprint, and a scan is byte-identical with alerting
+    on or off (tests/test_health.py pins it).
+    """
+
+    #: Floor between evaluations on the rate-limited ``maybe_evaluate``
+    #: path (the engine heartbeat hook).  Poll-boundary evaluations from
+    #: the follow/fleet services are not limited by it — a poll boundary
+    #: IS an evaluation point, which is what makes the /healthz flip
+    #: land within one interval of the fault (the acceptance bar).
+    eval_interval_s: float = 5.0
+    #: Default for-duration: a rule's condition must hold this long
+    #: before the alert fires (blip suppression).
+    for_s: float = 10.0
+    #: Default resolve hysteresis: the condition must stay clear this
+    #: long before a firing alert resolves (flap suppression).
+    resolve_s: float = 15.0
+    #: Lag-growth window: lag must exceed its value this far back (by at
+    #: least ``lag_min_growth`` records) to count as diverging.
+    lag_window_s: float = 30.0
+    lag_min_growth: int = 1
+    #: Corruption-storm window and the frames-per-window threshold.
+    storm_window_s: float = 60.0
+    corrupt_frames_threshold: float = 1.0
+    #: Watermark-refresh-outage window (any budget-exhausted re-poll
+    #: inside it keeps the condition true).
+    outage_window_s: float = 60.0
+    #: Throughput regression: recent window vs the trailing baseline
+    #: window; fires when recent < drop_fraction x baseline while lag
+    #: remains, and never below ``min_baseline_rate`` records/s (an
+    #: idle or tiny scan has no baseline worth defending).
+    throughput_window_s: float = 30.0
+    throughput_baseline_s: float = 180.0
+    throughput_drop_fraction: float = 0.5
+    min_baseline_rate: float = 1.0
+    #: Observed-series retention (must cover the longest rule window).
+    retention_s: float = 900.0
+
+    def __post_init__(self) -> None:
+        if self.eval_interval_s <= 0:
+            raise ValueError("health eval interval must be > 0 seconds")
+        if self.for_s < 0 or self.resolve_s < 0:
+            raise ValueError("for/resolve durations must be >= 0")
+        if self.lag_window_s <= 0 or self.storm_window_s <= 0:
+            raise ValueError("rule windows must be > 0 seconds")
+        if self.outage_window_s <= 0 or self.throughput_window_s <= 0:
+            raise ValueError("rule windows must be > 0 seconds")
+        if self.throughput_baseline_s <= self.throughput_window_s:
+            raise ValueError(
+                "throughput baseline window must exceed the recent window"
+            )
+        if not (0.0 < self.throughput_drop_fraction < 1.0):
+            raise ValueError("throughput drop fraction must be in (0, 1)")
+        if self.retention_s < max(
+            self.lag_window_s,
+            self.storm_window_s,
+            self.outage_window_s,
+            self.throughput_baseline_s,
+        ):
+            raise ValueError(
+                "health retention must cover the longest rule window"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Read-path knobs (serve/state.py + serve/push.py; DESIGN.md §26).
+
+    Like `HealthConfig`, deliberately NOT part of `AnalyzerConfig`: how
+    reports are encoded and pushed changes neither state shapes nor fold
+    semantics — the serving plane only READS published snapshots — so
+    none of it may churn the checkpoint fingerprint, and a scan is
+    byte-identical with the serving stack on or off
+    (tests/test_serve_plane.py pins it).
+    """
+
+    #: Compress /report.json bodies once at publish time (``gzip_level``
+    #: below); ``--no-serve-gzip`` clears it.
+    gzip: bool = True
+    #: Gzip level for publish-time encoding: 6 is the classic wire
+    #: default — ~10× on report JSON, a low-single-digit-ms cost paid
+    #: once per poll boundary, never per request.
+    gzip_level: int = 6
+    #: Bodies smaller than this are not worth a gzip member's overhead;
+    #: the publish stores no gzip variant and every client gets identity.
+    gzip_min_bytes: int = 256
+    #: Per-subscriber SSE frame queue bound — a subscriber this far
+    #: behind the publish rate is evicted, never blocked on
+    #: (kta_serve_sse_dropped_total{reason="slow-client"}).
+    sse_queue_len: int = 64
+    #: SSE keepalive-comment cadence while no publish arrives, keeping
+    #: intermediaries from idling out the stream.
+    sse_keepalive_s: float = 15.0
+
+    def __post_init__(self) -> None:
+        if not (1 <= self.gzip_level <= 9):
+            raise ValueError("serve gzip level must be in 1..9")
+        if self.gzip_min_bytes < 0:
+            raise ValueError("serve gzip floor must be >= 0 bytes")
+        if self.sse_queue_len < 1:
+            raise ValueError("SSE queue length must be >= 1")
+        if self.sse_keepalive_s <= 0:
+            raise ValueError("SSE keepalive must be > 0 seconds")
+
+
+#: The one shared default — the serve modules read their constants from
+#: here so a knob has exactly one home.
+DEFAULT_SERVE = ServeConfig()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -51,6 +51,14 @@ written by this package or by the reference.
 A Kafka wire source may drop partitions (degraded), skip poisoned frames
 (corrupt) or see the log move under it (lost): the result carries what
 the source booked, for the report's warning blocks and the exit code.
+
+The follow service (``serve/follow.py``) calls `run_scan` once per poll
+on the same backend, from the previous pass's ``next_offsets``: the
+backend's state keeps accumulating, its staging rings come back to it at
+every pass end (`MetricBackend.release_staging`) and serve the next pass,
+and the pass hooks (``initial_seq``, ``heartbeat``, ``emit_lifecycle``,
+``book_once``, ``final_snapshot``) make a chain of passes book and
+report as one scan.
 """
 
 from __future__ import annotations
@@ -68,6 +76,7 @@ from kafka_topic_analyzer_tpu_torch.backends.base import MetricBackend
 from kafka_topic_analyzer_tpu_torch.config import IngestConfig
 from kafka_topic_analyzer_tpu_torch.io.source import RecordSource
 from kafka_topic_analyzer_tpu_torch.obs import events as obs_events
+from kafka_topic_analyzer_tpu_torch.obs import health as obs_health
 from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
 from kafka_topic_analyzer_tpu_torch.obs import trace as obs_trace
 from kafka_topic_analyzer_tpu_torch.obs.registry import default_registry
@@ -241,9 +250,9 @@ def _book_fused_bypass(source: RecordSource, backend: MetricBackend) -> None:
     obs_metrics.FUSED_FALLBACK.labels(reason=reason).inc()
 
 
-def _wire_stats(config) -> WireStats:
+def _wire_stats(config, book: bool = True) -> WireStats:
     """The wire accounting of a packed backend's config, with the v4 and
-    compaction-off bypasses booked once per scan."""
+    compaction-off bypasses booked once per scan (``book``)."""
     from kafka_topic_analyzer_tpu_torch.packing import section_byte_split
 
     per_rec, table = section_byte_split(config, config.batch_size)
@@ -262,9 +271,9 @@ def _wire_stats(config) -> WireStats:
             )
         ),
     )
-    if config.wire_v4_reason is not None:
+    if config.wire_v4_reason is not None and book:
         obs_metrics.WIRE_V4_FALLBACK.labels(reason=config.wire_v4_reason).inc()
-    if config.alive_compaction_off_reason is not None:
+    if config.alive_compaction_off_reason is not None and book:
         obs_metrics.ALIVE_COMPACTION_OFF.labels(
             reason=config.alive_compaction_off_reason
         ).inc()
@@ -283,6 +292,11 @@ def run_scan(
     snapshot_every_s: float = 60.0,
     resume: bool = False,
     ingest_workers: "int | str | IngestConfig" = 1,
+    initial_seq: int = 0,
+    heartbeat: "Optional[obs_events.Heartbeat]" = None,
+    emit_lifecycle: bool = True,
+    book_once: bool = True,
+    final_snapshot: bool = False,
 ) -> ScanResult:
     """Full scan of ``topic`` from ``source`` through ``backend``;
     ``start_at`` starts the partitions it names at those offsets (the
@@ -290,7 +304,23 @@ def run_scan(
     take precedence).  ``ingest_workers`` (an int, ``"auto"`` or an
     `config.IngestConfig`) shards the partitions over that many ingest
     workers.  The session's active `obs.trace.SpanTracer`, if any,
-    mirrors every stage window into a Chrome trace."""
+    mirrors every stage window into a Chrome trace.
+
+    Follow-mode pass hooks (serve/follow.py reruns this function per
+    poll on the SAME backend, so its state accumulates and its staging
+    rings, dispatch queue and superbatch stager serve every pass):
+    ``initial_seq`` seeds the record sequence so pass N+1's spinner,
+    heartbeat and snapshot counts continue pass N's; ``heartbeat`` shares
+    one rate limiter across passes (a fresh one per pass would fire on
+    every poll at the head); ``emit_lifecycle=False`` suppresses the
+    per-pass scan_start/scan_end events, the closing heartbeat and the
+    spinner's finish line (the service emits one lifecycle pair for its
+    run); ``book_once=False`` suppresses the once-per-scan bypass
+    bookings (wire v4, compaction off, fused fallback) on every pass after
+    the first; ``final_snapshot`` forces a snapshot once the stream has
+    drained, at a superbatch boundary (the pending tail is flushed at
+    every pass end) — the service's checkpoint-interval and clean-shutdown
+    commits."""
     ingest_cfg = (
         ingest_workers
         if isinstance(ingest_workers, IngestConfig)
@@ -305,16 +335,19 @@ def run_scan(
     start_offsets, end_offsets = source.watermarks()
     profile = ScanProfile(tracer=obs_trace.active())
     spinner = spinner or Spinner(enabled=False)
-    heartbeat = obs_events.Heartbeat(HEARTBEAT_EVERY_S)
+    if heartbeat is None:
+        heartbeat = obs_events.Heartbeat(HEARTBEAT_EVERY_S)
     t0 = time.monotonic()
-    obs_events.emit(
-        "scan_start", topic=topic, partitions=len(pindex), batch_size=batch_size
-    )
+    if emit_lifecycle:
+        obs_events.emit(
+            "scan_start", topic=topic, partitions=len(pindex),
+            batch_size=batch_size,
+        )
     # Per-partition progress, for the lag/ETA gauges and the snapshots.
     tracker = _ProgressTracker(start_offsets)
     if start_at:
         tracker.next_offsets.update(start_at)
-    seq = 0
+    seq = initial_seq
 
     def maybe_heartbeat() -> None:
         """Rate-limited telemetry refresh: per-partition lag/ETA gauges +
@@ -339,6 +372,13 @@ def run_scan(
             records_per_sec=round(rate, 1),
             lag_total=lag_total,
         )
+        # Health evaluation rides the heartbeat boundary so a plain batch
+        # scan gets a live /healthz too; the engine rate-limits itself
+        # (HealthConfig.eval_interval_s) and only reads registry
+        # snapshots, so the scan is the same with it on or off.
+        health = obs_health.active()
+        if health is not None:
+            health.maybe_evaluate()
 
     can_snapshot = snapshot_dir is not None and backend.snapshots
     if snapshot_dir is not None and not backend.snapshots:
@@ -421,6 +461,7 @@ def run_scan(
     fused = fused_gate(source, backend)
     if (
         not fused
+        and book_once
         and backend.packs_rows
         and getattr(source, "supports_fused_sink", False)
     ):
@@ -435,7 +476,7 @@ def run_scan(
 
     wire = None
     if backend.packs_rows:
-        wire = _wire_stats(backend.config)
+        wire = _wire_stats(backend.config, book=book_once)
         wire_bytes0 = obs_metrics.WIRE_BYTES.value
         pairs_raw0 = obs_metrics.ALIVE_PAIRS_RAW.value
         pairs_emitted0 = obs_metrics.ALIVE_PAIRS_EMITTED.value
@@ -597,33 +638,42 @@ def run_scan(
     finally:
         if hasattr(items, "close"):
             items.close()
+        # The pass's ingest threads have ended: their staging rings go
+        # back to the backend for the next pass (follow mode).
+        backend.release_staging()
     degraded = _booked(source, "degraded_partitions")
     corrupt = _booked(source, "corruption_stats")
     lost = _booked(source, "loss_stats")
-    if degraded or corrupt or lost:
+    if degraded or corrupt or lost or final_snapshot:
         # Degraded partitions carry an unscanned tail, corrupt ones
         # skipped spans the tracker never saw, lost ones booked spans a
         # resume must inherit: snapshot so a rerun resumes correctly.
+        # ``final_snapshot`` forces the same commit for a clean drain.
         maybe_snapshot(force=True)
     with profile.stage("finalize"):
         metrics = backend.finalize()
     metrics.partitions = pindex.ids
-    spinner.finish_with_message("done")
+    if emit_lifecycle:
+        spinner.finish_with_message("done")
     duration_secs = int(time.monotonic() - t0)
     # Final telemetry: drained partitions report zero lag, and the
-    # lifecycle closes.
-    heartbeat.force()
+    # lifecycle closes.  Follow passes skip the forced refresh: the
+    # service refreshes the lag gauges against the moving head every
+    # poll, and a forced heartbeat per pass would flood the event log.
+    if emit_lifecycle:
+        heartbeat.force()
     maybe_heartbeat()
     obs_metrics.DEGRADED_PARTITIONS.set(len(degraded))
-    obs_events.emit(
-        "scan_end",
-        topic=topic,
-        records=seq,
-        duration_secs=duration_secs,
-        degraded=len(degraded),
-        corrupt_frames=sum(d.get("frames", 0) for d in corrupt.values()),
-        lost_records=sum(d.get("records", 0) for d in lost.values()),
-    )
+    if emit_lifecycle:
+        obs_events.emit(
+            "scan_end",
+            topic=topic,
+            records=seq,
+            duration_secs=duration_secs,
+            degraded=len(degraded),
+            corrupt_frames=sum(d.get("frames", 0) for d in corrupt.values()),
+            lost_records=sum(d.get("records", 0) for d in lost.values()),
+        )
     if wire is not None:
         wire.bytes_total = int(obs_metrics.WIRE_BYTES.value - wire_bytes0)
         wire.records = seq - seq_base

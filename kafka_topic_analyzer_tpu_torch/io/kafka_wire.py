@@ -1293,6 +1293,57 @@ class KafkaWireSource(RecordSource):
         )
         return self._watermarks
 
+    def refresh_watermarks(self) -> Tuple[Dict[int, int], Dict[int, int]]:
+        """Follow-mode watermark re-poll, routed through the transport
+        retry/backoff budget (io/retry.Backoff — the same schedule fetch
+        recovery runs): a metadata hiccup at the head must pace and retry,
+        never take down a service that has been running for days.  Each
+        failed attempt reloads cluster metadata (the usual cause is a
+        moved leader) before backing off.  When the whole budget is
+        exhausted the PREVIOUS snapshot is kept — the service simply polls
+        again next round — and the give-up is booked
+        (kta_watermark_refresh_failures_total) and emitted
+        (``watermark_refresh_failed``), never silent."""
+        backoff = Backoff(self.retry_config)
+        last_error: "BaseException | None" = None
+        for attempt in range(1, self.retry_config.retry_budget + 1):
+            try:
+                fresh = (
+                    self._list_offsets(kc.EARLIEST_TIMESTAMP),
+                    self._list_offsets(kc.LATEST_TIMESTAMP),
+                )
+                self._watermarks = fresh
+                return fresh
+            except (OSError, kc.KafkaProtocolError) as e:
+                last_error = e
+                log.warning(
+                    "watermark refresh attempt %d/%d failed: %s",
+                    attempt, self.retry_config.retry_budget, e,
+                )
+                if attempt < self.retry_config.retry_budget:
+                    self._reload_metadata()
+                    backoff.sleep_for(attempt)
+        obs_metrics.WATERMARK_REFRESH_FAILURES.inc()
+        obs_events.emit(
+            "watermark_refresh_failed",
+            attempts=self.retry_config.retry_budget,
+            error=str(last_error),
+        )
+        return self.watermarks()
+
+    def heal_degraded(self, partitions: "List[int]") -> None:
+        """Clear the degraded flag for partitions a later follow pass
+        caught up to the head (serve/follow.py): the degraded transition
+        marks an UNDERCOUNT, and once the tail is re-read there is no
+        undercount left to report.  Batch scans never call this — their
+        degraded set is final by construction."""
+        if not partitions:
+            return
+        with self._degraded_lock:
+            for p in partitions:
+                if self.degraded.pop(p, None) is not None:
+                    obs_events.emit("partition_healed", partition=int(p))
+
     def offsets_for_timestamp(self, ts_ms: int) -> Dict[int, int]:
         """Per-partition earliest offset whose record timestamp >= ts_ms
         (ListOffsets timestamp lookup); partitions with no such record map

@@ -1,5 +1,5 @@
 """RecordSource protocol — the ingestion seam (port of the reference's
-``io/source.py``, the batch-scan subset).
+``io/source.py``).
 
 A source fixes per-partition watermarks at scan start and then yields
 `RecordBatch`es covering ``[start, end)`` in per-partition offset order,
@@ -39,6 +39,17 @@ class RecordSource(abc.ABC):
     #: True for sources whose ``batches`` takes ``sink=`` and can feed a
     #: `packing.FusedPackSink` instead of yielding decoded batches.
     supports_fused_sink = False
+
+    def refresh_watermarks(self) -> Tuple[Dict[int, int], Dict[int, int]]:
+        """Re-poll the end watermarks and return the fresh
+        (start_offsets, end_offsets) — the follow-mode tail contract
+        (serve/follow.py): each poll widens the scan target to the moving
+        head.  Static sources (synthetic, segment files) have nothing to
+        refresh, so the default returns the fixed snapshot; the live wire
+        source re-queries the brokers through its retry/backoff budget and,
+        when the budget is exhausted, keeps the previous snapshot instead
+        of failing the service (io/kafka_wire.py)."""
+        return self.watermarks()
 
     def partition_record_counts(self) -> "Dict[int, int] | None":
         """Records per partition when the source knows them up front

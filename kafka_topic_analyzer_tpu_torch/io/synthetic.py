@@ -61,9 +61,11 @@ class SyntheticSpec:
     }
 
     @classmethod
-    def from_kv(cls, kv: "dict[str, str]") -> "SyntheticSpec":
+    def from_kv(cls, kv: "dict[str, str]", seed_salt: int = 0) -> "SyntheticSpec":
         """Build a spec from the CLI's comma-separated k=v surface; every
-        rejection names the offending key and the expected form."""
+        rejection names the offending key and the expected form.
+        ``seed_salt`` is added to the seed (a multi-topic fan-in gives
+        each topic its index, so the topics hold different records)."""
         for key in kv:
             if key and key not in cls.KV_KEYS:  # "" = trailing comma, ignore
                 raise ValueError(
@@ -102,7 +104,7 @@ class SyntheticSpec:
             tombstone_permille=geti("tombstones", 100, lo=0, hi=1000),
             value_len_min=vmin,
             value_len_max=vmax,
-            seed=geti("seed", 0x5EED, base=0),
+            seed=geti("seed", 0x5EED, base=0) + seed_salt,
         )
 
 

@@ -1,8 +1,7 @@
 """Scan doctor: automated bottleneck attribution from telemetry (port of
-the reference's ``obs/doctor.py``: `diagnose` and `diagnose_scan`.  The
-trend doctor — ``diagnose_trends`` and its droop/storm rules — reads the
-disk-backed telemetry history of ``obs/history.py``, which is not ported
-yet, and is left out with it).
+the reference's ``obs/doctor.py``: `diagnose`, `diagnose_scan` and the
+trend doctor `diagnose_trends` over the disk-backed telemetry history of
+``obs/history.py``).
 
 On CUDA the ``dispatch`` stage is host time: the throttle's real wait for
 a CUDA event plus the enqueue of the fold's kernels.  A device that falls
@@ -337,12 +336,256 @@ def _summarize(
     return "; ".join(parts)
 
 
+# -- trend doctor (DESIGN.md §22) ---------------------------------------------
+#
+# `diagnose` answers "what is the bottleneck RIGHT NOW" from the live
+# ring; these verdicts answer "is this service getting WORSE" from a
+# disk-backed history window (obs/history.HistoryStore.window format) —
+# throughput droop vs the run's own trailing baseline, lag divergence
+# (ETA ∞), retry/corruption storms, segstore fallback and cache-poison
+# spikes, and the warm-cache verify residual.  Same evidence discipline
+# as the live doctor: every finding carries the numbers it was computed
+# from, never a bare label.  Epoch-aware: counter deltas difference only
+# within a process lifetime (obs/history.track_delta), while rates keep
+# the FULL wall denominator — a restart's dead time counts as quiet
+# time, it is never collapsed out of the window.
+
+#: Recent fraction of the window the droop/storm comparisons treat as
+#: "now" (the leading 1-RECENT_FRAC is the trailing baseline).
+RECENT_FRAC = 0.25
+#: A recent rate below this multiple of the baseline is a droop.
+DROOP_RATIO = 0.5
+#: A recent fault rate above this multiple of the baseline is a storm
+#: (with at least MIN_STORM_EVENTS recent events — a 0→2 blip on an
+#: otherwise-silent counter is noise, not a storm).
+STORM_RATIO = 3.0
+MIN_STORM_EVENTS = 3
+#: Verify-bound: sha-verify seconds per wall second above this share.
+VERIFY_BOUND_SHARE = 0.25
+#: Fetch-bound: scheduler queue-wait seconds per wall second above this
+#: share flags the remote tier; queue depth vs in-flight then attributes
+#: it (starved pool vs saturated wire).
+FETCH_WAIT_SHARE = 0.25
+
+
+def _split_window(window: dict) -> "Optional[tuple]":
+    t = window.get("t") or []
+    if len(t) < 4:
+        return None
+    t0, t1 = t[0], t[-1]
+    if t1 <= t0:
+        return None
+    split = t1 - (t1 - t0) * RECENT_FRAC
+    return t0, split, t1
+
+
+def _sub(window: dict, lo: float, hi: float) -> dict:
+    """Restrict a window dict to [lo, hi] (same shape)."""
+    t = window.get("t") or []
+    idx = [i for i, ts in enumerate(t) if lo <= ts <= hi]
+    return {
+        "t": [t[i] for i in idx],
+        "epoch": [(window.get("epoch") or [1] * len(t))[i] for i in idx],
+        "tracks": {
+            name: [series[i] for i in idx]
+            for name, series in (window.get("tracks") or {}).items()
+        },
+    }
+
+
+def _rate_pair(window: dict, name: str) -> "Optional[tuple]":
+    """(baseline_rate, recent_rate, recent_delta) across the split, or
+    None when the window is too short to compare."""
+    from kafka_topic_analyzer_tpu_torch.obs.history import (
+        track_delta,
+        track_rate,
+    )
+
+    parts = _split_window(window)
+    if parts is None:
+        return None
+    t0, split, t1 = parts
+    base = _sub(window, t0, split)
+    recent = _sub(window, split, t1)
+    if len(base.get("t") or []) < 2 or len(recent.get("t") or []) < 2:
+        return None
+    return (
+        track_rate(base, name),
+        track_rate(recent, name),
+        track_delta(recent, name),
+    )
+
+
+def _storm(window: dict, track: str, kind: str, what: str) -> "Optional[dict]":
+    pair = _rate_pair(window, track)
+    if pair is None:
+        return None
+    base_rate, recent_rate, recent_events = pair
+    if recent_events < MIN_STORM_EVENTS:
+        return None
+    if base_rate > 0 and recent_rate < STORM_RATIO * base_rate:
+        return None
+    return {
+        "kind": kind,
+        "summary": (
+            f"{kind}: {what} at {recent_rate:.2f}/s in the recent window "
+            f"vs {base_rate:.2f}/s baseline"
+        ),
+        "evidence": {
+            "recent_per_s": round(recent_rate, 3),
+            "baseline_per_s": round(base_rate, 3),
+            "recent_events": int(recent_events),
+        },
+    }
+
+
+def diagnose_trends(window: dict) -> "List[dict]":
+    """Trend verdicts over one history window.  Returns [] for a healthy
+    (or too-short) window; each finding is ``{"kind", "summary",
+    "evidence"}`` with the evidence numbers the verdict was computed
+    from.  Callers: the ``--stats`` TRENDS digest (cli._print_stats)
+    and anything reading ``/history`` offline."""
+    from kafka_topic_analyzer_tpu_torch.obs.history import track_points
+
+    findings: "List[dict]" = []
+    parts = _split_window(window)
+    if parts is None:
+        return findings
+    t0, split, t1 = parts
+    wall = t1 - t0
+
+    # Throughput droop vs the run's own trailing baseline.
+    pair = _rate_pair(window, "records")
+    if pair is not None:
+        base_rate, recent_rate, _ = pair
+        if base_rate > 1.0 and recent_rate < DROOP_RATIO * base_rate:
+            findings.append({
+                "kind": "throughput-droop",
+                "summary": (
+                    f"throughput-droop: recent fold rate "
+                    f"{recent_rate:,.0f}/s is "
+                    f"{recent_rate / base_rate:.0%} of the trailing "
+                    f"baseline {base_rate:,.0f}/s"
+                ),
+                "evidence": {
+                    "recent_per_s": round(recent_rate, 1),
+                    "baseline_per_s": round(base_rate, 1),
+                    "ratio": round(recent_rate / base_rate, 3),
+                },
+            })
+
+    # Lag divergence: the gap to the head grew over the window — at this
+    # rate the scan never catches up (ETA ∞).
+    lag_pts = track_points(window, "follow_lag")
+    if len(lag_pts) >= 2:
+        first, last = lag_pts[0], lag_pts[-1]
+        growth = last[2] - first[2]
+        if last[2] > 0 and growth > 0:
+            findings.append({
+                "kind": "lag-divergence",
+                "summary": (
+                    f"lag-divergence: lag grew {growth:,.0f} records over "
+                    f"{wall:.0f}s ({growth / wall:,.1f}/s) — at this rate "
+                    "the scan never catches up (ETA ∞)"
+                ),
+                "evidence": {
+                    "lag": int(last[2]),
+                    "lag_then": int(first[2]),
+                    "growth_per_s": round(growth / wall, 2),
+                    "eta": "inf",
+                },
+            })
+
+    storm = _storm(window, "backoff_sleeps", "retry-storm",
+                   "transport retries backing off")
+    if storm:
+        findings.append(storm)
+    storm = _storm(window, "corrupt_frames", "corruption-storm",
+                   "frames classifying corrupt")
+    if storm:
+        findings.append(storm)
+    storm = _storm(window, "segstore_fallbacks", "segstore-fallback-spike",
+                   "segment-store fallbacks (cache poison/stale/IO) booking")
+    if storm:
+        findings.append(storm)
+
+    # Warm-cache verify residual: sha-verify on cache hits eating a
+    # material share of the window, attributable from telemetry alone.
+    # (The summary text is the reference's, word for word.)
+    from kafka_topic_analyzer_tpu_torch.obs.history import track_delta
+
+    verify_s = track_delta(window, "cache_verify_s")
+    hit_bytes = track_delta(window, "cache_hit_bytes")
+    if wall > 0 and hit_bytes > 0 and verify_s / wall >= VERIFY_BOUND_SHARE:
+        findings.append({
+            "kind": "verify-bound",
+            "summary": (
+                f"verify-bound: sha256 verification of cache hits consumed "
+                f"{verify_s / wall:.0%} of the window "
+                f"({hit_bytes / max(verify_s, 1e-9) / 1e6:,.0f} MB/s "
+                "verified) — the warm re-audit is paying the "
+                "verify-on-every-hit cost (BENCH round 14 residual)"
+            ),
+            "evidence": {
+                "verify_seconds": round(verify_s, 3),
+                "verify_share": round(verify_s / wall, 4),
+                "hit_bytes": int(hit_bytes),
+            },
+        })
+
+    # Fetch-bound attribution (io/fetchsched.py): requests spending a
+    # material share of the window queued in the scheduler.  The queue
+    # depth vs in-flight comparison says WHICH resource ran out —
+    # scheduler starvation (queue persistently deeper than the worker
+    # pool: --fetch-concurrency is too small for this stream count) vs
+    # wire saturation (pool busy but the queue stays shallow: the link,
+    # not the admission layer, is the limit).
+    wait_s = track_delta(window, "fetch_sched_wait_s")
+    if wall > 0 and wait_s / wall >= FETCH_WAIT_SHARE:
+        queue_pts = track_points(window, "fetch_sched_queue")
+        inflight_pts = track_points(window, "fetch_sched_inflight")
+        mean_queue = (
+            sum(p[2] for p in queue_pts) / len(queue_pts)
+            if queue_pts else 0.0
+        )
+        mean_inflight = (
+            sum(p[2] for p in inflight_pts) / len(inflight_pts)
+            if inflight_pts else 0.0
+        )
+        starved = mean_queue > max(mean_inflight, 1.0)
+        attribution = (
+            "scheduler-starvation" if starved else "wire-saturation"
+        )
+        advice = (
+            "raise --fetch-concurrency"
+            if starved
+            else "the wire is the limit — more workers will not help"
+        )
+        findings.append({
+            "kind": "fetch-bound",
+            "summary": (
+                f"fetch-bound ({attribution}): requests spent "
+                f"{wait_s / wall:.0%} of the window queued in the fetch "
+                f"scheduler (mean queue {mean_queue:.1f} vs "
+                f"{mean_inflight:.1f} in flight) — {advice}"
+            ),
+            "evidence": {
+                "wait_seconds": round(wait_s, 3),
+                "wait_share": round(wait_s / wall, 4),
+                "mean_queue_depth": round(mean_queue, 2),
+                "mean_inflight": round(mean_inflight, 2),
+                "attribution": attribution,
+            },
+        })
+    return findings
+
+
 def diagnose_scan(result) -> Diagnosis:
     """`diagnose` over a finished (or in-flight follow) `ScanResult`,
     with the flight recorder folded in when one is active — the shared
     entry point for the CLI's --stats/--json paths and the follow
-    service's /report.json publisher once follow mode is ported, so every
-    surface attributes from the same evidence."""
+    service's /report.json publisher (serve/follow.py), so every surface
+    attributes from the same evidence."""
     from kafka_topic_analyzer_tpu_torch.obs import flight as _flight
 
     rec = _flight.active()

@@ -1,7 +1,7 @@
 """Pipeline flight recorder: synchronized per-stage occupancy time series
 (port of the reference's ``obs/flight.py``: the tracks of features the
-port lacks read zero, and the disk-backed history sink comes with
-``obs/history.py``).
+port lacks read zero; `FlightRecorder.attach_history` feeds the
+disk-backed history of ``obs/history.py``).
 
 Every bench round since the superbatch layer landed has diagnosed the
 pipeline by hand — BENCH_NOTES rounds 7/9/10/11 each reconstruct a
@@ -181,6 +181,20 @@ class FlightRecorder:
         self._series_cache: "Optional[Tuple[int, bytes]]" = None
         self._stop = threading.Event()
         self._thread: "Optional[threading.Thread]" = None
+        #: Optional disk-backed history sink (obs/history.HistoryStore):
+        #: every tick the recorder takes also lands one history row, so
+        #: the durable series and the live ring can never disagree about
+        #: what a tick saw.  The store has its own lock and directory —
+        #: the recorder's read-only-consumer discipline is untouched.
+        self._history = None
+
+    def attach_history(self, store) -> "FlightRecorder":
+        """Persist every sample into ``store`` (obs/history.HistoryStore),
+        registering the track kinds so downsampling follows the same
+        cum/inst policy the doctor's window math assumes."""
+        store.register_kinds({name: kind for name, kind, _ in self._tracks})
+        self._history = store
+        return self
 
     # -- sampling ------------------------------------------------------------
 
@@ -201,6 +215,27 @@ class FlightRecorder:
                 self._bufs = [buf[::2] for buf in self._bufs]
                 self.interval_s *= 2.0
         obs_metrics.FLIGHT_SAMPLES.inc()
+        history = self._history
+        if history is not None:
+            try:
+                history.append(
+                    {
+                        name: row[i]
+                        for i, (name, _, _) in enumerate(self._tracks)
+                    }
+                )
+            except Exception:
+                # Telemetry is best-effort by contract (obs/events.py):
+                # a full disk or vanished directory must neither kill
+                # the sampler thread nor fail a finished scan at
+                # teardown's closing sample.  Detach the sink — one log
+                # line, not one per tick.
+                import logging
+
+                logging.getLogger(__name__).exception(
+                    "history sink failed; detaching it"
+                )
+                self._history = None
         tracer = obs_trace.active()
         if tracer is not None:
             # Counter tracks render as stacked area lanes under the stage

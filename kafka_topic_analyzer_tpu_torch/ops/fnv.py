@@ -21,6 +21,18 @@ FNV64_OFFSET = np.uint64(0xCBF29CE484222325)
 FNV64_PRIME = np.uint64(0x100000001B3)
 
 
+_U64_MASK = (1 << 64) - 1
+
+
+def splitmix64(x: int) -> int:
+    """SplitMix64 finalizer over one Python int (the multi-topic fan-in's
+    per-topic slot salt)."""
+    x = (x + 0x9E3779B97F4A7C15) & _U64_MASK
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _U64_MASK
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _U64_MASK
+    return x ^ (x >> 31)
+
+
 def splitmix64_np(x: np.ndarray) -> np.ndarray:
     """Vectorized SplitMix64 over a uint64 array."""
     x = x.astype(np.uint64, copy=True)

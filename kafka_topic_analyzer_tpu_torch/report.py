@@ -315,6 +315,48 @@ def render_bottleneck(diagnosis) -> str:
     return "\n".join(lines) + "\n"
 
 
+def render_health(doc: "Optional[Dict]") -> str:
+    """``--stats`` HEALTH digest from an alert-engine document
+    (obs/health.HealthEngine.doc()): the verdict line plus one line per
+    ACTIVE alert with its evidence — the same document /healthz serves,
+    rendered once, so the operator's terminal and the liveness probe can
+    never disagree."""
+    if not doc:
+        return ""
+    firing = doc.get("firing") or []
+    if not firing:
+        return (
+            f"HEALTH: ok ({doc.get('evaluations', 0)} evaluations, "
+            "no active alerts)\n"
+        )
+    lines = [
+        f"HEALTH: {len(firing)} active alert(s) "
+        f"({doc.get('evaluations', 0)} evaluations)"
+    ]
+    for r in firing:
+        where = f" [{r['topic']}]" if r.get("topic") else ""
+        ev = r.get("evidence") or {}
+        ev_text = ", ".join(f"{k}={v}" for k, v in sorted(ev.items()))
+        lines.append(
+            f"  {r['rule']}{where}: {r['state']} "
+            f"{r.get('firing_s', 0) or 0:.0f}s — {r['summary']}"
+            + (f" ({ev_text})" if ev_text else "")
+        )
+    return "\n".join(lines) + "\n"
+
+
+def render_trends(findings: "Optional[List[dict]]") -> str:
+    """``--stats`` TRENDS digest from the trend doctor's findings
+    (obs/doctor.diagnose_trends over a history window) — empty string
+    when the window is healthy or too short to judge."""
+    if not findings:
+        return ""
+    lines = ["TRENDS:"]
+    for f in findings:
+        lines.append(f"  {f['summary']}")
+    return "\n".join(lines) + "\n"
+
+
 def render_telemetry_stats(
     snapshot: Optional[Dict],
     ingest_workers: int = 1,
@@ -324,10 +366,10 @@ def render_telemetry_stats(
 ) -> str:
     """``--stats`` telemetry section from a registry snapshot: the
     reference's counter digest, with the lines of the features the port
-    has (the follow service and the multi-controller split come with
-    those features)."""
+    has (the multi-controller split comes with the mesh)."""
     from kafka_topic_analyzer_tpu_torch.results import (
         DispatchStats,
+        FollowStats,
         FusedStats,
         IngestStats,
         LossStats,
@@ -458,6 +500,16 @@ def render_telemetry_stats(
             f"(K={superbatch_k}, depth={dispatch_depth}), "
             f"{dispatch.batches:,} batches folded, "
             f"{dispatch.mean_latency_ms:.1f} ms mean dispatch latency"
+        )
+    # Follow-service digest: polls/passes at the head plus the two
+    # never-silent failure counters (only for --follow runs).
+    follow = FollowStats.from_telemetry(snapshot)
+    if follow.polls or follow.passes:
+        lines.append(
+            f"  follow: {follow.polls:,} watermark polls, "
+            f"{follow.passes:,} fold passes, "
+            f"{follow.report_snapshots:,} report snapshots published, "
+            f"{follow.refresh_failures:,} refresh give-ups"
         )
     return "\n".join(lines) + "\n"
 

@@ -2,9 +2,10 @@
 (port of the reference's ``results.py``: `TopicMetrics`,
 `QuantileSummary`, `finalize_extremes`, and the telemetry digests the
 ``--stats`` report renders — `StageDigest`, `WireStats`, `FusedStats`,
-`IngestStats`, `SegmentStats`, `LossStats`, `DispatchStats`) — with the
-``--json`` document's pieces (`TopicMetrics.to_dict` and the digests'
-``as_dict``).
+`IngestStats`, `SegmentStats`, `FollowStats`, `LossStats`,
+`DispatchStats`, and `slice_rows`, the multi-topic fan-in's per-topic
+projection) — with the ``--json`` document's pieces
+(`TopicMetrics.to_dict` and the digests' ``as_dict``).
 
 The derived metrics reproduce ``src/metric.rs`` of xenji's
 kafka-topic-analyzer exactly, quirks included (documented per method).
@@ -429,6 +430,49 @@ class SegmentStats:
 
 
 @dataclasses.dataclass
+class FollowStats:
+    """Follow-service accounting extracted from a telemetry snapshot
+    (`ScanResult.telemetry`): watermark polls, fold passes, refresh
+    give-ups, and published report snapshots.  Consumed by the ``--stats``
+    digest (report.py) and the report document's ``follow`` block
+    (serve/follow.py layers the live cursor on top); empty
+    (``polls == 0``) for batch scans, which never touch the follow
+    instruments."""
+
+    #: Watermark re-polls the service took at the head.
+    polls: int
+    #: Fold passes (initial catch-up + one per productive poll + final).
+    passes: int
+    #: Re-polls that exhausted the retry budget and kept the old snapshot.
+    refresh_failures: int
+    #: Report documents published for /report.json.
+    report_snapshots: int
+
+    @classmethod
+    def from_telemetry(cls, snapshot: "Optional[dict]") -> "FollowStats":
+        def total(name: str) -> int:
+            metric = (snapshot or {}).get(name)
+            if not metric:
+                return 0
+            return int(sum(s.get("value", 0.0) for s in metric["samples"]))
+
+        return cls(
+            polls=total("kta_follow_polls_total"),
+            passes=total("kta_follow_passes_total"),
+            refresh_failures=total("kta_watermark_refresh_failures_total"),
+            report_snapshots=total("kta_report_snapshots_total"),
+        )
+
+    def as_dict(self) -> dict:
+        return {
+            "polls": self.polls,
+            "passes": self.passes,
+            "watermark_refresh_failures": self.refresh_failures,
+            "report_snapshots": self.report_snapshots,
+        }
+
+
+@dataclasses.dataclass
 class LossStats:
     """Log-mutation accounting from a telemetry snapshot: records/ranges
     the log took back under the scan, by reason, plus the epoch-fencing
@@ -528,3 +572,58 @@ class StageDigest:
                 if secs[s] or recs.get(s) or byts.get(s)
             }
         )
+
+
+def slice_rows(
+    metrics: TopicMetrics,
+    rows: "list[int]",
+    partition_ids: "list[int]",
+) -> TopicMetrics:
+    """Project a multi-topic (fan-in) result onto one topic's rows.
+
+    Exact for everything derived from per-row state (counters, extremes,
+    overall sums); cross-topic merged sketches (alive bitmap, HLL,
+    quantiles) cannot be un-merged and are dropped from the slice — they
+    live in the fan-in union report.
+    """
+    if metrics.per_partition_extremes is None:
+        raise ValueError("slice_rows needs per-partition extremes")
+    per = metrics.per_partition[rows]
+    ext = metrics.per_partition_extremes[rows]
+    earliest_raw = int(ext[:, 0].min()) if len(rows) else I64_MAX_NP
+    latest_raw = int(ext[:, 1].max()) if len(rows) else I64_MIN_NP
+    smallest_raw = int(ext[:, 2].min()) if len(rows) else I64_MAX_NP
+    largest = int(ext[:, 3].max()) if len(rows) else 0
+    now = metrics.init_now_s if metrics.init_now_s is not None else 0
+    earliest, latest, smallest = finalize_extremes(
+        earliest_raw, latest_raw, smallest_raw, now
+    )
+    overall_size = int(
+        per[:, CH["key_size_sum"]].sum() + per[:, CH["value_size_sum"]].sum()
+    )
+    overall_count = int(per[:, CH["total"]].sum())
+    qpp = None
+    if metrics.quantiles_per_partition is not None:
+        # Per-partition sketches are per-row state — sliceable like extremes.
+        qpp = [metrics.quantiles_per_partition[r] for r in rows]
+    hpp = None
+    if metrics.distinct_keys_hll_per_partition is not None:
+        hpp = [metrics.distinct_keys_hll_per_partition[r] for r in rows]
+    epp = None
+    if metrics.distinct_keys_exact_per_partition is not None:
+        epp = [metrics.distinct_keys_exact_per_partition[r] for r in rows]
+    return TopicMetrics(
+        partitions=list(partition_ids),
+        per_partition=per,
+        earliest_ts_s=earliest,
+        latest_ts_s=latest,
+        smallest_message=smallest,
+        largest_message=largest,
+        overall_size=overall_size,
+        overall_count=overall_count,
+        quantiles_per_partition=qpp,
+        distinct_keys_hll_per_partition=hpp,
+        distinct_keys_exact_per_partition=epp,
+        per_partition_extremes=ext,
+        init_now_s=metrics.init_now_s,
+    )

@@ -20,6 +20,12 @@ the alive-key and HLL paths see ``templates × records_per_batch`` unique
 keys cycling through the topic.  Window ``w`` of every partition is
 template ``w % templates``.
 
+A broker can serve a moving head: ``head`` (anything with a ``.value``,
+such as a ``multiprocessing.Value``) holds the number of windows visible
+per partition, and the end watermark and every fetch respect it, so a
+follow scan sees records arrive when the owner raises it
+(`BrokerProcess.set_head`).
+
     with BrokerProcess(topic="t", partitions=16, windows=250, R=4000,
                        n_templates=64, vmin=100, vmax=300,
                        compression=0, tombstone_every=10) as port:
@@ -101,6 +107,7 @@ class TemplateBroker:
         templates: List[bytes],
         records_per_batch: int,
         brokers: int = 1,
+        head=None,
     ):
         self.topic = topic
         self.partitions = list(range(partitions))
@@ -113,7 +120,8 @@ class TemplateBroker:
         self.windows = windows_per_partition
         self.templates = templates
         self.R = records_per_batch
-        self.end_offset = windows_per_partition * records_per_batch
+        #: Windows visible per partition (None: all of them).
+        self.head = head
         #: N listener sockets = N advertised broker nodes (partition p is
         #: led by node p % N) — exercises the wire client's
         #: leader-parallel fetch the way a real multi-broker cluster does.
@@ -129,6 +137,17 @@ class TemplateBroker:
         self.port = self.ports[0]
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
+
+    @property
+    def visible_windows(self) -> int:
+        """Windows of every partition the broker serves right now."""
+        if self.head is None:
+            return self.windows
+        return max(0, min(self.windows, int(self.head.value)))
+
+    @property
+    def end_offset(self) -> int:
+        return self.visible_windows * self.R
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -221,6 +240,8 @@ class TemplateBroker:
         non-empty partition always granted one whole batch (minOneMessage),
         which the wire client's starvation logic relies on."""
         K = len(self.templates)
+        visible = self.visible_windows
+        end_offset = visible * self.R
         plan = []  # (pid, err, first_window, n_windows, rs_bytes)
         budget = max_bytes
         served_any = False
@@ -232,7 +253,7 @@ class TemplateBroker:
             lim = min(pmax, budget)
             n = 0
             size = 0
-            while w0 + n < self.windows and (
+            while w0 + n < visible and (
                 size < lim or (n == 0 and not served_any)
             ):
                 size += len(self.templates[(w0 + n) % K])
@@ -250,8 +271,8 @@ class TemplateBroker:
         for pid, err, w0, n, size in plan:
             iov.append(
                 struct.pack(
-                    ">ihqqii", pid, err, self.end_offset,
-                    self.end_offset, 0, size,
+                    ">ihqqii", pid, err, end_offset,
+                    end_offset, 0, size,
                 )
             )
             for i in range(n):
@@ -321,7 +342,7 @@ class TemplateBroker:
 
 def _broker_child(pipe, topic, partitions, windows, R, n_templates,
                   vmin, vmax, compression, tombstone_every,
-                  brokers) -> None:
+                  brokers, head=None) -> None:
     """Subprocess entry: build templates, serve, report the port, block.
 
     The broker must live in its own process — in-process serving steals
@@ -332,7 +353,7 @@ def _broker_child(pipe, topic, partitions, windows, R, n_templates,
         compression=compression, tombstone_every=tombstone_every,
     )
     broker = TemplateBroker(
-        topic, partitions, windows, templates, R, brokers=brokers
+        topic, partitions, windows, templates, R, brokers=brokers, head=head
     )
     broker.start()
     pipe.send(broker.port)
@@ -340,15 +361,26 @@ def _broker_child(pipe, topic, partitions, windows, R, n_templates,
 
 
 class BrokerProcess:
-    """TemplateBroker in a child process; context manager yields the port."""
+    """TemplateBroker in a child process; context manager yields the port.
+
+    ``head=N`` starts a moving head with N windows visible per partition
+    (of ``windows``); `set_head` moves it from the parent."""
 
     def __init__(self, **kw):
         self._kw = kw
+        self._head = None
+
+    def set_head(self, windows: int) -> None:
+        """Make ``windows`` windows of every partition visible (the
+        records arrive at the broker, as far as any client can tell)."""
+        self._head.value = int(windows)
 
     def __enter__(self) -> int:
         import multiprocessing as mp
 
         ctx = mp.get_context("spawn")
+        if self._kw.get("head") is not None:
+            self._head = ctx.Value("q", int(self._kw["head"]), lock=False)
         self._parent, child = ctx.Pipe()
         self._proc = ctx.Process(
             target=_broker_child,
@@ -359,6 +391,7 @@ class BrokerProcess:
                 self._kw["vmax"], self._kw["compression"],
                 self._kw.get("tombstone_every", 0),
                 self._kw.get("brokers", 1),
+                self._head,
             ),
             daemon=True,
         )
