@@ -177,7 +177,34 @@ Phases, in order; any failure exits non-zero:
   which a slice cannot carry), the v4 document the v5 one, and the
   union's alive keys the sum of the topics' own scans (no salted slot is
   shared by two topics' keys: checked with numpy).  The fan-in takes the
-  chained path; each run prints records/s and its kernel's launches.
+  chained path; each run prints records/s and its kernel's launches;
+- fleet: one 4-leader ``BrokerProcess`` child serves 8 topics orders.0 to
+  orders.7 (16 partitions x 30 windows of 4,000 records each, keys salted
+  per topic: 15.36M records) beside orders.dlq and the internal
+  __consumer_offsets.  ``-t 'orders.*' --fleet --fleet-exclude '*.dlq'
+  --fleet-concurrency 4 --ingest-workers 7 --dispatch-depth 8 -c
+  --distinct-keys-per-partition --quantiles-per-partition --pallas
+  --json`` at batch 2^18 and the 2^32-slot bitmap: discovery must list 10
+  topics and the fleet scan 8, each equal to numpy's exact lines and to a
+  solo scan of the topic at 7 workers, the status table (verdicts aside)
+  to the one rebuilt from the solo scans; timed in turns with every
+  backend on a stream of its own and on the legacy default stream; the
+  peak of ``torch.cuda.max_memory_allocated``, the doctor's per-topic
+  verdicts, and from a ``--profile-dir`` run the streams that ran the
+  kernel, the device busy share and the time two or more streams were
+  busy at once.  Then the v4 fleet at 8 windows (``counters_update``); a
+  fleet follow (head at 16 windows, moved 3 times by 2, the rollup and
+  ``/report.json?topic=orders.3`` scraped); the same with
+  ``--snapshot-dir``, SIGTERM after the first advance (one checkpoint per
+  topic subdirectory) and a ``--resume`` restart whose documents must
+  equal the uninterrupted run's; ``-t orders.0,orders.1 --follow``; and
+  two CLI instances (child processes, ``--instance-id a`` and ``b``,
+  file leases on one ``--snapshot-dir``, a 2^24-slot bitmap): every
+  record of the 4-window topics folded once across them, then with the
+  head at 12 windows the instance holding leases is SIGKILLed mid-pass
+  and the other must take its topics over after ``--lease-ttl``, book one
+  ``kta_fleet_failovers_total`` each and, SIGTERMed, print documents
+  equal to solo scans.
 
 Every CLI run passes ``--quiet``; the torch backend on the host is
 ``--device cpu``.  Telemetry files and traces go under ``build/`` and are
@@ -189,8 +216,9 @@ JSON line (each kernel's back-to-back ``ms``, ``device_ms`` and
 for ``counters_merge`` the chain's ``chain_ms``; ``launches`` counts the
 16M-record Kafka scan of the kernel's format, the slice's main path, and
 ``launches_by_path`` every full-size scan, the resumed and the N-worker
-scans, the follow services' initial and tail passes, the resumed follow
-and the fan-ins among them), and as its last line
+scans, the follow services' initial and tail passes, the resumed follow,
+the fan-ins and the fleet runs among them; the lease instances are child
+processes, whose launches this process cannot count), and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -986,6 +1014,12 @@ def kafka_timings(source, config, dense_of) -> "tuple[str, object]":
             f"decode→pack {pack:.3f} ms, rest {total - wait - pack:.3f} ms"), row
 
 
+#: Decoded template columns by (R, n_templates, vmin, vmax,
+#: tombstone_every, salt): `template_expectations` decodes each template
+#: set once per run.
+TEMPLATE_COLUMNS: dict = {}
+
+
 def template_expectations(np, spec: dict) -> dict:
     """What a scan of a `tools.bench_e2e` template topic must report,
     computed with numpy from the templates' records (decoded by the
@@ -995,28 +1029,35 @@ def template_expectations(np, spec: dict) -> dict:
     slots of the keys' fnv32.  Every partition holds the same records
     (window ``w`` is template ``w % n_templates``), so each key's last
     write is the same in every partition and the count does not depend
-    on the order in which fetches of different partitions arrive."""
+    on the order in which fetches of different partitions arrive.  A
+    ``salt`` in ``spec`` salts the templates' keys as the broker's extra
+    topics do."""
     from kafka_topic_analyzer_tpu_torch.io import kafka_codec as kc
     from kafka_topic_analyzer_tpu_torch.ops.fnv import fnv1a32_ref_batch
     from kafka_topic_analyzer_tpu_torch.tools.bench_e2e import build_templates
 
-    templates = build_templates(spec["R"], spec["n_templates"], spec["vmin"],
-                                spec["vmax"], tombstone_every=spec["tombstone_every"])
-    cols = []
-    for t in templates:
-        recs = [r for _, r in kc.decode_record_batches(t)]
-        keys = [k for _, k, _ in recs]
-        lengths = np.array([len(k) for k in keys])
-        padded = np.zeros((len(keys), lengths.max()), dtype=np.uint8)
-        for i, k in enumerate(keys):
-            padded[i, : len(k)] = np.frombuffer(k, dtype=np.uint8)
-        cols.append(dict(
-            ts_s=np.array([ts for ts, _, _ in recs]) // 1000,
-            key_len=lengths,
-            value_len=np.array([len(v or b"") for _, _, v in recs]),
-            tombstone=np.array([v is None for _, _, v in recs]),
-            slot=fnv1a32_ref_batch(padded, lengths),
-        ))
+    key = (spec["R"], spec["n_templates"], spec["vmin"], spec["vmax"],
+           spec["tombstone_every"], spec.get("salt"))
+    cols = TEMPLATE_COLUMNS.get(key)
+    if cols is None:
+        templates = build_templates(spec["R"], spec["n_templates"], spec["vmin"],
+                                    spec["vmax"], tombstone_every=spec["tombstone_every"],
+                                    salt=spec.get("salt"))
+        cols = TEMPLATE_COLUMNS[key] = []
+        for t in templates:
+            recs = [r for _, r in kc.decode_record_batches(t)]
+            keys = [k for _, k, _ in recs]
+            lengths = np.array([len(k) for k in keys])
+            padded = np.zeros((len(keys), lengths.max()), dtype=np.uint8)
+            for i, k in enumerate(keys):
+                padded[i, : len(k)] = np.frombuffer(k, dtype=np.uint8)
+            cols.append(dict(
+                ts_s=np.array([ts for ts, _, _ in recs]) // 1000,
+                key_len=lengths,
+                value_len=np.array([len(v or b"") for _, _, v in recs]),
+                tombstone=np.array([v is None for _, _, v in recs]),
+                slot=fnv1a32_ref_batch(padded, lengths),
+            ))
     window = [cols[w % len(cols)] for w in range(spec["windows"])]
     cat = {k: np.concatenate([c[k] for c in window]) for k in window[0]}
     alive = ~cat["tombstone"]
@@ -1033,8 +1074,9 @@ def template_expectations(np, spec: dict) -> dict:
     )
 
 
-def check_template_scan(np, label: str, m, want: dict) -> None:
-    """Every exact line of a template-topic scan against numpy's values."""
+def check_template_scan(np, label: str, m, want: dict, quiet: bool = False) -> None:
+    """Every exact line of a template-topic scan against numpy's values
+    (a line saying so unless ``quiet``)."""
     from kafka_topic_analyzer_tpu_torch.results import COUNTER_CHANNELS
 
     def avg(total, alive):
@@ -1068,8 +1110,9 @@ def check_template_scan(np, label: str, m, want: dict) -> None:
             bad[name] = (value, expect)
     if bad:
         fail(f"scan {label}: (got, numpy) differ: {bad}")
-    print(f"scan {label}: every exact metric equals numpy's from the templates "
-          f"({want})")
+    if not quiet:
+        print(f"scan {label}: every exact metric equals numpy's from the templates "
+              f"({want})")
 
 
 def phase_kafka_identity(np, cli, kernels) -> None:
@@ -2641,6 +2684,657 @@ def phase_multitopic(np, cli, kernels) -> dict:
             "counters_update": {"fan-in v4, 3 topics": launches["counters_update"]}}
 
 
+#: Fleet phases: the reference's fleet audit (README "Fleet mode": ``-t
+#: '*' --fleet -c --distinct-keys --ingest-workers auto
+#: --fleet-concurrency 4``) over ``BASELINE.json`` config 5 ("8 topics
+#: concurrent fan-in") with config 1's ~200 B records: 8 topics orders.0
+#: to orders.7 of 16 partitions x 30 windows of 4,000 records (1.92M per
+#: topic, 15.36M in all), keys salted per topic (orders.0 unsalted), from
+#: one 4-leader `BrokerProcess` beside a small orders.dlq and the
+#: internal __consumer_offsets.  Every orders topic follows the broker's
+#: head.  16 templates per topic (64,000 keys) keep the child's start
+#: short.  Checkpoints, traces and instance logs go under ``build/``.
+FLEET_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke_fleet"
+FLEET_TOPICS = tuple(f"orders.{i}" for i in range(8))
+FLEET_SPEC = dict(partitions=16, windows=30, R=4000, n_templates=16, vmin=100,
+                  vmax=300, tombstone_every=10)
+FLEET_SMALL = (
+    dict(name="orders.dlq", partitions=2, windows=2, R=1000, n_templates=2,
+         vmin=100, vmax=300, salt=8),
+    dict(name="__consumer_offsets", partitions=4, windows=1, R=100, n_templates=1,
+         vmin=10, vmax=40, salt=9, internal=True),
+)
+FLEET_PER_WINDOW = FLEET_SPEC["partitions"] * FLEET_SPEC["R"]
+#: Every fleet run's flags.  ``--dispatch-depth 8``: the global dispatch
+#: budget of the fleet, 2 per admitted topic (a solo scan's default);
+#: at the default 2 only 2 topics would be admitted at once.
+FLEET_CORE = ["--fleet-concurrency", "4", "--dispatch-depth", "8", "-c",
+              "--distinct-keys-per-partition", "--quantiles-per-partition", "--pallas",
+              "--batch-size", str(SCAN_BATCH), "--native", "on", "--backend", "gpu"]
+FLEET_FLAGS = ["-t", "orders.*", "--fleet", "--fleet-exclude", "*.dlq",
+               "--ingest-workers", "7", "--alive-bitmap-bits", str(ALIVE_BITS),
+               *FLEET_CORE]
+#: The v4 fleet's depth, in windows per partition (512,000 records a topic).
+FLEET_V4_WINDOWS = 8
+#: Fleet follow: the head at 16 windows (8.19M records), then 3 advances
+#: of 2 windows (1,024,000 records across the 8 topics each); SIGTERM
+#: after the first advance in the checkpoint run.
+FLEET_FOLLOW = ["--follow", "--poll-interval", "0.25", "--follow-idle-exit", "3"]
+FLEET_FOLLOW_HEADS = (16, 18, 20, 22)
+FLEET_FOLLOW_KILL_AFTER = 1
+#: Fleet leases: two instances at 4 windows (2.05M records), then the head
+#: at 12 windows and one instance SIGKILLed mid-pass.  A 2^24-slot
+#: bitmap keeps each per-pass checkpoint (``--checkpoint-interval 0``, so
+#: a released topic resumes where its last owner stopped) small.
+FLEET_LEASE_HEADS = (4, 12)
+FLEET_LEASE_FLAGS = ["--ingest-workers", "3", "--alive-bitmap-bits", "24",
+                     "--lease-store", "file", "--lease-ttl", "5",
+                     "--checkpoint-interval", "0", "--resume"]
+#: Per-topic document keys that hold clock readings, process-wide
+#: counters that concurrent topics share, or the budget the fleet granted.
+FLEET_GRANTED = ("duration_secs", "telemetry", "flight", "wire", "fleet", "health",
+                 "ingest_workers", "ingest_workers_per_controller", "dispatch_depth")
+
+
+def fleet_broker(head: int):
+    """The fleet cluster's `BrokerProcess` (one child), the head at
+    ``head`` windows."""
+    from kafka_topic_analyzer_tpu_torch.tools.bench_e2e import BrokerProcess
+
+    extra = [dict(FLEET_SPEC, name=t, salt=i, follow_head=True)
+             for i, t in enumerate(FLEET_TOPICS) if i] + list(FLEET_SMALL)
+    return BrokerProcess(topic=FLEET_TOPICS[0], **FLEET_SPEC, compression=0,
+                         brokers=KAFKA_BROKERS, head=head, extra_topics=extra)
+
+
+def fleet_expectations(np, windows: int) -> dict:
+    """numpy's exact lines of every orders topic at ``windows`` windows."""
+    return {t: template_expectations(np, dict(FLEET_SPEC, windows=windows,
+                                              salt=i or None))
+            for i, t in enumerate(FLEET_TOPICS)}
+
+
+def core_doc(doc: dict) -> dict:
+    return {k: v for k, v in doc.items() if k not in FLEET_GRANTED}
+
+
+def fleet_cli(cli, kernels, argv, label: str, port=None, probe=None) -> dict:
+    """One fleet run (``--fleet`` or ``-t a,b --follow``) through the CLI's
+    own session and ``cli.run`` on this, the main thread (its SIGTERM
+    handler is live), with ``--json``: returns the result, the document,
+    stderr, the wall, the registry snapshot and the launches.  A
+    ``probe`` thread starts once the endpoint on ``port`` serves."""
+    from kafka_topic_analyzer_tpu_torch.obs import telemetry_session
+    from kafka_topic_analyzer_tpu_torch.obs.registry import default_registry
+    from kafka_topic_analyzer_tpu_torch.serve import state as serve_state
+
+    serve_state.set_active(None)
+    extra = ["--json", "--quiet"] + (["--metrics-port", str(port)] if port else [])
+    args = cli.build_parser().parse_args(argv + extra)
+    default_registry().reset()
+    zero(kernels)
+    out, err = io.StringIO(), io.StringIO()
+    with telemetry_session(metrics_port=args.metrics_port):
+        if probe is not None:
+            probe.start()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc, result = cli.run(args)
+        wall = time.perf_counter() - t0
+        snapshot = default_registry().snapshot()
+    if probe is not None:
+        probe.join(timeout=300)
+        if probe.is_alive() or probe.errors:
+            fail(f"fleet {label}: the probe failed: {probe.errors[:1]}")
+    if rc != 0:
+        fail(f"fleet {label}: CLI exited {rc}: {err.getvalue()[-2000:]}")
+    return dict(result=result, doc=json.loads(out.getvalue().strip().splitlines()[-1]),
+                err=err.getvalue(), wall=wall, snapshot=snapshot,
+                launches={n: fn.launches for n, fn in kernels.items()})
+
+
+def check_fleet(np, label: str, run: dict, want: dict, kernel: str,
+                topics=FLEET_TOPICS) -> int:
+    """Every topic of a fleet run scanned, ok, and equal to numpy's exact
+    lines; only ``kernel`` launched.  Returns its launches."""
+    fr = run["result"]
+    if set(fr.results) != set(topics) or set(run["doc"]["topics"]) != set(topics):
+        fail(f"fleet {label}: scanned {sorted(fr.results)}, not {list(topics)}")
+    for t in topics:
+        if fr.statuses[t].status != "ok":
+            fail(f"fleet {label}: topic {t} is {fr.statuses[t].status}: "
+                 f"{fr.statuses[t].error}")
+        check_template_scan(np, f"fleet {label} {t}", fr.results[t].metrics, want[t],
+                            quiet=True)
+    got = run["launches"]
+    if got[kernel] <= 0 or any(n for k, n in got.items() if k != kernel):
+        fail(f"fleet {label}: launches {got}")
+    return got[kernel]
+
+
+def busy_overlap(events) -> "tuple[float, float]":
+    """(busy, overlap) microseconds of trace events: the time at least one
+    stream ran one of them, and the time two or more streams did."""
+    spans: dict = {}
+    for e in events:
+        stream = (e.get("args") or {}).get("stream", e.get("tid"))
+        spans.setdefault(stream, []).append((e["ts"], e["ts"] + e["dur"]))
+    edges = []
+    for intervals in spans.values():
+        intervals.sort()
+        lo, hi = intervals[0]
+        for a, b in intervals[1:] + [(math.inf, math.inf)]:
+            if a > hi:
+                edges += [(lo, 1), (hi, -1)]
+                lo, hi = a, b
+            else:
+                hi = max(hi, b)
+    edges.sort()
+    busy = overlap = 0.0
+    depth, last = 0, None
+    for t, d in edges:
+        if last is not None and depth >= 1:
+            busy += t - last
+            if depth >= 2:
+                overlap += t - last
+        depth += d
+        last = t
+    return busy, overlap
+
+
+def device_overlap(events) -> dict:
+    """From a trace's device events: the streams that ran the counter
+    kernels, and the busy and two-or-more-streams microseconds of every
+    device event, of the kernels alone (the folds) and of the copies."""
+    kernels = [e for e in events if e["cat"] == "kernel"]
+    copies = [e for e in events if e["cat"] == "gpu_memcpy"]
+    streams = {(e.get("args") or {}).get("stream", e.get("tid")) for e in kernels
+               if "counters_merge_kernel" in e["name"]
+               or "counters_update_kernel" in e["name"]}
+    return dict(streams=len(streams), all=busy_overlap(events),
+                kernels=busy_overlap(kernels), copies=busy_overlap(copies))
+
+
+def phase_fleet(np, torch, cli, kernels) -> dict:
+    """The fleet phases on one fleet cluster: v5 (timed; on the default
+    stream; profiled; 8 solo scans), v4, follow, leases.  Returns the
+    launches by path."""
+    from kafka_topic_analyzer_tpu_torch.fleet.report import build_fleet_rollup
+    from kafka_topic_analyzer_tpu_torch.fleet.service import TopicStatus
+    from kafka_topic_analyzer_tpu_torch.report import render_fleet_status
+    from kafka_topic_analyzer_tpu_torch.utils.profiling import TRACE_FILE, device_events
+
+    shutil.rmtree(FLEET_ROOT, ignore_errors=True)
+    FLEET_ROOT.mkdir(parents=True)
+    launches = {"counters_merge": {}, "counters_update": {}}
+    t0 = time.perf_counter()
+    broker = fleet_broker(FLEET_SPEC["windows"])
+    with broker as port, contextlib.ExitStack() as cleanup:
+        cleanup.callback(shutil.rmtree, FLEET_ROOT, ignore_errors=True)
+        print(f"fleet: broker child up in {time.perf_counter() - t0:.3f} s "
+              f"({len(FLEET_TOPICS)} orders topics x {FLEET_SPEC['partitions']} "
+              f"partitions x {FLEET_SPEC['windows']} windows of {FLEET_SPEC['R']} "
+              f"records, orders.dlq, __consumer_offsets; {KAFKA_BROKERS} leaders)")
+        t0 = time.perf_counter()
+        want = fleet_expectations(np, FLEET_SPEC["windows"])
+        print(f"fleet: numpy's exact lines of the 8 topics in "
+              f"{time.perf_counter() - t0:.3f} s")
+        bootstrap = ["-b", f"127.0.0.1:{port}"]
+        total = len(FLEET_TOPICS) * FLEET_SPEC["windows"] * FLEET_PER_WINDOW
+
+        # v5 timed in turns, per-topic streams (the CLI's fleet) and every
+        # backend on the legacy default stream (the same CLI, its backends
+        # built without their stream, so each takes its pass thread's
+        # current one).  Each run starts from an empty allocator cache, as
+        # a fresh process would: blocks cached by one run's streams serve
+        # no other stream.
+        real_make_backend = cli.make_backend
+        walls: dict = {"streams": [], "default stream": []}
+        peaks: dict = {"streams": [], "default stream": []}
+        v5 = None
+        for arm in ("streams", "default stream", "default stream", "streams"):
+            if arm == "default stream":
+                cli.make_backend = lambda *a, stream=None, **k: real_make_backend(*a, **k)
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                run = fleet_cli(cli, kernels, FLEET_FLAGS + bootstrap, f"v5 {arm}")
+                run["peak"] = torch.cuda.max_memory_allocated()
+            finally:
+                cli.make_backend = real_make_backend
+            n = check_fleet(np, f"v5 {arm}", run, want, "counters_merge")
+            launches["counters_merge"][f"fleet v5 ({arm}), 8 topics, 4 at once, "
+                                       f"7 workers"] = n
+            walls[arm].append(run["wall"])
+            peaks[arm].append(run["peak"])
+            if v5 is None:
+                v5 = run
+            for t in FLEET_TOPICS:
+                if core_doc(run["doc"]["topics"][t]) != core_doc(v5["doc"]["topics"][t]):
+                    fail(f"fleet v5: topic {t} differs between runs")
+        peak = v5["peak"]
+        discovered = int(metric_total(v5["snapshot"], "kta_fleet_topics_discovered_total"))
+        admitted = v5["doc"]["fleet"]["topics"]
+        if discovered != 10 or admitted != 8 or \
+                "Fleet discovery: 8 topic(s) matched orders.* minus *.dlq" not in v5["err"]:
+            fail(f"fleet v5: discovery listed {discovered} topics and the fleet admitted "
+                 f"{admitted} (want 10 and 8): {v5['err'][-500:]}")
+        docs = v5["doc"]["topics"]
+        verdicts = {t: docs[t]["flight"]["verdict"] for t in FLEET_TOPICS}
+        workers = {t: v5["result"].statuses[t].workers for t in FLEET_TOPICS}
+        stages = stage_seconds(v5["snapshot"])
+        mean = {arm: statistics.mean(w) for arm, w in walls.items()}
+        print(f"fleet v5: {total} records in {v5['wall']:.3f} s = "
+              f"{total / v5['wall']:.1f} records/s across the cluster; {n} "
+              f"counters_merge launches; discovery listed {discovered} topics, "
+              f"{admitted} admitted; workers per topic {workers}; stage seconds "
+              f"(all topics) {json.dumps({k: round(v, 3) for k, v in stages.items()})}")
+        print(f"fleet v5 in turns (streams, default, default, streams): walls "
+              f"{json.dumps({a: [round(x, 3) for x in w] for a, w in walls.items()})} s; "
+              f"per-topic streams {mean['streams']:.3f} s = "
+              f"{total / mean['streams']:.1f} records/s, default stream "
+              f"{mean['default stream']:.3f} s = {total / mean['default stream']:.1f} "
+              f"records/s ({mean['streams'] / mean['default stream']:.3f} x); peak "
+              f"allocated B {json.dumps(peaks)}")
+        print(f"fleet v5: peak torch.cuda.max_memory_allocated {peak} B = "
+              f"{peak / (4 * 512 * 2**20):.3f} x 4 x 512 MiB (every topic's backend "
+              "stays resident for the fleet's life: 8 bitmaps and 8 pair-scatter "
+              "accumulators of 512 MiB)")
+        print(f"fleet v5: per-topic doctor verdicts {json.dumps(verdicts)}")
+
+        # 8 solo scans at the same workers, and their documents.
+        solo_wall, statuses = 0.0, {}
+        solo_flags = ["--ingest-workers", "7", "--alive-bitmap-bits", str(ALIVE_BITS),
+                      "-c", "--distinct-keys-per-partition", "--quantiles-per-partition",
+                      "--pallas", "--batch-size", str(SCAN_BATCH), "--native", "on",
+                      "--backend", "gpu", "--json"] + bootstrap
+        for t in FLEET_TOPICS:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()  # each solo scan as its own process
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(io.StringIO()):  # the banners
+                out, result = run_cli(cli, ["-t", t] + solo_flags)
+            solo_wall += time.perf_counter() - t0
+            solo = json.loads(out)
+            if core_doc(solo) != core_doc(docs[t]):
+                fail(f"fleet v5: topic {t}'s document differs from its solo scan's")
+            statuses[t] = TopicStatus(
+                topic=t, partitions=len(result.metrics.partitions), status="ok",
+                records=result.metrics.overall_count, bytes=result.metrics.overall_size,
+                workers=workers[t], passes=1)
+        quiet = {t: dict(s, verdict="") for t, s in v5["doc"]["fleet"]["statuses"].items()}
+        table = render_fleet_status({"fleet": dict(v5["doc"]["fleet"], statuses=quiet)})
+        rebuilt = render_fleet_status(build_fleet_rollup(statuses, discovered=8,
+                                                         duration_secs=0))
+        if table != rebuilt:
+            fail(f"fleet v5: the status table differs from the solo scans':\n{table}\n"
+                 f"{rebuilt}")
+        print(f"fleet v5: every topic's document equals its solo scan's and numpy's "
+              f"exact lines; the status table (verdicts aside) equals the one rebuilt "
+              f"from the solo scans; the 8 solo scans at 7 workers took {solo_wall:.3f} "
+              f"s in all ({total / solo_wall:.1f} records/s), the fleet "
+              f"{v5['wall'] / solo_wall:.3f} x that")
+
+        # v5 under --profile-dir: the device timeline of the concurrent folds.
+        prof = FLEET_ROOT / "profile"
+        run = fleet_cli(cli, kernels, FLEET_FLAGS + bootstrap + ["--profile-dir", str(prof)],
+                        "v5 profiled")
+        n = check_fleet(np, "v5 profiled", run, want, "counters_merge")
+        launches["counters_merge"]["fleet v5 profiled"] = n
+        events = device_events(str(prof / TRACE_FILE))
+        if not events:
+            print("fleet v5 profiled: FINDING: the trace holds no CUDA activity; the "
+                  "overlap of the topics' folds is not measured")
+        else:
+            ov = device_overlap(events)
+            merges = sum(1 for e in events if "counters_merge_kernel" in e["name"])
+            shares = "; ".join(
+                f"{what} busy {busy / 1e3:.3f} ms = {busy / 1e6 / run['wall']:.4f} of "
+                f"the wall, two or more streams at once {over / 1e3:.3f} ms = "
+                f"{over / max(busy, 1e-9):.4f} of that"
+                for what, (busy, over) in (("device", ov["all"]),
+                                           ("kernels (the folds)", ov["kernels"]),
+                                           ("copies", ov["copies"])))
+            print(f"fleet v5 profiled: {merges} counters_merge_kernel launches in the "
+                  f"trace ({n} by the counter) on {ov['streams']} streams; "
+                  f"{run['wall']:.3f} s wall under the profiler; {shares}")
+            if ov["streams"] != len(FLEET_TOPICS):
+                fail(f"fleet v5 profiled: the counter kernels ran on {ov['streams']} "
+                     f"streams, not one per topic ({len(FLEET_TOPICS)})")
+        shutil.rmtree(prof, ignore_errors=True)
+
+        # v4 at a smaller depth.
+        broker.set_head(FLEET_V4_WINDOWS)
+        want4 = fleet_expectations(np, FLEET_V4_WINDOWS)
+        v4 = fleet_cli(cli, kernels, FLEET_FLAGS + bootstrap + ["--wire-format", "v4"], "v4")
+        n = check_fleet(np, "v4", v4, want4, "counters_update")
+        launches["counters_update"]["fleet v4, 8 topics x 8 windows"] = n
+        total4 = len(FLEET_TOPICS) * FLEET_V4_WINDOWS * FLEET_PER_WINDOW
+        print(f"fleet v4: {total4} records in {v4['wall']:.3f} s = "
+              f"{total4 / v4['wall']:.1f} records/s; {n} counters_update launches; "
+              f"every topic equals numpy's exact lines")
+
+        for kernel, paths in phase_fleet_follow(np, cli, kernels, broker, port).items():
+            launches[kernel].update(paths)
+        phase_fleet_leases(np, cli, kernels, broker, port)
+    return launches
+
+
+class FleetProbe:
+    """Drives a fleet follow from a thread beside it: waits for the rollup
+    (``/report.json``) to show every topic at the head with lag 0, moves
+    the head through ``heads``, times each advance to that, checks
+    ``/report.json?topic=orders.3``, and with ``kill_after`` sends the
+    process SIGTERM once that advance has settled."""
+
+    TOPIC = "orders.3"
+
+    def __init__(self, broker, port: int, heads, kill_after=None):
+        import threading
+
+        self.broker, self.port, self.heads, self.kill_after = broker, port, heads, kill_after
+        self.errors: list = []
+        self.settle_s: list = []
+        self.initial_s = None
+        self.topic_doc = None
+        self._thread = threading.Thread(target=self._drive, daemon=True)
+
+    def start(self) -> None:
+        self.t0 = time.perf_counter()
+        self._thread.start()
+
+    def join(self, timeout=None) -> None:
+        self._thread.join(timeout)
+
+    def is_alive(self) -> bool:
+        return self._thread.is_alive()
+
+    def _wait(self, head: int, what: str, deadline_s: float = 240.0) -> None:
+        records = len(FLEET_TOPICS) * head * FLEET_PER_WINDOW
+        deadline = time.perf_counter() + deadline_s
+        while time.perf_counter() < deadline:
+            status, _, body, _ = http_get(self.port, "/report.json")
+            if status == 200:
+                fleet = json.loads(body)["fleet"]
+                if fleet["totals"]["records"] == records and fleet["totals"]["lag"] == 0 \
+                        and all(s["status"] == "ok" for s in fleet["statuses"].values()):
+                    return
+            time.sleep(0.02)
+        raise RuntimeError(f"no rollup of {records} records at lag 0 ({what}) "
+                           f"within {deadline_s} s")
+
+    def _drive(self) -> None:
+        import signal
+
+        try:
+            self._wait(self.heads[0], "initial passes")
+            self.initial_s = time.perf_counter() - self.t0
+            for i, head in enumerate(self.heads[1:], start=1):
+                t0 = time.perf_counter()
+                self.broker.set_head(head)
+                self._wait(head, f"advance {i}")
+                self.settle_s.append(time.perf_counter() - t0)
+                if i == self.kill_after:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                    return
+            status, _, body, _ = http_get(self.port, f"/report.json?topic={self.TOPIC}")
+            doc = json.loads(body) if status == 200 else {}
+            if doc.get("topic") != self.TOPIC or doc["overall"]["count"] != \
+                    self.heads[-1] * FLEET_PER_WINDOW:
+                raise RuntimeError(f"/report.json?topic={self.TOPIC}: {status} "
+                                   f"{str(doc)[:300]}")
+            self.topic_doc = doc
+        except BaseException as e:  # surfaced by fleet_cli
+            self.errors.append(e)
+
+
+def phase_fleet_follow(np, cli, kernels, broker, port: int) -> dict:
+    """``--fleet --follow`` over the 8 topics with the head moved 3 times
+    (served rollup and ``?topic=`` document checked while it runs); the
+    same with ``--snapshot-dir``, SIGTERM after the first advance, then a
+    ``--resume`` restart at the last head, whose documents must equal the
+    uninterrupted run's; then ``-t orders.0,orders.1 --follow``."""
+    from kafka_topic_analyzer_tpu_torch.checkpoint import list_topic_snapshots
+
+    heads = FLEET_FOLLOW_HEADS
+    want = fleet_expectations(np, heads[-1])
+    argv = FLEET_FLAGS + ["-b", f"127.0.0.1:{port}"] + FLEET_FOLLOW
+    broker.set_head(heads[0])
+    probe = FleetProbe(broker, free_port(), heads)
+    run = fleet_cli(cli, kernels, argv, "follow", port=probe.port, probe=probe)
+    n = check_fleet(np, "follow", run, want, "counters_merge")
+    docs = run["doc"]["topics"]
+    # The service stamps what it serves with its publish sequence and time.
+    served = {k: v for k, v in core_doc(probe.topic_doc).items()
+              if k not in ("seq", "report_ts")}
+    final = core_doc(docs[FleetProbe.TOPIC])
+    if served != final:
+        fail("fleet follow: /report.json?topic=orders.3 differs from the final document "
+             f"in {sorted(k for k in served.keys() | final.keys() if served.get(k) != final.get(k))}")
+    passes = run["doc"]["fleet"]["totals"]["passes"]
+    print(f"fleet follow: initial passes ({len(FLEET_TOPICS) * heads[0] * FLEET_PER_WINDOW} "
+          f"records) at lag 0 after {probe.initial_s:.3f} s; seconds from each head "
+          f"advance ({len(FLEET_TOPICS) * 2 * FLEET_PER_WINDOW} records) to every topic "
+          f"at lag 0: {[round(s, 3) for s in probe.settle_s]}; {passes} passes, "
+          f"{int(metric_total(run['snapshot'], 'kta_fleet_rebalances_total'))} "
+          f"rebalance moves, {n} counters_merge launches; finalize "
+          f"{stage_seconds(run['snapshot']).get('finalize', 0.0):.3f} s in all; "
+          f"every topic equals numpy's exact lines; the served rollup and "
+          f"?topic={FleetProbe.TOPIC} document checked")
+    out = {"counters_merge": {"fleet follow, initial + 3 advances": n}}
+
+    snaps = FLEET_ROOT / "follow-snapshots"
+    broker.set_head(heads[0])
+    probe = FleetProbe(broker, free_port(), heads, kill_after=FLEET_FOLLOW_KILL_AFTER)
+    killed = fleet_cli(cli, kernels, argv + ["--snapshot-dir", str(snaps)], "follow SIGTERM",
+                       port=probe.port, probe=probe)
+    cut = heads[FLEET_FOLLOW_KILL_AFTER] * FLEET_PER_WINDOW
+    inventory = list_topic_snapshots(str(snaps))
+    if set(inventory) != set(FLEET_TOPICS) or \
+            any(i["records_seen"] != cut for i in inventory.values()):
+        fail(f"fleet follow: SIGTERM left snapshots {json.dumps(inventory)[:500]}, not "
+             f"one per topic at {cut} records")
+    broker.set_head(heads[-1])
+    resumed = fleet_cli(cli, kernels, argv + ["--snapshot-dir", str(snaps), "--resume"],
+                        "follow resumed")
+    m = check_fleet(np, "follow resumed", resumed, want, "counters_merge")
+    for t in FLEET_TOPICS:
+        if core_doc(resumed["doc"]["topics"][t]) != core_doc(docs[t]):
+            fail(f"fleet follow: resumed topic {t} differs from the uninterrupted run")
+    print(f"fleet follow: SIGTERM after advance {FLEET_FOLLOW_KILL_AFTER} exited 0 with "
+          f"one checkpoint per topic subdirectory at {cut} records "
+          f"({killed['launches']['counters_merge']} launches); the --resume restart "
+          f"at head {heads[-1]} took {resumed['wall']:.3f} s, {m} launches, and every "
+          f"topic's document equals the uninterrupted run's")
+    out["counters_merge"]["fleet follow resumed"] = m
+    shutil.rmtree(snaps, ignore_errors=True)
+
+    pair = FLEET_TOPICS[:2]
+    listed = fleet_cli(cli, kernels, ["-t", ",".join(pair), "-b", f"127.0.0.1:{port}",
+                                      "--ingest-workers", "7",
+                                      "--alive-bitmap-bits", str(ALIVE_BITS),
+                                      *FLEET_CORE, *FLEET_FOLLOW], "-t a,b --follow")
+    k = check_fleet(np, "-t a,b --follow", listed, want, "counters_merge", topics=pair)
+    for t in pair:
+        if core_doc(listed["doc"]["topics"][t]) != core_doc(docs[t]):
+            fail(f"fleet -t {','.join(pair)} --follow: topic {t} differs from the fleet's")
+    print(f"fleet -t {','.join(pair)} --follow: through the fleet service in "
+          f"{listed['wall']:.3f} s, {k} launches; both documents equal the fleet "
+          "follow's")
+    out["counters_merge"]["-t orders.0,orders.1 --follow"] = k
+    return out
+
+
+def scrape_metric(port: int, name: str, instance=None) -> float:
+    """The sum of a metric's samples on ``/metrics`` (those labelled with
+    ``instance`` when given)."""
+    status, _, body, _ = http_get(port, "/metrics")
+    if status != 200:
+        raise RuntimeError(f"/metrics on port {port} answered {status}")
+    total = 0.0
+    for line in body.decode().splitlines():
+        if line.startswith(name + " ") or line.startswith(name + "{"):
+            if instance is None or f'instance="{instance}"' in line:
+                total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def lease_records(directory: Path) -> dict:
+    """topic -> the lease record under ``directory/_kta_leases``."""
+    out = {}
+    for path in (directory / "_kta_leases").glob("*.json"):
+        try:
+            out[path.stem] = json.loads(path.read_text())
+        except (OSError, ValueError):
+            pass  # a record being replaced
+    return out
+
+
+def phase_fleet_leases(np, cli, kernels, broker, port: int) -> None:
+    """Two CLI instances (child processes, ``--instance-id a`` and ``b``)
+    with file leases on one ``--snapshot-dir``: at 4 windows every record
+    is folded once across them (no topic scanned by both); with the head
+    at 12 windows the instance holding leases mid-pass is SIGKILLed, the
+    other takes its topics over after ``--lease-ttl`` (booked on
+    ``kta_fleet_failovers_total``) and, SIGTERMed at the head, prints
+    documents equal to solo scans of every topic."""
+    import signal
+
+    directory = FLEET_ROOT / "leases"
+    directory.mkdir(parents=True)
+    lo, hi = FLEET_LEASE_HEADS
+    broker.set_head(lo)
+    bootstrap = ["-b", f"127.0.0.1:{port}"]
+    argv = ["-t", "orders.*", "--fleet", "--fleet-exclude", "*.dlq", *bootstrap,
+            *FLEET_CORE, *FLEET_LEASE_FLAGS, "--follow", "--poll-interval", "0.25",
+            "--snapshot-dir", str(directory), "--json", "--quiet"]
+    ports = {x: free_port() for x in "ab"}
+    logs = {x: (open(FLEET_ROOT / f"instance-{x}.out", "w"),
+                open(FLEET_ROOT / f"instance-{x}.err", "w")) for x in "ab"}
+    procs = {}
+    t_start = time.perf_counter()
+    try:
+        for x in "ab":
+            procs[x] = subprocess.Popen(
+                [sys.executable, "-m", "kafka_topic_analyzer_tpu_torch", *argv,
+                 "--instance-id", x, "--metrics-port", str(ports[x])],
+                cwd=Path(__file__).resolve().parent, stdout=logs[x][0], stderr=logs[x][1])
+
+        def rollups() -> dict:
+            out = {}
+            for x, p in ports.items():
+                if procs[x].poll() is None:
+                    status, _, body, _ = http_get(p, "/report.json")
+                    if status == 200:
+                        out[x] = json.loads(body)["fleet"]["statuses"]
+            return out
+
+        def wait(cond, what: str, deadline_s: float = 180.0):
+            deadline = time.perf_counter() + deadline_s
+            while time.perf_counter() < deadline:
+                for x, proc in procs.items():
+                    if proc.poll() is not None and proc.returncode != -signal.SIGKILL:
+                        fail(f"fleet leases: instance {x} exited {proc.returncode}")
+                got = cond()
+                if got:
+                    return got
+                time.sleep(0.02)
+            fail(f"fleet leases: {what} not within {deadline_s} s")
+
+        def covered(head: int, only=None) -> bool:
+            want_n = head * FLEET_PER_WINDOW
+            seen = rollups()
+            views = [seen[x] for x in (only or seen) if x in seen]
+            return all(any(v.get(t, {}).get("records") == want_n for v in views)
+                       for t in FLEET_TOPICS)
+
+        wait(lambda: covered(lo) and all(r.get("owner") is None
+                                          for r in lease_records(directory).values()),
+             "every topic scanned at 4 windows")
+        time.sleep(1.0)  # a few more polls: any later pass folds nothing
+        folded = {x: scrape_metric(ports[x], "kta_scan_records_total") for x in "ab"}
+        stage1 = len(FLEET_TOPICS) * lo * FLEET_PER_WINDOW
+        if sum(folded.values()) != stage1:
+            fail(f"fleet leases: the instances folded {folded} records, not {stage1} "
+                 "in all: a topic was scanned by both")
+        print(f"fleet leases: both instances up and every topic at {lo} windows after "
+              f"{time.perf_counter() - t_start:.3f} s; records folded a "
+              f"{int(folded['a'])}, b {int(folded['b'])}: every record once "
+              f"({stage1}), no topic scanned by both")
+
+        broker.set_head(hi)
+        t_adv = time.time()
+
+        def holder():
+            now = time.time()
+            held: dict = {}
+            for t, r in lease_records(directory).items():
+                if r.get("owner") and r["expires_at"] > now and r["acquired_at"] >= t_adv - 1:
+                    held.setdefault(r["owner"], []).append(t)
+            return max(held.items(), key=lambda kv: len(kv[1])) if held else None
+
+        victim, _ = wait(holder, "an instance holding leases after the advance", 60.0)
+        procs[victim].send_signal(signal.SIGKILL)
+        procs[victim].wait()
+        t_kill = time.time()
+        orphaned = sorted(t for t, r in lease_records(directory).items()
+                          if r.get("owner") == victim)
+        survivor = "b" if victim == "a" else "a"
+        taken: dict = {}
+
+        def caught_up():
+            for t, r in lease_records(directory).items():
+                if t in orphaned and t not in taken and r.get("owner") == survivor:
+                    taken[t] = time.time() - t_kill
+            return covered(hi, only=[survivor]) and set(taken) == set(orphaned)
+
+        wait(caught_up, "the survivor at the head with every orphaned topic")
+        failovers = scrape_metric(ports[survivor], "kta_fleet_failovers_total", survivor)
+        if not orphaned or failovers != len(orphaned):
+            fail(f"fleet leases: {len(orphaned)} topics orphaned, {failovers} failovers "
+                 f"booked by {survivor}")
+        procs[survivor].send_signal(signal.SIGTERM)
+        try:
+            rc = procs[survivor].wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            fail(f"fleet leases: instance {survivor} outlived SIGTERM")
+        if rc != 0:
+            fail(f"fleet leases: instance {survivor} exited {rc} on SIGTERM")
+        logs[survivor][0].flush()
+        doc = json.loads((FLEET_ROOT / f"instance-{survivor}.out").read_text()
+                         .strip().splitlines()[-1])
+        if set(doc["topics"]) != set(FLEET_TOPICS):
+            fail(f"fleet leases: instance {survivor} reported {sorted(doc['topics'])}")
+        for t in FLEET_TOPICS:
+            with contextlib.redirect_stderr(io.StringIO()):  # the banners
+                out, _ = run_cli(cli, ["-t", t, *bootstrap, *FLEET_CORE[4:],
+                                       *FLEET_LEASE_FLAGS[:4], "--json"])
+            if core_doc(json.loads(out)) != core_doc(doc["topics"][t]):
+                fail(f"fleet leases: topic {t} of instance {survivor} differs from its "
+                     "solo scan")
+        print(f"fleet leases: instance {victim} SIGKILLed holding {len(orphaned)} leases "
+              f"{orphaned}; {survivor} took each over {sorted(round(s, 3) for s in taken.values())} "
+              f"s after the kill (TTL {FLEET_LEASE_FLAGS[7]} s), booked {int(failovers)} "
+              f"failovers, and exited 0 on SIGTERM with every topic's document equal "
+              f"to its solo scan at {hi} windows")
+    except BaseException:
+        for x in "ab":
+            for f in logs[x]:
+                f.flush()
+            err = (FLEET_ROOT / f"instance-{x}.err").read_text()[-1500:]
+            print(f"fleet leases: instance {x} stderr tail:\n{err}")
+        raise
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for pair in logs.values():
+            for f in pair:
+                f.close()
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2854,7 +3548,8 @@ def main() -> int:
                              rates.get(f"kafka v5 {FOLLOW_WORKERS} workers")),
                 {"counters_merge": phase_follow_resume(np, cli, kernels,
                                                        kafka["kafka v5"], want)},
-                phase_multitopic(np, cli, kernels)):
+                phase_multitopic(np, cli, kernels),
+                phase_fleet(np, torch, cli, kernels)):
             for kernel, paths in extra.items():
                 launches[kernel].update(paths)
     finally:

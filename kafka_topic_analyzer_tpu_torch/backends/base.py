@@ -166,6 +166,11 @@ class MetricBackend(abc.ABC):
         engine's failure path, before its snapshot); nothing to do where
         `update` finishes before it returns."""
 
+    def set_dispatch_depth(self, depth: int) -> None:
+        """Re-bound the in-flight dispatch window between passes (the
+        fleet's dispatch-share grants); nothing to bound where `update`
+        finishes before it returns."""
+
     def release_staging(self) -> None:
         """A scan pass has ended and its ingest threads with it: take back
         the staging buffers they held, for the next pass on this backend
@@ -225,6 +230,7 @@ def make_backend(
     use_native: bool = False,
     native_requested: "bool | None" = None,
     dispatch=None,
+    stream=None,
 ) -> MetricBackend:
     """Factory for ``--backend {cpu,tpu,gpu}``: ``cpu`` is the numpy exact
     oracle, which never touches torch's device layer (``device`` is not
@@ -232,7 +238,9 @@ def make_backend(
     backend on ``device`` (CUDA unless the caller asks for the CPU), which
     raises when CUDA is asked for and absent.  ``dispatch`` (a
     `config.DispatchConfig`) sizes the torch backend's superbatch and
-    in-flight bound; the oracle dispatches nothing."""
+    in-flight bound; the oracle dispatches nothing.  ``stream`` is the
+    CUDA stream of the torch backend's device work (the fleet gives each
+    topic one; default: the current stream)."""
     if name == "cpu":
         from kafka_topic_analyzer_tpu_torch.backends.cpu import CpuExactBackend
 
@@ -243,6 +251,7 @@ def make_backend(
         return TorchBackend(
             config, device=device, use_native=use_native,
             native_requested=native_requested, dispatch=dispatch,
+            stream=stream,
         )
     raise ValueError(
         f"unknown backend {name!r} (expected 'cpu', 'gpu' or 'tpu')"

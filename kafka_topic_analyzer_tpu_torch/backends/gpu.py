@@ -39,9 +39,19 @@ device's work on this one, on the main thread, on a prefetch worker or on
 N parallel-ingest workers (engine.py): `prepare` and the sinks run on the
 ingest threads while `update` runs on the main thread.  The step and
 finalize times booked by `base.instrument_steps` are therefore host
-time: enqueue plus those waits.  The copy, its event and the fold all run
-on the stream the backend holds (``self.stream``, the creating thread's
-current stream), whichever thread issues them.
+time: enqueue plus those waits.
+
+Everything the backend enqueues runs on the one stream it holds
+(``self.stream``), whichever thread issues it: the construction's
+self-check and state init, every copy and its event, the folds with both
+counter kernels, the snapshot and finalize copies to the host.  By
+default that is the creating thread's current stream (the solo scan's
+legacy default stream); the fleet passes a ``torch.cuda.Stream`` of its
+own to each topic's backend (``stream=``), so the scans of concurrent
+topics are ordered only within themselves.  Every device tensor a
+backend makes is allocated on its stream and used only there, so the
+caching allocator never hands a block still in use on one stream to
+another.
 
 Pinned staging slots form rings of ``ring_slots(prefetch_depth)``, one
 ring per ingest stream: each thread that calls `prepare` has its own
@@ -247,9 +257,13 @@ class TorchBackend(MetricBackend):
         prefetch_depth: int = 2,
         native_requested: "bool | None" = None,
         dispatch: "DispatchConfig | None" = None,
+        stream: "torch.cuda.Stream | None" = None,
     ):
         """``dispatch`` sizes the superbatch and the in-flight bound
-        (``--superbatch``, ``--dispatch-depth``; default K = 1, depth 2)."""
+        (``--superbatch``, ``--dispatch-depth``; default K = 1, depth 2).
+        ``stream`` is the CUDA stream all of the backend's device work
+        runs on (default: the creating thread's current stream); it must
+        belong to ``device``."""
         super().__init__(config)
         self.device = resolve_device(device)
         #: Pack through the native shim when it loads (``--native``).
@@ -260,13 +274,24 @@ class TorchBackend(MetricBackend):
         self.native_requested = (
             use_native if native_requested is None else native_requested
         )
-        self.stream = (
-            torch.cuda.current_stream(self.device)
-            if self.device.type == "cuda" else None
-        )
+        if self.device.type != "cuda":
+            if stream is not None:
+                raise ValueError(
+                    f"a CUDA stream was given for a backend on {self.device}"
+                )
+            self.stream = None
+        elif stream is None:
+            self.stream = torch.cuda.current_stream(self.device)
+        elif stream.device != self.device:
+            raise ValueError(
+                f"the backend's stream is on {stream.device}, not {self.device}"
+            )
+        else:
+            self.stream = stream
         self.init_now_s = utc_now_seconds() if init_now_s is None else init_now_s
-        self_check_unpack(self.device)
-        self.state = AnalyzerState.init(config, self.device)
+        with self._on_stream():
+            self_check_unpack(self.device)
+            self.state = AnalyzerState.init(config, self.device)
         b = config.batch_size
         self.dispatch_config = dispatch if dispatch is not None else DispatchConfig()
         #: Rows folded per dispatch (``--superbatch``, resolved).
@@ -284,10 +309,11 @@ class TorchBackend(MetricBackend):
             not config.compact_alive
             or alive_table_mode(config, self._pair_cap) == 1
         )
-        self._scratch = (
-            bitmap_scratch(config.alive_bitmap_bits, self.device)
-            if pair_lists else None
-        )
+        with self._on_stream():
+            self._scratch = (
+                bitmap_scratch(config.alive_bitmap_bits, self.device)
+                if pair_lists else None
+            )
         self._row_nbytes = packed_nbytes(config, b)
         # The pair table starts on a 16-byte boundary of the staging row.
         # Only at K = 1 does a slot carry one (its own batch's); at K > 1
@@ -325,6 +351,16 @@ class TorchBackend(MetricBackend):
             )
             if k > 1 else None
         )
+
+    def set_dispatch_depth(self, depth: int) -> None:
+        """Re-bound the in-flight dispatch window between passes (the
+        fleet scheduler's dispatch-share grants).  A shrink applies at
+        once (the queue's throttle reads the bound per call); a grow
+        clamps at the constructed depth, which sized the superbatch
+        stager's ring."""
+        depth = max(1, min(int(depth), self.dispatch_config.depth))
+        self.dispatch_depth = depth
+        self._queue.depth = depth
 
     def _on_stream(self):
         """Make the backend's stream current on the calling thread."""

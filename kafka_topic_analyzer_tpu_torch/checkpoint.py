@@ -417,3 +417,39 @@ def load_partition_meta(directory: str) -> "Dict[int, dict]":
         }
         for k, v in meta.get("partition_meta", {}).items()
     }
+
+
+def topic_snapshot_dir(directory: str, topic: str) -> str:
+    """Fleet checkpoint namespacing: each topic's snapshots live in their
+    own subdirectory of the fleet's ``--snapshot-dir`` (Kafka topic names
+    are ``[a-zA-Z0-9._-]``, so the name is a safe path segment).  A solo
+    scan pointed at the subdirectory resumes the fleet's checkpoint and
+    the other way round."""
+    return os.path.join(directory, topic)
+
+
+def list_topic_snapshots(directory: str) -> "dict[str, dict]":
+    """topic -> snapshot metadata for every per-topic snapshot under a
+    fleet snapshot directory (`snapshot_info` of each subdirectory).  An
+    unreadable snapshot (a fleet killed mid-write) is skipped with a
+    warning; that topic's own resume reports the error."""
+    import logging
+
+    out: "dict[str, dict]" = {}
+    if not os.path.isdir(directory):
+        return out
+    for name in sorted(os.listdir(directory)):
+        sub = os.path.join(directory, name)
+        if not os.path.isdir(sub):
+            continue
+        try:
+            info = snapshot_info(sub)
+        except Exception:
+            logging.getLogger(__name__).warning(
+                "snapshot inventory: unreadable snapshot under %r "
+                "(skipped)", sub, exc_info=True,
+            )
+            continue
+        if info is not None:
+            out[name] = info
+    return out

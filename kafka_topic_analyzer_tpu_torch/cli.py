@@ -22,7 +22,10 @@ single-scan paths).
         [--sse] [--no-serve-gzip] [--history-bytes B] \\
         [--events-jsonl FILE] [--trace-json FILE] [--flight-record] \\
         [--follow [--poll-interval S] [--checkpoint-interval S] \\
-         [--follow-idle-exit S] [--window-secs S] [--window-count N]]
+         [--follow-idle-exit S] [--window-secs S] [--window-count N]] \\
+        [--fleet [--fleet-exclude GLOBS] [--fleet-internal] \\
+         [--fleet-concurrency N|auto] [--instance-id [ID] \\
+          [--lease-ttl S] [--lease-store auto|file|object]]] [--mesh 1]
 
 Prints the same report bytes as the reference CLI for the same inputs
 (apart from the two timing lines), with the reference's DEGRADED, CORRUPT
@@ -72,7 +75,13 @@ batch scan would.  ``-t a,b,c`` scans several topics through one
 backend (`io.multi.MultiTopicSource`): one report per topic and a
 cross-topic union block.  ``--history-bytes`` keeps the flight
 recorder's series on disk next to the snapshots and serves it at
-``/history``.  Exit
+``/history``.  ``--fleet`` discovers the cluster's topics (``-t``
+becomes include globs) and scans each on a backend of its own, up to
+``--fleet-concurrency`` at once on CUDA streams of their own, sharing
+the ``--ingest-workers`` and ``--dispatch-depth`` budgets
+(`fleet.service.FleetService`); ``-t a,b --follow`` runs the named
+topics through the same service; ``--instance-id`` splits the topics
+between analyzer instances by lease.  Exit
 status: 254 for an empty topic (the reference's ``exit(-2)``), 1 for an
 error, 3 when partitions degraded, 4 when corrupt frames were skipped, 5
 when ``--on-data-loss fail`` aborted the scan (after its checkpoint, with
@@ -360,6 +369,65 @@ def build_parser() -> argparse.ArgumentParser:
                         "its series. Serves windowed queries at /history "
                         "on --metrics-port and feeds the TRENDS digest of "
                         "--stats")
+    p.add_argument("--mesh", metavar="DATA[,SPACE]", default="1",
+                   help="Device mesh shape: data shards[, space shards]. "
+                        "Only 1 (one device) is ported; any other shape "
+                        "is refused")
+    p.add_argument("--fleet", action="store_true",
+                   help="Cluster-wide topic discovery and scan: ask the "
+                        "cluster for all topics (one all-topics Metadata "
+                        "request), filter them (-t becomes a comma-"
+                        "separated include-glob list, default '*'; "
+                        "--fleet-exclude subtracts; internal "
+                        "__consumer_offsets-style topics are excluded "
+                        "unless --fleet-internal), then scan every match, "
+                        "up to --fleet-concurrency topics at once, sharing "
+                        "the global --ingest-workers and --dispatch-depth "
+                        "budgets (each topic's backend on a CUDA stream of "
+                        "its own).  Per-topic results equal solo scans; one "
+                        "topic's failure becomes a status row.  Composes "
+                        "with --follow, --json (cluster rollup and "
+                        "per-topic documents), --snapshot-dir (one "
+                        "subdirectory per topic) and /report.json?topic= on "
+                        "--metrics-port")
+    p.add_argument("--fleet-exclude", metavar="GLOBS",
+                   help="Comma-separated topic-name globs to exclude "
+                        "from --fleet discovery (applied after the -t "
+                        "include globs)")
+    p.add_argument("--fleet-internal", action="store_true",
+                   help="Include broker-internal topics "
+                        "(__consumer_offsets-style; metadata-flagged or "
+                        "__-prefixed) in --fleet discovery")
+    p.add_argument("--fleet-concurrency", default="auto", metavar="N|auto",
+                   help="Per-topic scans admitted concurrently under "
+                        "--fleet ('auto' sizes from the worker budget "
+                        "and topic count); the rest wait until budget "
+                        "returns. Default: auto")
+    p.add_argument("--instance-id", metavar="ID", default=None,
+                   nargs="?", const="auto",
+                   help="This analyzer's identity in a multi-instance "
+                        "fleet: turns on per-topic ownership leases, so N "
+                        "analyzers pointed at one cluster split the topics "
+                        "instead of scanning each twice, with crash "
+                        "failover by lease expiry. Requires --fleet (or "
+                        "--follow with a topic list) and a lease store "
+                        "(--snapshot-dir for file leases, or a remote "
+                        "--segment-dir spec with --lease-store object). "
+                        "Bare --instance-id derives HOSTNAME-PID")
+    p.add_argument("--lease-ttl", type=float, default=30.0,
+                   metavar="SECONDS",
+                   help="Topic-lease lifetime under --instance-id: a "
+                        "crashed instance's topics are taken over this "
+                        "long after its last renewal. Renewals ride every "
+                        "poll boundary. Default: 30")
+    p.add_argument("--lease-store", default="auto",
+                   metavar="auto|file|object",
+                   help="Where lease records live: 'file' = JSON records "
+                        "under SNAPSHOT_DIR/_kta_leases/, 'object' = "
+                        "ETag-fenced conditional writes to the remote "
+                        "--segment-dir store, 'auto' (default) picks "
+                        "'object' when --segment-dir is remote, else "
+                        "'file'")
     p.add_argument("--follow", action="store_true",
                    help="Run as a long-lived analyzer service: after the "
                         "initial earliest→latest pass, keep re-polling "
@@ -585,6 +653,26 @@ def resolve_dispatch(args) -> "DispatchConfig | None":
     return cfg
 
 
+def parse_mesh(text: str) -> "tuple[int, int]":
+    """--mesh → (data, space) device counts; raises ValueError on a bad
+    spec (the reference's messages)."""
+    try:
+        parts = [int(x) for x in text.split(",") if x]
+    except ValueError:
+        raise ValueError(
+            f"bad --mesh {text!r}: expected DATA or DATA,SPACE device "
+            "counts (integers, e.g. '4' or '4,2')"
+        ) from None
+    if len(parts) not in (1, 2):
+        raise ValueError(
+            f"bad --mesh {text!r}: expected 1 or 2 comma-separated device "
+            f"counts, got {len(parts)}"
+        )
+    if any(p < 1 for p in parts):
+        raise ValueError(f"bad --mesh {text!r}: device counts must be positive")
+    return (parts[0], parts[1] if len(parts) == 2 else 1)
+
+
 def analyzer_config(args, num_partitions: int) -> AnalyzerConfig:
     """The `config.AnalyzerConfig` the flags ask for over
     ``num_partitions`` state rows."""
@@ -600,6 +688,7 @@ def analyzer_config(args, num_partitions: int) -> AnalyzerConfig:
         use_pallas_counters=args.pallas,
         wire_format=resolve_wire_format(args),
         alive_compaction=args.alive_compaction,
+        mesh_shape=parse_mesh(args.mesh),
     )
 
 
@@ -704,12 +793,13 @@ def health_doc() -> "dict | None":
 def validate_routing(args) -> None:
     """Refuse the flag combinations the port cannot run, before any
     broker handshake or dump directory creation."""
-    if "," in args.topic and args.follow:
+    if args.instance_id:
         raise ValueError(
-            "--follow with a multi-topic list (-t a,b,...) runs through "
-            "the fleet scheduler, which this port does not have yet; run "
-            "one --follow service per topic, or drop --follow for a "
-            "batch fan-in scan"
+            "--instance-id requires the fleet scheduler (topic "
+            "ownership leases arbitrate WHOLE topics between "
+            "analyzer instances; a solo or batch fan-in scan has "
+            "no admission to arbitrate) — add --fleet, or --follow "
+            "with a multi-topic list"
         )
     if args.follow and args.source == "segfile":
         raise ValueError(
@@ -805,7 +895,15 @@ def run(args) -> "tuple[int, ScanResult | None]":
     """One scan (or follow service) from parsed flags: the report and its
     warning blocks go to stdout, errors to stderr.  Returns the exit
     status and the scan's result (None when no scan ran).  ``-t a,b,c``
-    goes to `run_multi_topic`."""
+    goes to `run_multi_topic`; ``--fleet`` and ``-t a,b --follow`` go to
+    `run_fleet`, whose result is a `fleet.service.FleetResult`."""
+    if args.fleet:
+        return run_fleet(args)
+    # Kafka topic names cannot contain commas: an explicit topic list
+    # under --follow runs through the fleet scheduler (each topic keeps
+    # its solo pass chain; the budgets are shared).
+    if "," in args.topic and args.follow:
+        return run_fleet(args, topics=[t for t in args.topic.split(",") if t])
     try:
         validate_routing(args)
     except ValueError as e:
@@ -1050,6 +1148,353 @@ def run_multi_topic(args, topics: "list[str]") -> "tuple[int, ScanResult | None]
     return scan_issue_exit(
         result, render=True, data_loss_policy=args.on_data_loss
     ), result
+
+
+def fleet_exit(fleet_result) -> int:
+    """A fleet's exit status: the solo scan's precedence (degraded over
+    corrupt over data loss) with one rung above them all, a topic whose
+    scan failed (isolation caught it; its numbers are partial)."""
+    if fleet_result.any_failed:
+        return 1
+    if fleet_result.any_degraded:
+        return EXIT_DEGRADED
+    if fleet_result.any_corrupt:
+        return EXIT_CORRUPT
+    if fleet_result.any_data_loss:
+        return EXIT_DATA_LOSS
+    return 0
+
+
+def make_lease_manager(cfg, snapshot_dir=None, store_spec=None):
+    """A `fleet.lease.LeaseManager` for a `config.LeaseConfig`: ``object``
+    leases ride the remote segment store's ETag-fenced conditional
+    writes, ``file`` leases atomic renames under the checkpoint directory,
+    and ``auto`` picks ``object`` exactly when ``store_spec`` (the
+    ``--segment-dir``) is remote.  Raises ValueError when the chosen
+    store has nowhere to live."""
+    import re
+
+    from kafka_topic_analyzer_tpu_torch.fleet.lease import (
+        FileLeaseStore,
+        LeaseManager,
+        ObjectLeaseStore,
+    )
+    from kafka_topic_analyzer_tpu_torch.io.retry import Backoff
+
+    remote = bool(store_spec and re.match(r"^(https?|s3)://", str(store_spec)))
+    choice = cfg.store
+    if choice == "auto":
+        choice = "object" if remote else "file"
+    if choice == "object":
+        if not remote:
+            raise ValueError(
+                "--lease-store object needs a remote --segment-dir spec "
+                "(http://, https://, s3://) to host the lease records"
+            )
+        from kafka_topic_analyzer_tpu_torch.io.objstore import RetryingHttp
+
+        store = ObjectLeaseStore(
+            RetryingHttp(str(store_spec), SegmentFetchConfig())
+        )
+    else:
+        if not snapshot_dir:
+            raise ValueError(
+                "--instance-id needs a lease store: pass --snapshot-dir "
+                "(file leases live in SNAPSHOT_DIR/_kta_leases/) or a "
+                "remote --segment-dir spec with --lease-store object"
+            )
+        store = FileLeaseStore(snapshot_dir)
+    return LeaseManager(
+        store,
+        instance=cfg.instance_id,
+        ttl_s=cfg.ttl_s,
+        backoff=Backoff(TransportRetryConfig()),
+    )
+
+
+def fleet_plan(args):
+    """The flags `run_fleet` reads before any broker handshake: (dispatch
+    config or None, ingest config, explicit concurrency or None, follow
+    config or None).  Raises ValueError on a refused combination or a bad
+    value (the reference's messages)."""
+    from kafka_topic_analyzer_tpu_torch.config import FollowConfig
+
+    if args.source != "kafka":
+        raise ValueError(
+            "--fleet requires --source kafka (discovery reads cluster "
+            "metadata); a segment store is one topic's immutable "
+            "archive with no topic list or moving head — scan it solo "
+            "with --source segfile (synthetic sources scan solo too)"
+        )
+    if not args.bootstrap_server:
+        raise SystemExit("--fleet requires -b/--bootstrap-server")
+    if parse_mesh(args.mesh) != (1, 1):
+        raise ValueError(
+            "--fleet does not support --mesh yet (fleet scans run "
+            "per-topic single-device backends); drop --mesh, or scan "
+            "one topic solo to use a device mesh"
+        )
+    if args.dump_segments:
+        raise ValueError(
+            "--fleet does not support --dump-segments (the dump tee "
+            "is single-topic); run a solo scan with --dump-segments "
+            "per topic instead"
+        )
+    if args.from_timestamp:
+        raise ValueError(
+            "--fleet does not support --from-timestamp yet (the "
+            "cutoff would need a per-topic seek); scan the topic "
+            "solo with --from-timestamp instead"
+        )
+    dispatch = resolve_dispatch(args)
+    if args.dispatch_depth < 1:
+        raise ValueError("dispatch depth must be >= 1")
+    ingest_cfg = IngestConfig.parse(args.ingest_workers)
+    concurrency = None
+    text = str(args.fleet_concurrency).strip().lower()
+    if text != "auto":
+        try:
+            concurrency = int(text)
+        except ValueError:
+            raise ValueError(
+                f"bad --fleet-concurrency {args.fleet_concurrency!r}: "
+                "expected a positive integer or 'auto'"
+            ) from None
+        if concurrency < 1:
+            raise ValueError("--fleet-concurrency must be >= 1")
+    follow_cfg = None
+    if args.follow:
+        follow_cfg = FollowConfig(
+            poll_interval_s=args.poll_interval,
+            checkpoint_every_s=(
+                args.checkpoint_interval
+                if args.checkpoint_interval is not None
+                else args.snapshot_every
+            ),
+            idle_exit_s=args.follow_idle_exit,
+        )
+    return dispatch, ingest_cfg, concurrency, follow_cfg
+
+
+def run_fleet(args, topics: "list[str] | None" = None):
+    """Cluster-wide scan (``--fleet``), or an explicit multi-topic follow
+    (``-t a,b --follow``: ``topics`` pins the list and skips discovery).
+    Every topic keeps its solo pass chain on a backend of its own (on the
+    card, on a CUDA stream of its own); the fleet scheduler shares the
+    ``--ingest-workers`` and ``--dispatch-depth`` budgets.  Prints each
+    topic's report and the status table (or the rollup document with the
+    per-topic documents under ``--json``); returns ``(exit status,
+    fleet.service.FleetResult or None)``."""
+    from kafka_topic_analyzer_tpu_torch.config import LeaseConfig
+    from kafka_topic_analyzer_tpu_torch.fleet.discovery import (
+        discover_topics,
+        parse_globs,
+    )
+    from kafka_topic_analyzer_tpu_torch.fleet.scheduler import (
+        FleetScheduler,
+        TopicSeed,
+    )
+    from kafka_topic_analyzer_tpu_torch.fleet.service import FleetService
+    from kafka_topic_analyzer_tpu_torch.obs.doctor import diagnose_scan
+    from kafka_topic_analyzer_tpu_torch.obs.registry import default_registry
+    from kafka_topic_analyzer_tpu_torch.report import render_fleet_status
+
+    try:
+        dispatch, ingest_cfg, explicit_concurrency, follow_cfg = fleet_plan(args)
+        use_native = resolve_native(args)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1, None
+
+    banner_out = sys.stderr if args.json else sys.stdout
+    rediscover = None
+    if topics is None:
+        include = parse_globs(args.topic) or ["*"]
+        exclude = parse_globs(args.fleet_exclude)
+
+        def discover() -> "list[TopicSeed]":
+            return [
+                TopicSeed(name=d.name, partitions=d.partitions)
+                for d in discover_topics(
+                    args.bootstrap_server, include, exclude, args.fleet_internal,
+                )
+            ]
+
+        try:
+            seeds = discover()
+        except (OSError, KafkaProtocolError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1, None
+        if args.follow:
+            rediscover = discover
+        print(
+            f"Fleet discovery: {len(seeds)} topic(s) matched "
+            f"{','.join(include)}"
+            + (f" minus {','.join(exclude)}" if exclude else ""),
+            file=banner_out,
+        )
+    else:
+        # The worker budget is resolved against the real partition counts
+        # (one all-topics metadata round trip); an unreachable cluster
+        # keeps placeholders of 1, and every scan then fails in isolation.
+        parts_by_name: "dict[str, int]" = {}
+        try:
+            wanted = set(topics)
+            for d in discover_topics(args.bootstrap_server, include_internal=True):
+                if d.name in wanted:
+                    parts_by_name[d.name] = d.partitions
+        except Exception as e:
+            print(
+                f"warning: could not size the fleet from cluster "
+                f"metadata ({e}); worker budget assumes 1 partition "
+                "per topic",
+                file=sys.stderr,
+            )
+        seeds = [
+            TopicSeed(name=t, partitions=parts_by_name.get(t, 1)) for t in topics
+        ]
+    if not seeds:
+        print(
+            "No topics matched the fleet filters, no analysis possible. "
+            "Exiting.",
+            file=sys.stderr,
+        )
+        return EXIT_EMPTY_TOPIC, None
+
+    total_parts = sum(max(1, s.partitions) for s in seeds)
+    worker_budget = ingest_cfg.resolve(max(1, total_parts))
+    max_concurrent = (
+        explicit_concurrency
+        if explicit_concurrency is not None
+        else max(1, min(4, len(seeds), worker_budget))
+    )
+    # --dispatch-depth is the GLOBAL in-flight budget the concurrent
+    # device scans share (each admitted scan holds at least one token),
+    # under every device backend (gpu, and tpu, its reference spelling);
+    # the oracle has no dispatch queue, so its budget is the concurrency.
+    dispatch_budget = (
+        max(1, args.dispatch_depth) if dispatch is not None else max_concurrent
+    )
+    on_card = args.backend != "cpu" and args.device == "cuda"
+
+    def source_factory(topic: str):
+        return make_source(args, use_native, topic=topic)
+
+    def backend_factory(topic: str, num_partitions: int, grant):
+        topic_dispatch = None
+        if dispatch is not None:
+            topic_dispatch = DispatchConfig(
+                superbatch=dispatch.superbatch, depth=grant.dispatch_depth
+            )
+        stream = None
+        if on_card:
+            import torch
+
+            # A stream of the topic's own: the folds of concurrent topics
+            # are ordered only within their topic.
+            stream = torch.cuda.Stream()
+        return make_backend(
+            args.backend, analyzer_config(args, num_partitions),
+            device=args.device, use_native=use_native,
+            native_requested=args.native != "off", dispatch=topic_dispatch,
+            stream=stream,
+        )
+
+    lease_mgr = None
+    instance = "solo"
+    if args.instance_id:
+        instance = args.instance_id
+        if instance == "auto":
+            # Bare --instance-id: HOSTNAME-PID is unique per process.
+            import os
+            import socket
+
+            instance = f"{socket.gethostname()}-{os.getpid()}"
+        try:
+            lease_mgr = make_lease_manager(
+                LeaseConfig(
+                    instance_id=instance, ttl_s=args.lease_ttl,
+                    store=args.lease_store,
+                ),
+                snapshot_dir=args.snapshot_dir,
+                store_spec=args.segment_dir,
+            )
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1, None
+
+    scheduler = FleetScheduler(
+        worker_budget, dispatch_budget, max_concurrent, instance=instance
+    )
+    svc = FleetService(
+        seeds,
+        source_factory,
+        backend_factory,
+        args.batch_size,
+        scheduler,
+        follow=follow_cfg,
+        snapshot_dir=args.snapshot_dir,
+        resume=args.resume,
+        # /report.json assembly is waste when no HTTP server serves it.
+        publish_reports=args.metrics_port is not None,
+        serve_gzip=not args.no_serve_gzip,
+        spinner=Spinner(enabled=not args.quiet),
+        rediscover=rediscover,
+        leases=lease_mgr,
+        instance=instance,
+    )
+    print(
+        f"Fleet scan of {len(seeds)} topic(s): "
+        f"{worker_budget} worker(s), dispatch budget {dispatch_budget}, "
+        f"concurrency {max_concurrent}"
+        + (" (follow)" if args.follow else "")
+        + (
+            f" [instance {instance}, lease TTL {args.lease_ttl:g}s]"
+            if lease_mgr is not None else ""
+        ),
+        file=banner_out,
+    )
+    with maybe_torch_trace(args.profile_dir, "cuda" if on_card else None):
+        if args.follow:
+            restore = svc.install_signal_handlers()
+            try:
+                fleet_result = svc.run_follow()
+            finally:
+                restore()
+        else:
+            fleet_result = svc.run_batch()
+
+    if args.stats:
+        sys.stderr.write(render_fleet_status(fleet_result.rollup))
+        sys.stderr.write(render_telemetry_stats(default_registry().snapshot()))
+        print_health_stats()
+    rc = fleet_exit(fleet_result)
+    if args.json:
+        doc = dict(fleet_result.rollup)
+        doc["topics"] = {
+            t: build_json_doc(
+                t,
+                result,
+                diagnosis=diagnose_scan(result),
+                fleet=fleet_result.statuses[t].as_dict(),
+            )
+            for t, result in sorted(fleet_result.results.items())
+        }
+        print(json.dumps(doc))
+        return rc, fleet_result
+    for t, result in sorted(fleet_result.results.items()):
+        sys.stdout.write(
+            render_report(
+                t,
+                result.metrics,
+                result.start_offsets,
+                result.end_offsets,
+                result.duration_secs,
+                show_alive_keys=args.count_alive_keys,
+            )
+        )
+    sys.stdout.write(render_fleet_status(fleet_result.rollup))
+    return rc, fleet_result
 
 
 def main(argv: "list[str] | None" = None) -> int:

@@ -275,8 +275,43 @@ class FollowConfig:
 
 
 #: Valid --lease-store selections: ``auto`` derives the store from the
-#: run (the object store when --segment-store is remote, else lease
+#: run (the object store when --segment-dir is remote, else lease
 #: files in the checkpoint dir), the other two pin it.
+LEASE_STORES = ("auto", "file", "object")
+
+
+@dataclasses.dataclass(frozen=True)
+class LeaseConfig:
+    """Multi-instance fleet lease knobs (``--instance-id``,
+    ``--lease-ttl``, ``--lease-store``; fleet/lease.py).
+
+    Not part of `AnalyzerConfig`: who owns a topic changes neither state
+    shapes nor fold semantics, so none of it may change the checkpoint
+    fingerprint.  The lease epoch rides the snapshot metadata as a
+    fencing stamp outside the fingerprint."""
+
+    #: This analyzer's identity on every lease record, booked metric and
+    #: published document.  Empty = leases off (the single-owner fleet).
+    instance_id: str = ""
+    #: Lease lifetime in seconds: the failover bound, and the zombie
+    #: window the epoch fence covers.  Renewals ride every poll boundary,
+    #: so it must well exceed the poll interval.
+    ttl_s: float = 30.0
+    #: Where lease records live (``LEASE_STORES``).
+    store: str = "auto"
+
+    def __post_init__(self) -> None:
+        if self.ttl_s <= 0:
+            raise ValueError("--lease-ttl must be > 0 seconds")
+        if self.store not in LEASE_STORES:
+            raise ValueError(
+                f"lease store {self.store!r} invalid "
+                f"({', '.join(LEASE_STORES)})"
+            )
+
+    @property
+    def enabled(self) -> bool:
+        return bool(self.instance_id)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -297,6 +297,7 @@ def run_scan(
     emit_lifecycle: bool = True,
     book_once: bool = True,
     final_snapshot: bool = False,
+    lease_epoch: "Optional[int]" = None,
 ) -> ScanResult:
     """Full scan of ``topic`` from ``source`` through ``backend``;
     ``start_at`` starts the partitions it names at those offsets (the
@@ -320,7 +321,13 @@ def run_scan(
     the first; ``final_snapshot`` forces a snapshot once the stream has
     drained, at a superbatch boundary (the pending tail is flushed at
     every pass end) — the service's checkpoint-interval and clean-shutdown
-    commits."""
+    commits.
+
+    ``lease_epoch`` (fleet/lease.py): the caller's topic-ownership epoch,
+    stamped on every snapshot this pass saves and checked against every
+    snapshot it loads: a pass under a lost lease raises
+    `checkpoint.StaleLeaseEpochError` instead of overwriting (or resuming
+    from) its successor's checkpoint."""
     ingest_cfg = (
         ingest_workers
         if isinstance(ingest_workers, IngestConfig)
@@ -387,7 +394,9 @@ def run_scan(
             type(backend).__name__,
         )
     if resume and can_snapshot:
-        snap = checkpoint.load_snapshot(snapshot_dir, topic, backend.config)
+        snap = checkpoint.load_snapshot(
+            snapshot_dir, topic, backend.config, lease_epoch=lease_epoch
+        )
         if snap is not None:
             state, offsets, records_seen, init_now_s = snap
             backend.set_state(state)
@@ -450,6 +459,7 @@ def run_scan(
                 corrupt=_spans(source, "corruption_spans"),
                 lost=_spans(source, "lost_spans"),
                 partition_meta=_booked(source, "partition_meta") or None,
+                lease_epoch=lease_epoch,
             )
         obs_metrics.SNAPSHOTS_SAVED.inc()
         obs_events.emit(

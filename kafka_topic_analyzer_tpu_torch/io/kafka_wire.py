@@ -373,6 +373,81 @@ def parse_bootstrap(bootstrap_servers: str) -> List[Tuple[str, int]]:
     return out
 
 
+def discover_cluster_topics(
+    bootstrap_servers: str,
+    timeout_s: float = 10.0,
+    retries: int = 3,
+) -> "List[kc.TopicMetadata]":
+    """All-topics Metadata request: every topic the cluster knows, with
+    its partitions and the broker's ``is_internal`` flag (fleet discovery,
+    fleet/discovery.py).
+
+    The Metadata version negotiation of `KafkaWireSource` (v12, v5, v1
+    against the broker's ApiVersions range, with the KIP-511 v3 → v0
+    handshake downgrade), with a null topic array, which Kafka reads as
+    "all topics".  One connection per call.  Topics whose metadata carries
+    an error come back as they are (discovery skips them).  Raises
+    `KafkaProtocolError` when no bootstrap server answers within
+    ``retries`` attempts."""
+    candidates = KafkaWireSource._CANDIDATES[kc.API_METADATA][1]
+    servers = parse_bootstrap(bootstrap_servers)
+    if not servers:
+        raise kc.KafkaProtocolError("no bootstrap servers given")
+    last_error: "BaseException | None" = None
+    for attempt in range(retries):
+        host, port = servers[attempt % len(servers)]
+        conn = None
+        try:
+            conn = BrokerConnection(host, port, timeout_s=timeout_s)
+            # KIP-511: offer the flexible v3 first; an UNSUPPORTED_VERSION
+            # answer in v0 format retries at v0; a broker with no
+            # ApiVersions at all gets the legacy version (the last
+            # candidate).
+            ranges: "Dict[int, tuple[int, int]]" = {}
+            for av in (3, 0):
+                try:
+                    r = conn.request(
+                        kc.API_VERSIONS, av, kc.encode_api_versions_request(av)
+                    )
+                    ranges = kc.decode_api_versions_response(r, av)
+                    break
+                except kc.UnsupportedVersionError:
+                    if av == 0:
+                        ranges = {}
+                    continue
+                except kc.KafkaProtocolError:
+                    ranges = {}
+                    break
+            v = candidates[-1]
+            if ranges and kc.API_METADATA in ranges:
+                lo, hi = ranges[kc.API_METADATA]
+                v = next((c for c in candidates if lo <= c <= hi), None)
+                if v is None:
+                    raise kc.KafkaProtocolError(
+                        f"broker supports Metadata versions [{lo}, {hi}] "
+                        f"but this client implements {sorted(candidates)}"
+                    )
+            r = conn.request(
+                kc.API_METADATA, v, kc.encode_metadata_request(None, v)
+            )
+            md = kc.decode_metadata_response(r, v)
+            obs_metrics.FLEET_TOPICS_DISCOVERED.inc(len(md.topics))
+            return md.topics
+        except (OSError, kc.KafkaProtocolError) as e:
+            last_error = e
+            log.warning(
+                "all-topics metadata from %s:%d failed (%s); retrying",
+                host, port, e,
+            )
+        finally:
+            if conn is not None:
+                conn.close()
+    raise kc.KafkaProtocolError(
+        f"cluster topic discovery failed after {retries} attempts: "
+        f"{last_error}"
+    )
+
+
 class DataLossError(kc.KafkaProtocolError):
     """The log mutated out from under the scan (retention race, truncation
     after an unclean election, resume below log-start) and the data-loss

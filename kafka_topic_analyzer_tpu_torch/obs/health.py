@@ -1,8 +1,9 @@
 """Declarative alert-rule engine: automated health verdicts (port of the
 reference's ``obs/health.py``; DESIGN.md §22).  The fleet-only rules
-(``fleet-topic-failure``, ``lease_lost``, ``failover``) are here as code
-and read counters no port scan moves yet: they stay ``ok`` until the
-fleet scheduler is ported.
+(``fleet-topic-failure``, ``lease_lost``, ``failover``) read what the
+fleet service (fleet/service.py) and its lease manager (fleet/lease.py)
+book: the failed topics of each poll, ``kta_lease_losses_total`` and
+``kta_fleet_failovers_total``.
 
 The scan doctor answers "what is the bottleneck"; nothing in the system
 answers "is this service HEALTHY" without a human reading ``--stats``.

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import struct
+import threading
 
 import torch
 
@@ -65,12 +66,22 @@ def counters_merge_plain(
 #: ``(kta_counters_merge, kta_cuda_error_string, raw stream getter)``,
 #: bound on first launch.
 _bound = None
+#: Serializes the first binding: the fleet's concurrent topic scans can
+#: reach their first launch together.
+_bind_lock = threading.Lock()
 
 
 def _bind():
     """Load the kernel's library (building it if missing) and set the C
     signatures, once per process."""
     global _bound
+    with _bind_lock:
+        if _bound is None:
+            _bound = _load()
+    return _bound
+
+
+def _load():
     lib = _build.load("counters_merge")
     fn = lib.kta_counters_merge
     # One argument: the packed record, passed as a pointer to its bytes
@@ -81,8 +92,7 @@ def _bind():
     lib.kta_cuda_error_string.restype = ctypes.c_char_p
     # The current stream's handle as an int, without building a Stream
     # object (CUDA builds of torch only; reached only for CUDA tensors).
-    _bound = (fn, lib.kta_cuda_error_string, torch._C._cuda_getCurrentRawStream)
-    return _bound
+    return fn, lib.kta_cuda_error_string, torch._C._cuda_getCurrentRawStream
 
 
 def _check(per_partition, delta, overall_size, overall_count) -> torch.device:

@@ -108,6 +108,37 @@ def shard_partitions(
     return [g for g in assign_partitions(partitions, workers) if g]
 
 
+def allocate_row_workers(
+    budget: int, row_counts: "Dict[int, int]"
+) -> "Dict[int, int]":
+    """Split an ingest-worker budget across rows (``row_counts``: row ->
+    partition count): every non-empty row gets 1 even when ``budget`` is
+    smaller, and the rest goes one worker at a time to the row with the
+    most partitions per worker (ties by row index), clamped at the row's
+    partition count — a worker beyond it would own an empty group.  A
+    pure function of its inputs.  The fleet scheduler splits the global
+    worker budget across an admitted wave of topic scans with it
+    (fleet/scheduler.py)."""
+    if budget < 1:
+        raise ValueError("worker budget must be >= 1")
+    alloc = {r: (1 if n > 0 else 0) for r, n in row_counts.items()}
+    spent = sum(alloc.values())
+    while spent < budget:
+        best = None
+        for r in sorted(row_counts):
+            n, w = row_counts[r], alloc[r]
+            if w == 0 or w >= n:
+                continue
+            ratio = n / w
+            if best is None or ratio > best[0]:
+                best = (ratio, r)
+        if best is None:
+            break  # every row saturated at its partition count
+        alloc[best[1]] += 1
+        spent += 1
+    return alloc
+
+
 class _IngestWorker(threading.Thread):
     """One worker: a private ``source.batches()`` stream for one partition
     group, staged on this thread, fed into a bounded queue.  Mirrors the

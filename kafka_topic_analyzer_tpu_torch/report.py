@@ -578,3 +578,57 @@ def build_json_doc(
         doc["health"] = health
     attach_issue_blocks(doc, result)
     return doc
+
+
+def render_fleet_status(rollup: dict) -> str:
+    """The fleet status table and totals block of a rollup document
+    (`fleet.report.build_fleet_rollup`): what ``--fleet`` prints after
+    the per-topic reports and ``--stats`` writes to stderr.  The same
+    document ``/report.json`` serves, so table and JSON agree."""
+    fleet = rollup.get("fleet") or {}
+    statuses: Dict[str, dict] = fleet.get("statuses") or {}
+    eq = "=" * 120
+    lines: List[str] = [eq]
+    totals = fleet.get("totals") or {}
+    lines.append(
+        f"FLEET: {fleet.get('topics', 0)} topic(s) "
+        f"(of {fleet.get('topics_discovered', 0)} discovered) — "
+        f"{totals.get('records', 0)} records, "
+        f"{totals.get('bytes', 0)} bytes, "
+        f"lag {totals.get('lag', 0)}, "
+        f"{totals.get('passes', 0)} pass(es)"
+    )
+    rows: List[List[str]] = [
+        ["Topic", "Status", "P", "Records", "Bytes", "Lag", "W", "Passes",
+         "Verdict"],
+    ]
+    for t in sorted(statuses):
+        s = statuses[t]
+        rows.append([
+            t,
+            s.get("status", "?"),
+            f"{s.get('partitions', 0)}",
+            f"{s.get('records', 0)}",
+            f"{s.get('bytes', 0)}",
+            f"{s.get('lag', 0)}",
+            f"{s.get('workers', 0)}",
+            f"{s.get('passes', 0)}",
+            s.get("verdict", "") or "-",
+        ])
+    body = "\n".join(lines) + "\n" + render_table(rows)
+    issues = [
+        (t, statuses[t].get("error"))
+        for t in sorted(statuses)
+        if statuses[t].get("status") == "failed"
+    ]
+    if issues:
+        bang = "!" * 120
+        body += bang + "\n"
+        body += (
+            f"WARNING: {len(issues)} topic(s) FAILED — their rows above "
+            "are partial; every other topic's results are unaffected\n"
+        )
+        for t, err in issues:
+            body += f"  topic {t}: {err}\n"
+        body += bang + "\n"
+    return body + eq + "\n"

@@ -56,17 +56,22 @@ def build_templates(
     seed: int = 7,
     compression: int = kc.COMPRESSION_NONE,
     tombstone_every: int = 0,
+    salt: "int | None" = None,
 ) -> List[bytes]:
     """Encode ``n_templates`` RecordBatches (base_offset 0) with disjoint
-    key sets and seeded value sizes in [vmin, vmax]."""
-    rng = np.random.default_rng(seed)
+    key sets and seeded value sizes in [vmin, vmax].  A ``salt`` prefixes
+    every key (``s<salt>-``) and moves the size seed by ``salt``, so the
+    topics of one broker hold different keys; None keeps the unsalted
+    keys."""
+    rng = np.random.default_rng(seed + (salt or 0))
     base_ts = 1_767_225_600_000  # 2026-01-01T00:00:00Z, ms
+    prefix = b"" if salt is None else b"s%d-" % salt
     out = []
     for t in range(n_templates):
         sizes = rng.integers(vmin, vmax + 1, size=records_per_batch)
         recs: List[kc.OffsetRecord] = []
         for i in range(records_per_batch):
-            key = b"k%04d-%08d" % (t, i)
+            key = prefix + b"k%04d-%08d" % (t, i)
             if tombstone_every and i % tombstone_every == (t % tombstone_every):
                 value = None
             else:
@@ -90,6 +95,40 @@ def _sendmsg_all(conn: socket.socket, bufs: "list") -> None:
             views[i] = views[i][sent:]
 
 
+class _TopicLayout:
+    """One served topic: its partitions, windows and templates, whether it
+    is flagged internal, and the shared head it follows (None: all of its
+    windows are visible)."""
+
+    def __init__(self, name: str, partitions: int, windows: int,
+                 templates: List[bytes], records_per_batch: int,
+                 internal: bool = False, head=None):
+        self.name = name
+        self.partitions = list(range(partitions))
+        self.partition_set = set(self.partitions)
+        self.windows = windows
+        self.templates = templates
+        #: Template split for scatter-gather serving: the first 8 bytes of
+        #: a v2 frame are base_offset (not CRC-covered), so a response is
+        #: [8-byte patched header][shared template tail] pairs — the tails
+        #: are served zero-copy straight from these views by sendmsg.
+        self.tmpl_tails = [memoryview(t)[8:] for t in templates]
+        self.R = records_per_batch
+        self.internal = internal
+        self.head = head
+
+    @property
+    def visible_windows(self) -> int:
+        """Windows of every partition the broker serves right now."""
+        if self.head is None:
+            return self.windows
+        return max(0, min(self.windows, int(self.head.value)))
+
+    @property
+    def end_offset(self) -> int:
+        return self.visible_windows * self.R
+
+
 class TemplateBroker:
     """Loopback Kafka broker serving base_offset-patched template batches.
 
@@ -97,6 +136,11 @@ class TemplateBroker:
     Metadata v1–v5, ListOffsets v1, Fetch v4) and honors both byte budgets
     of a Fetch request — partition_max_bytes per partition and the KIP-74
     request-level max_bytes (first batch always served whole).
+
+    ``extra_topics`` (`_TopicLayout` list) serves more topics from the
+    same bootstrap (fleet runs): an all-topics Metadata request lists
+    every topic with its internal flag, and ListOffsets and Fetch route by
+    the request's topic name.
     """
 
     def __init__(
@@ -108,20 +152,17 @@ class TemplateBroker:
         records_per_batch: int,
         brokers: int = 1,
         head=None,
+        extra_topics: "List[_TopicLayout] | None" = None,
     ):
+        main = _TopicLayout(topic, partitions, windows_per_partition,
+                            templates, records_per_batch, head=head)
+        #: Served topics by name, the default topic first.
+        self.layouts = {main.name: main}
+        for layout in extra_topics or []:
+            if layout.name in self.layouts:
+                raise ValueError(f"topic {layout.name!r} served twice")
+            self.layouts[layout.name] = layout
         self.topic = topic
-        self.partitions = list(range(partitions))
-        self.partition_set = set(self.partitions)
-        #: Template split for scatter-gather serving: the first 8 bytes of
-        #: a v2 frame are base_offset (not CRC-covered), so a response is
-        #: [8-byte patched header][shared template tail] pairs — the tails
-        #: are served zero-copy straight from these views by sendmsg.
-        self.tmpl_tails = [memoryview(t)[8:] for t in templates]
-        self.windows = windows_per_partition
-        self.templates = templates
-        self.R = records_per_batch
-        #: Windows visible per partition (None: all of them).
-        self.head = head
         #: N listener sockets = N advertised broker nodes (partition p is
         #: led by node p % N) — exercises the wire client's
         #: leader-parallel fetch the way a real multi-broker cluster does.
@@ -140,14 +181,12 @@ class TemplateBroker:
 
     @property
     def visible_windows(self) -> int:
-        """Windows of every partition the broker serves right now."""
-        if self.head is None:
-            return self.windows
-        return max(0, min(self.windows, int(self.head.value)))
+        """Windows of every partition of the default topic served now."""
+        return self.layouts[self.topic].visible_windows
 
     @property
     def end_offset(self) -> int:
-        return self.visible_windows * self.R
+        return self.layouts[self.topic].end_offset
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -227,7 +266,7 @@ class TemplateBroker:
                     conn.sendall(struct.pack(">ii", 4 + len(body), corr))
                     conn.sendall(body)
 
-    def _fetch_response(self, parts, max_bytes: int) -> "list":
+    def _fetch_response(self, layout: _TopicLayout, parts, max_bytes: int) -> "list":
         """Build the Fetch v4 response as an iovec list: small packed
         header chunks interleaved with the SHARED template tails (the
         first 8 bytes of each frame — base_offset, not CRC-covered — are
@@ -239,31 +278,32 @@ class TemplateBroker:
         and the KIP-74 request-level ``max_bytes``, with the first
         non-empty partition always granted one whole batch (minOneMessage),
         which the wire client's starvation logic relies on."""
-        K = len(self.templates)
-        visible = self.visible_windows
-        end_offset = visible * self.R
+        K = len(layout.templates)
+        R = layout.R
+        visible = layout.visible_windows
+        end_offset = visible * R
         plan = []  # (pid, err, first_window, n_windows, rs_bytes)
         budget = max_bytes
         served_any = False
         for pid, fetch_offset, pmax, _epoch in parts:
-            if pid not in self.partition_set:
+            if pid not in layout.partition_set:
                 plan.append((pid, kc.ERR_UNKNOWN_TOPIC_OR_PARTITION, 0, 0, 0))
                 continue
-            w0 = fetch_offset // self.R  # align down; clients skip below
+            w0 = fetch_offset // R  # align down; clients skip below
             lim = min(pmax, budget)
             n = 0
             size = 0
             while w0 + n < visible and (
                 size < lim or (n == 0 and not served_any)
             ):
-                size += len(self.templates[(w0 + n) % K])
+                size += len(layout.templates[(w0 + n) % K])
                 n += 1
             if n:
                 served_any = True
             budget = max(0, budget - size)
             plan.append((pid, 0, w0, n, size))
 
-        topic_b = self.topic.encode()
+        topic_b = layout.name.encode()
         head = struct.pack(
             ">iiH", 0, 1, len(topic_b)
         ) + topic_b + struct.pack(">i", len(plan))
@@ -277,8 +317,8 @@ class TemplateBroker:
             )
             for i in range(n):
                 w = w0 + i
-                iov.append(struct.pack(">q", w * self.R))
-                iov.append(self.tmpl_tails[w % K])
+                iov.append(struct.pack(">q", w * R))
+                iov.append(layout.tmpl_tails[w % K])
         return iov
 
     def _dispatch(self, api_key: int, api_version: int, r: kc.ByteReader) -> bytes:
@@ -296,21 +336,20 @@ class TemplateBroker:
             for _ in range(max(n, 0)):
                 requested.append(r.string())
             nb = len(self.ports)
-            topics = [
-                kc.TopicMetadata(
-                    0,
-                    self.topic,
-                    [
-                        kc.PartitionMetadata(0, p, p % nb)
-                        for p in self.partitions
-                    ],
-                )
-                if name == self.topic
-                else kc.TopicMetadata(
-                    kc.ERR_UNKNOWN_TOPIC_OR_PARTITION, name or "", []
-                )
-                for name in (requested if requested else [self.topic])
-            ]
+            topics = []
+            # A null (or empty) topic array asks for every topic.
+            for name in requested or list(self.layouts):
+                layout = self.layouts.get(name)
+                if layout is None:
+                    topics.append(kc.TopicMetadata(
+                        kc.ERR_UNKNOWN_TOPIC_OR_PARTITION, name or "", []
+                    ))
+                    continue
+                topics.append(kc.TopicMetadata(
+                    0, name,
+                    [kc.PartitionMetadata(0, p, p % nb) for p in layout.partitions],
+                    is_internal=int(layout.internal),
+                ))
             return kc.encode_metadata_response(
                 kc.MetadataResponse(
                     {i: ("127.0.0.1", port) for i, port in enumerate(self.ports)},
@@ -320,29 +359,51 @@ class TemplateBroker:
                 version=api_version,
             )
         if api_key == kc.API_LIST_OFFSETS:
-            _topic, parts = kc.decode_list_offsets_request(r)
+            topic, parts = kc.decode_list_offsets_request(r)
+            layout = self.layouts.get(topic)
             results = []
             for pid, ts in parts:
-                if pid not in self.partitions:
+                if layout is None or pid not in layout.partition_set:
                     results.append(
                         (pid, kc.ERR_UNKNOWN_TOPIC_OR_PARTITION, -1, -1)
                     )
                 elif ts == kc.EARLIEST_TIMESTAMP:
                     results.append((pid, 0, -1, 0))
                 elif ts == kc.LATEST_TIMESTAMP:
-                    results.append((pid, 0, -1, self.end_offset))
+                    results.append((pid, 0, -1, layout.end_offset))
                 else:
                     results.append((pid, 0, ts, 0))
-            return kc.encode_list_offsets_response(self.topic, results)
+            return kc.encode_list_offsets_response(topic, results)
         if api_key == kc.API_FETCH:
-            _topic, parts, _mw, _mb, max_bytes = kc.decode_fetch_request(r)
-            return self._fetch_response(parts, max_bytes)
+            topic, parts, _mw, _mb, max_bytes = kc.decode_fetch_request(r)
+            layout = self.layouts.get(topic)
+            if layout is None:
+                layout = _TopicLayout(topic, 0, 0, [], 1)  # every pid unknown
+            return self._fetch_response(layout, parts, max_bytes)
         raise AssertionError(f"bench broker: unsupported api {api_key}")
+
+
+def topic_layout(spec: dict, compression: int, head=None) -> _TopicLayout:
+    """The `_TopicLayout` of one ``extra_topics`` entry of `BrokerProcess`:
+    ``name``, ``partitions``, ``windows``, ``R``, ``n_templates``,
+    ``vmin``, ``vmax``, ``salt`` and optionally ``tombstone_every``,
+    ``internal`` and ``follow_head`` (the topic's visible windows follow
+    the broker's moving head)."""
+    templates = build_templates(
+        spec["R"], spec["n_templates"], spec["vmin"], spec["vmax"],
+        compression=compression,
+        tombstone_every=spec.get("tombstone_every", 0), salt=spec["salt"],
+    )
+    return _TopicLayout(
+        spec["name"], spec["partitions"], spec["windows"], templates,
+        spec["R"], internal=spec.get("internal", False),
+        head=head if spec.get("follow_head") else None,
+    )
 
 
 def _broker_child(pipe, topic, partitions, windows, R, n_templates,
                   vmin, vmax, compression, tombstone_every,
-                  brokers, head=None) -> None:
+                  brokers, head=None, extra_topics=()) -> None:
     """Subprocess entry: build templates, serve, report the port, block.
 
     The broker must live in its own process — in-process serving steals
@@ -353,7 +414,9 @@ def _broker_child(pipe, topic, partitions, windows, R, n_templates,
         compression=compression, tombstone_every=tombstone_every,
     )
     broker = TemplateBroker(
-        topic, partitions, windows, templates, R, brokers=brokers, head=head
+        topic, partitions, windows, templates, R, brokers=brokers, head=head,
+        extra_topics=[topic_layout(spec, compression, head)
+                      for spec in extra_topics],
     )
     broker.start()
     pipe.send(broker.port)
@@ -364,7 +427,10 @@ class BrokerProcess:
     """TemplateBroker in a child process; context manager yields the port.
 
     ``head=N`` starts a moving head with N windows visible per partition
-    (of ``windows``); `set_head` moves it from the parent."""
+    (of ``windows``); `set_head` moves it from the parent.
+    ``extra_topics`` (a list of `topic_layout` dicts) serves more topics
+    from the same bootstrap, each with keys salted by its ``salt``; those
+    with ``follow_head`` follow the same head."""
 
     def __init__(self, **kw):
         self._kw = kw
@@ -392,6 +458,7 @@ class BrokerProcess:
                 self._kw.get("tombstone_every", 0),
                 self._kw.get("brokers", 1),
                 self._head,
+                list(self._kw.get("extra_topics", ())),
             ),
             daemon=True,
         )

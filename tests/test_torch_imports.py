@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``kafka_topic_analyzer_tpu_torch``
 (nor ``chip_smoke.py``) imports ``jax`` or the reference package, the
-port runs a scan in a process where both are unimportable, and asking for
+port runs a scan (and imports its fleet service and leases) in a process
+where both are unimportable, and asking for
 the GPU without one (also by default, as the state loader does) raises
 instead of falling back to the CPU."""
 
@@ -60,6 +61,8 @@ def test_port_scans_with_jax_and_the_reference_unimportable():
         "           '--quantiles-per-partition', '--batch-size', '256',\n"
         "           '--device', 'cpu'])\n"
         "assert rc == 0, rc\n"
+        "import kafka_topic_analyzer_tpu_torch.fleet.service\n"
+        "import kafka_topic_analyzer_tpu_torch.fleet.lease\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'kafka_topic_analyzer_tpu.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
     )
