@@ -304,6 +304,13 @@ KAFKA_WORKERS = ("1", "4", "auto")
 #: Advertised brokers of the parallel-ingest Kafka topic (partition p led
 #: by broker p % 4, all served by one child process).
 KAFKA_BROKERS = 4
+#: Records/s of each full-size scan of the scan phase, keyed by its label.
+SCAN_RATES: dict = {}
+#: The records a space shard of a ``--mesh 2,2`` scan folds per round
+#: (B/S; the kernel phase also checks B/4, a ``--mesh 1,4`` chunk).
+MESH_CHUNK = SCAN_BATCH // 2
+#: Rows each data row's stream folds before the killed mesh scan dies.
+MESH_KILL_AFTER = 15
 
 
 def fail(msg: str) -> "None":
@@ -447,6 +454,33 @@ def scalars(torch):
             for _ in range(2)]
 
 
+def stacked_merge_check(torch, np, cm, rng, shards: int = 4, p: int = 16) -> int:
+    """``counters_merge`` on one shard's views of a mesh's stacked state
+    (``per_partition[i]``, ``overall_size[i]``, ``overall_count[i]``: views
+    at a storage offset, as parallel/sharded.py folds them): the kernel
+    writes that shard's rows and scalars only.  Returns the max abs err."""
+    a, d = merge_tables(p, rng)
+    stack = torch.from_numpy(np.stack([a] * shards)).cuda()
+    sums = torch.stack(scalars(torch) * 2)  # [4]: sizes 0..1, counts 2..3
+    delta = torch.from_numpy(d).cuda()
+    worst = 0
+    for i in range(shards):
+        got, got_sums = stack.clone(), sums.clone()
+        cm.counters_merge(got[i], delta, got_sums[i % 2], got_sums[2 + i % 2])
+        want_sums = sums.clone()
+        want = stack.clone()
+        want[i] = cm.counters_merge_plain(want[i], delta, want_sums[i % 2],
+                                          want_sums[2 + i % 2])
+        torch.cuda.synchronize()
+        worst = max(worst, int((got - want).abs().max().item()))
+        if not (torch.equal(got, want) and torch.equal(got_sums, want_sums)):
+            fail(f"counters_merge on the views of stacked shard {i} disagrees "
+                 "with its plain version (or wrote another shard's rows)")
+    print(f"kernel: counters_merge on stacked views of {shards} shards P={p}: "
+          f"max_abs_err={worst}, other shards untouched")
+    return worst
+
+
 def phase_kernel(torch, np, cm) -> dict:
     """``counters_merge`` against its plain version, global sums included,
     then its times at the scan's shape."""
@@ -469,6 +503,7 @@ def phase_kernel(torch, np, cm) -> dict:
         if any(w != g for w, g in sums):
             fail(f"counters_merge's global sums disagree at P={p}: {sums}")
         worst = max(worst, err)
+    worst = max(worst, stacked_merge_check(torch, np, cm, rng))
 
     p = 16  # the scan phase's shape
     a, d = merge_tables(p, rng)
@@ -566,13 +601,38 @@ def update_inputs(torch, np, p: int, b: int, rng, order: str = "random"):
 ORDERS = ("random", "round-robin", "runs")
 
 
+def stacked_update_check(torch, np, cu, rng, shards: int = 4, p: int = 16) -> int:
+    """``counters_update`` at the mesh's chunk shape on one shard's views
+    of a stacked state (see `stacked_merge_check`).  Returns the max abs
+    err."""
+    per, cols = update_inputs(torch, np, p, MESH_CHUNK, rng, "round-robin")
+    stack = torch.stack([per] * shards)
+    sums = torch.stack(scalars(torch) * 2)
+    worst = 0
+    for i in range(shards):
+        got, got_sums = stack.clone(), sums.clone()
+        cu.counters_update(got[i], *cols, p, got_sums[i % 2], got_sums[2 + i % 2])
+        want, want_sums = stack.clone(), sums.clone()
+        want[i] = cu.counters_update_plain(want[i], *cols, p, want_sums[i % 2],
+                                           want_sums[2 + i % 2])
+        torch.cuda.synchronize()
+        worst = max(worst, int((got - want).abs().max().item()))
+        if not (torch.equal(got, want) and torch.equal(got_sums, want_sums)):
+            fail(f"counters_update on the views of stacked shard {i} disagrees "
+                 "with its plain version (or wrote another shard's rows)")
+    print(f"kernel: counters_update on stacked views of {shards} shards P={p} "
+          f"B={MESH_CHUNK}: max_abs_err={worst}, other shards untouched")
+    return worst
+
+
 def phase_update_kernel(torch, np, cu) -> dict:
     """``counters_update`` against its plain version, global sums included,
     in every record order, then its times at the scan's shape."""
     rng = np.random.default_rng(20261017)
-    b = 1 << 18
     worst = 0
-    for p in (1, 16, 300, 877, 4096, 32767):
+    # The scan's batch, and the chunk a --mesh 2,2 space shard folds.
+    for b, p in [(1 << 18, p) for p in (1, 16, 300, 877, 4096, 32767)] + [
+            (chunk, p) for chunk in (MESH_CHUNK, MESH_CHUNK // 2) for p in (1, 16, 300)]:
         for order in ORDERS:
             per, cols = update_inputs(torch, np, p, b, rng, order)
             want_sums, got_sums = scalars(torch), scalars(torch)
@@ -590,7 +650,9 @@ def phase_update_kernel(torch, np, cu) -> dict:
                 fail(f"counters_update's global sums disagree at P={p} in "
                      f"{order} order: {sums}")
             worst = max(worst, err)
+    worst = max(worst, stacked_update_check(torch, np, cu, rng))
 
+    b = 1 << 18
     p = 16  # the scan phase's shape and record order
     size, count = scalars(torch)
     label = "counters_update+sums"
@@ -778,21 +840,18 @@ def phase_identity(cli, kernels) -> None:
           "cuda and cpu; timing lines aside)")
 
 
-def host_alive_keys(np, spec_text: str, partition_order: bool) -> int:
-    """Alive keys of the spec's records replayed last-writer-wins per
-    2^32-slot bitmap slot (the key's fnv32) with numpy, in the synthetic
-    source's interleaved order or one partition after the other."""
-    from kafka_topic_analyzer_tpu_torch.io.synthetic import SyntheticSource
-
-    src = SyntheticSource(spec_of(spec_text))
-    start_at = {p: 0 for p in src.partitions()} if partition_order else None
-    slots, alive = [], []
-    for b in src.batches(1 << 20, start_at=start_at):
-        keyed = ~b.key_null
-        slots.append(b.key_hash32[keyed])
-        alive.append(~b.value_null[keyed])
-    _, last = np.unique(np.concatenate(slots)[::-1], return_index=True)
-    return int(np.count_nonzero(np.concatenate(alive)[::-1][last]))
+def lww_alive_slots(np, slot, keyed, alive):
+    """The bitmap slots (``ALIVE_BITS`` bits of the key's fnv32) whose last
+    keyed record, in array order, has a value: one sort of (slot,
+    position) keys, in which each slot's run ends at its last writer."""
+    idx = np.flatnonzero(keyed)
+    mask = np.uint64((1 << ALIVE_BITS) - 1)
+    key = np.sort(((slot[idx].astype(np.uint64) & mask) << np.uint64(32))
+                  | np.arange(len(idx), dtype=np.uint64))
+    slots = key >> np.uint64(32)
+    last = np.append(slots[1:] != slots[:-1], True)
+    writer = (key[last] & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    return slots[last][alive[idx][writer]]
 
 
 def drop_alive_keys(report: str) -> str:
@@ -856,6 +915,7 @@ def phase_scan(torch, np, cli, kernels, label, argv, kernel,
         fail(f"scan {label}: alive keys or HLL estimates missing")
     if int(np.sum(m.per_partition[:, 2])) < m.alive_keys:
         fail(f"scan {label}: more alive keys than alive records")
+    SCAN_RATES[label] = records / wall
     breakdown(torch, source, config, wall, backend.dispatches, label, kind, records)
     if hasattr(source, "close"):
         source.close()
@@ -1537,9 +1597,7 @@ class Replay:
         return tuple(np.concatenate(c) for c in zip(*order))
 
     def alive_keys(self, slot, keyed, alive) -> int:
-        np = self.np
-        _, last = np.unique(slot[keyed][::-1], return_index=True)
-        return int(np.count_nonzero(alive[keyed][::-1][last]))
+        return len(lww_alive_slots(self.np, slot, keyed, alive))
 
 
 def fanin_groups(source, workers: int):
@@ -3335,6 +3393,215 @@ def phase_fleet_leases(np, cli, kernels, broker, port: int) -> None:
                 f.close()
 
 
+def mesh_rows(np, replay, catalog, data: int, workers: str, synthetic: bool):
+    """Each data row's records (slot, keyed, alive), in the order the row
+    folds them under ``--mesh data,..`` at ``--ingest-workers workers``:
+    the row's partitions (`assign_partitions`), interleaved record by
+    record from the synthetic source, else through the row's share of
+    the workers (`allocate_row_workers`) as `Replay.fanin` merges them."""
+    from kafka_topic_analyzer_tpu_torch.config import IngestConfig
+    from kafka_topic_analyzer_tpu_torch.parallel.ingest import (
+        allocate_row_workers,
+        shard_partitions,
+    )
+    from kafka_topic_analyzer_tpu_torch.parallel.mesh import assign_partitions
+
+    ids = sorted(replay.parts)
+    parts = assign_partitions(ids, data)
+    if synthetic:
+        return [tuple(np.stack([replay.parts[p][k] for p in row], axis=1).reshape(-1)
+                      for k in range(3)) for row in parts]
+    alloc = allocate_row_workers(IngestConfig.parse(workers).resolve(len(ids)),
+                                 {r: len(parts[r]) for r in range(data)})
+    weights = (catalog.partition_record_counts()
+               if any(n > 1 for n in alloc.values()) else None)
+    return [replay.fanin(shard_partitions(parts[r], alloc[r], weights=weights)
+                         if alloc[r] > 1 else [parts[r]], SCAN_BATCH)
+            for r in range(data)]
+
+
+def mesh_alive_keys(np, rows) -> int:
+    """Alive keys under the mesh's rule: last writer wins per bitmap slot
+    within each data row in its fold order, then the rows' alive slots
+    OR together."""
+    alive = [lww_alive_slots(np, *row) for row in rows]
+    return int(np.unique(np.concatenate(alive)).size)
+
+
+def check_mesh_launches(label: str, result, launches: dict, kernel: str, shards: int):
+    """The format's kernel launched once per round and shard, the other
+    never; returns the rounds (``kta_scan_batches_total``)."""
+    rounds = int(metric_total(result.telemetry, "kta_scan_batches_total"))
+    if not (launches[kernel] > 0 and launches[kernel] == rounds * shards) or any(
+            v for name, v in launches.items() if name != kernel):
+        fail(f"mesh {label}: launches {launches} for {rounds} rounds of {shards} shards")
+    return rounds
+
+
+def mesh_snapshot_scan(torch, np, cli, kernels, label: str, argv, kernel: str,
+                       want_report: str, want_alive: int, total: int) -> int:
+    """A full-size mesh scan through the CLI's backend, killed when each
+    data row's stream has folded `MESH_KILL_AFTER` rows, then resumed on
+    the same mesh by a fresh source and backend: the snapshot lies inside
+    the topic, the resumed scan folds the rest with one launch per round
+    and shard, its report equals ``want_report`` but for the alive keys,
+    which equal ``want_alive``.  Returns the resumed scan's launches."""
+    from kafka_topic_analyzer_tpu_torch import checkpoint
+    from kafka_topic_analyzer_tpu_torch.engine import run_scan
+    from kafka_topic_analyzer_tpu_torch.obs.registry import default_registry
+    from kafka_topic_analyzer_tpu_torch.parallel.sharded import ShardedTorchBackend
+
+    directory = SNAPSHOT_ROOT / label.replace(" ", "-").replace(",", "x")
+    shutil.rmtree(directory, ignore_errors=True)
+    args = cli.build_parser().parse_args(argv)
+    workers = cli.resolve_ingest_workers(args, FULL_PARTITIONS)
+
+    def fresh():
+        source, config, use_native = cli.setup(args)
+        backend = cli.make_cli_backend(args, config, use_native, cli.resolve_dispatch(args))
+        if not isinstance(backend, ShardedTorchBackend):
+            fail(f"mesh {label}: the CLI built {type(backend).__name__}")
+        return source, backend
+
+    source, backend = fresh()
+    shards = len(backend.mesh.devices) * len(backend.mesh.devices[0])
+    default_registry().reset()
+    t0 = time.perf_counter()
+    try:
+        run_scan(args.topic, Interrupting(source, MESH_KILL_AFTER), backend,
+                 args.batch_size, snapshot_dir=str(directory),
+                 snapshot_every_s=SNAPSHOT_EVERY_S, ingest_workers=workers)
+    except Interrupt:
+        pass
+    else:
+        fail(f"mesh {label}: the interrupted scan ran to its end")
+    wall = time.perf_counter() - t0
+    telemetry = default_registry().snapshot()
+    info = checkpoint.snapshot_info(str(directory))
+    seen = info["records_seen"]
+    print(f"mesh {label}: killed after {seen} of {total} records in {wall:.3f} s; "
+          f"{metric_total(telemetry, 'kta_snapshots_saved_total'):.0f} snapshots in "
+          f"{stage_seconds(telemetry).get('snapshot', 0.0):.3f} s; file "
+          f"{os.path.getsize(directory / checkpoint.SNAPSHOT_NAME)} B")
+    if not 0 < seen < total:
+        fail(f"mesh {label}: records_seen {seen} is not inside (0, {total})")
+    if hasattr(source, "close"):
+        source.close()
+    del backend
+    source, backend = fresh()
+    default_registry().reset()
+    zero(kernels)
+    t0 = time.perf_counter()
+    result = run_scan(args.topic, source, backend, args.batch_size,
+                      snapshot_dir=str(directory), snapshot_every_s=3600.0,
+                      resume=True, ingest_workers=workers)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    if hasattr(source, "close"):
+        source.close()
+    rounds = check_mesh_launches(label, result, launches, kernel, shards)
+    got = rendered(result)
+    alive = result.metrics.alive_keys
+    print(f"mesh {label}: resumed, {result.records} records in {wall:.3f} s, "
+          f"{rounds} rounds, launches {launches}; alive keys {alive} (mesh replay "
+          f"{want_alive})")
+    if result.records + seen != total:
+        fail(f"mesh {label}: resumed {result.records} records after {seen}")
+    if drop_alive_keys(got) != drop_alive_keys(want_report) or alive != want_alive:
+        fail(f"mesh {label}: alive keys {alive} (mesh replay {want_alive}), or "
+             f"another line differs from the (1, 1) report:\n{want_report}\n{got}")
+    shutil.rmtree(directory, ignore_errors=True)
+    return launches[kernel]
+
+
+def phase_mesh(torch, np, cli, kernels, dump: str, reports: dict, rates: dict,
+               replay, catalog) -> dict:
+    """``--mesh`` scans through the CLI on the card: the full synthetic
+    scan at 2,2 in v5 and v4, the segment-file v5 scan at 4,1 with 7
+    workers and K = 4, and a segment-file v5 scan at 2,2 killed and
+    resumed on its mesh.  Every report line but the alive keys must equal
+    the (1, 1) scan's; the alive keys equal the numpy replay under the
+    mesh's rule (`mesh_alive_keys`); the format's kernel launches once per
+    round and shard.  Prints records/s beside the (1, 1) scan's at the
+    same workers (reported, not claimed), the peak device memory against
+    D bitmaps of 2^32 bits, and the finalize seconds.  Returns launches
+    by path."""
+    base = ["-t", "scan", *SKETCH_FLAGS, "--native", "on", "--backend", "gpu",
+            "--device", "cuda"]
+    synthetic = base + ["--source", "synthetic", "--synthetic", FULL_SPEC]
+    segments = base + ["--source", "segfile", "--segment-dir", dump]
+    v4 = ["--wire-format", "v4"]
+    runs = [
+        ("synthetic v5 2,2", synthetic + ["--mesh", "2,2"], "counters_merge", "v5",
+         SCAN_RATES.get("v5"), (2, 2), "1", True),
+        ("synthetic v4 2,2", synthetic + v4 + ["--mesh", "2,2"], "counters_update", "v4",
+         SCAN_RATES.get("v4"), (2, 2), "1", True),
+        ("segfile v5 4,1, 7 workers, K=4",
+         segments + ["--mesh", "4,1", "--ingest-workers", "7", *SUPERBATCH],
+         "counters_merge", "segfile v5", rates.get("segfile v5 superbatch K=4 7 workers"),
+         (4, 1), "7", False),
+    ]
+    launches = {"counters_merge": {}, "counters_update": {}}
+    # The three replays, on threads (numpy's sorts release the GIL),
+    # before any mesh scan runs.
+    t0 = time.perf_counter()
+    shapes = [(2, "1", True), (4, "7", False), (2, "1", False)]
+    with ThreadPoolExecutor(len(shapes)) as pool:
+        futures = {shape: pool.submit(
+            lambda shape: mesh_alive_keys(np, mesh_rows(np, replay, catalog, *shape)),
+            shape) for shape in shapes}
+        replays = {shape: f.result() for shape, f in futures.items()}
+    print(f"mesh: numpy replays under the mesh's rule in "
+          f"{time.perf_counter() - t0:.3f} s: " + "; ".join(
+              f"{d} data rows at {w} worker(s), {'synthetic' if syn else 'segfile'} "
+              f"order: {n} alive keys" for (d, w, syn), n in replays.items()))
+
+    def replayed(data, workers, synth):
+        return replays[data, workers, synth]
+
+    bitmap = 1 << (ALIVE_BITS - 3)
+    for label, argv, kernel, single, single_rate, (d, s), workers, synth in runs:
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run = session_run(cli, kernels, argv, f"mesh-{label.replace(' ', '-')}", False)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        result = run["result"]
+        got = rendered(result)
+        if drop_alive_keys(got) != drop_alive_keys(reports[single]):
+            fail(f"mesh {label}: the report differs from the (1, 1) {single} scan's "
+                 f"beyond the alive keys:\n{reports[single]}\n{got}")
+        want_alive = replayed(d, workers, synth)
+        if result.metrics.alive_keys != want_alive:
+            fail(f"mesh {label}: {result.metrics.alive_keys} alive keys, the mesh "
+                 f"replay {want_alive}")
+        rounds = check_mesh_launches(label, result, run["launches"], kernel, d * s)
+        finalize = stage_seconds(result.telemetry).get("finalize", 0.0)
+        scratch = bitmap // s
+        print(f"mesh {label}: {result.records} records in {run['wall']:.3f} s = "
+              f"{run['rate']:.1f} records/s ((1, 1) at the same workers: "
+              f"{single_rate if single_rate is not None else float('nan'):.1f}); "
+              f"{result.ingest_workers} worker(s), K={result.superbatch_k}; {rounds} "
+              f"rounds, {run['launches'][kernel]} {kernel} launches; peak "
+              f"max_memory_allocated {peak} B ({resident} B resident before; {d} "
+              f"bitmaps of {bitmap} B = {d * bitmap} B, a pair scratch and the "
+              f"finalize OR's accumulator {scratch} B each); finalize {finalize:.3f} s; "
+              f"alive keys {result.metrics.alive_keys} (the (1, 1) scan's line: "
+              + next((l for l in reports[single].splitlines() if l.startswith("Alive")), "")
+              + ")")
+        launches[kernel][f"mesh {label}"] = run["launches"][kernel]
+    segs_2x2 = replayed(2, "1", False)
+    launches["counters_merge"]["mesh 2,2 segfile v5 resumed"] = mesh_snapshot_scan(
+        torch, np, cli, kernels, "segfile v5 2,2", segments + ["--mesh", "2,2"],
+        "counters_merge", reports["segfile v5"], segs_2x2,
+        FULL_PARTITIONS * FULL_MESSAGES)
+    print("mesh: every report line equals the (1, 1) scan's but the alive keys, "
+          "which equal the mesh replay (last writer wins per data row, rows ORed)")
+    return launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3461,14 +3728,18 @@ def main() -> int:
         for path, (kernel, n) in phase_remote(np, cli, kernels, dump, reports,
                                               alive_of).items():
             launches[kernel][path] = n
+        for kernel, paths in phase_mesh(torch, np, cli, kernels, dump, reports, rates,
+                                        replay, catalog).items():
+            launches[kernel].update(paths)
     finally:
         shutil.rmtree(dump, ignore_errors=True)
         shutil.rmtree(TELEMETRY_ROOT, ignore_errors=True)
         shutil.rmtree(SNAPSHOT_ROOT, ignore_errors=True)
         shutil.rmtree(CACHE_ROOT, ignore_errors=True)
     t0 = time.perf_counter()
-    want = {order: host_alive_keys(np, FULL_SPEC, order == "partition")
-            for order in ("interleaved", "partition")}
+    want = {"interleaved": replay.alive_keys(*mesh_rows(np, replay, None, 1, "1", True)[0]),
+            "partition": replay.alive_keys(*replay.fanin([sorted(replay.parts)],
+                                                         SCAN_BATCH))}
     print(f"scan: numpy last-writer-wins replay of the {FULL_SPEC} records: "
           f"{want['interleaved']} alive keys interleaved, {want['partition']} "
           f"one partition after the other ({time.perf_counter() - t0:.3f} s)")

@@ -148,6 +148,10 @@ class MetricBackend(abc.ABC):
     #: snapshot (``--snapshot-dir``, ``--resume``).  The numpy oracle has
     #: none, like the reference's, and its scans continue without.
     snapshots = False
+    #: Whether `update_shards` folds one round of data-row batches (a
+    #: mesh backend, parallel/sharded.py): the engine then feeds each
+    #: data row's partitions through a stream of its own.
+    sharded = False
 
     def __init__(self, config: AnalyzerConfig):
         self.config = config
@@ -181,6 +185,27 @@ class MetricBackend(abc.ABC):
         """Fold up to `superbatch_k` staged batches in one dispatch, in
         list order; only a backend with ``superbatch_k`` > 1 has one."""
         raise NotImplementedError(f"{type(self).__name__} has no superbatch")
+
+    def update_shards(self, batches: list) -> None:
+        """Fold one round: ``batches[d]`` for data row ``d`` (a staged
+        shard, a decoded batch or None); only a sharded backend has it."""
+        raise NotImplementedError(f"{type(self).__name__} is not sharded")
+
+    def update_shards_superbatch(self, rounds: list) -> None:
+        """Fold up to `superbatch_k` rounds in one dispatch, in order."""
+        raise NotImplementedError(f"{type(self).__name__} is not sharded")
+
+    def prepare_shard(self, batch: RecordBatch):
+        """Stage one data row's batch for `update_shards`, on the ingest
+        side; only a sharded backend has it."""
+        raise NotImplementedError(f"{type(self).__name__} is not sharded")
+
+    def gather_telemetry(self) -> "list[dict]":
+        """Every controller's registry snapshot, in controller order: this
+        process's alone with one controller."""
+        from kafka_topic_analyzer_tpu_torch.obs.registry import default_registry
+
+        return [default_registry().snapshot()]
 
     def prepare(self, batch: RecordBatch):
         """Stage a decoded batch for `update`, on the ingest side: the

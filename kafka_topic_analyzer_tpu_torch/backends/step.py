@@ -1,7 +1,6 @@
 """The analyzer step: fold one batch and its pair table into the state
 (port of the reference's ``analyzer_step``, ``_analyzer_step_v5``,
-``_apply_alive``, ``apply_pair_table`` and ``superbatch_fold``, without
-the mesh branches).
+``_apply_alive``, ``apply_pair_table`` and ``superbatch_fold``).
 
 Under wire v5 every fold is an elementwise table merge — integer adds for
 the counters and DDSketch buckets, min/max for the extremes, max for HLL
@@ -11,7 +10,11 @@ for the alive bitmap, whose last-writer-wins order the host already
 resolved in the pairs (per row, or compacted per dispatch).
 
 The reference's step is pure (XLA donates its buffers); the port updates
-the caller's state in place and returns it.
+the caller's state in place and returns it.  Under a mesh
+(parallel/sharded.py) the state is one (data, space) shard's: views of a
+stacked state, its bitmap words the shard's slot range, and the row the
+shard's chunk of its data row's batch (``space_index`` names the space
+shard; the config is the chunk config).
 """
 
 from __future__ import annotations
@@ -41,16 +44,20 @@ def apply_pair_table(
     pairs: dict,
     config: AnalyzerConfig,
     scratch: "torch.Tensor | None" = None,
+    space_index: int = 0,
 ) -> AnalyzerState:
     """Apply one dispatch's compacted alive table
     (`packing.unpack_pair_table_device`): set/clear word masks merge
     elementwise; the bounded pair list goes through the pair scatter
-    (``scratch``: see `ops.bitmap.bitmap_scratch`)."""
+    (``scratch``: see `ops.bitmap.bitmap_scratch`).  Under a space-sharded
+    mesh every space shard applies its data row's one table to its own
+    slot range (``space_index``)."""
     if state.alive is None:
         return state
     if "alive_set" in pairs:
         bitmap_apply_masks(
-            state.alive.words, pairs["alive_set"], pairs["alive_clear"]
+            state.alive.words, pairs["alive_set"], pairs["alive_clear"],
+            space_index=space_index, space_shards=config.space_shards,
         )
     else:
         bitmap_apply_pairs(
@@ -60,6 +67,8 @@ def apply_pair_table(
             pairs["n_pairs"],
             bits=config.alive_bitmap_bits,
             scratch=scratch,
+            space_index=space_index,
+            space_shards=config.space_shards,
         )
     return state
 
@@ -71,6 +80,7 @@ def superbatch_fold(
     config: AnalyzerConfig,
     pairs: "dict | None" = None,
     scratch: "torch.Tensor | None" = None,
+    space_index: int = 0,
 ) -> AnalyzerState:
     """Fold a superbatch — K packed device rows — into the state, in
     list order, then apply its merged pair table once.
@@ -84,11 +94,14 @@ def superbatch_fold(
     path, `packing.unpack_pair_table_device`) is the host's
     last-writer-wins merge of the K rows' pairs in fold order, applied
     after the last row: the same bitmap the per-row applies would
-    leave, since every other fold is order-free."""
+    leave, since every other fold is order-free.  ``space_index`` is a
+    mesh shard's space index (see `analyzer_step`)."""
     for row in rows:
-        analyzer_step(state, unpack(row), config, scratch=scratch)
+        analyzer_step(state, unpack(row), config, scratch=scratch,
+                      space_index=space_index)
     if pairs is not None:
-        apply_pair_table(state, pairs, config, scratch=scratch)
+        apply_pair_table(state, pairs, config, scratch=scratch,
+                         space_index=space_index)
     return state
 
 
@@ -97,17 +110,29 @@ def _apply_alive(
     arrays: dict,
     config: AnalyzerConfig,
     scratch: "torch.Tensor | None",
+    space_index: int = 0,
+    space_chunks: "list[dict] | None" = None,
 ) -> None:
     """Apply a row's per-row alive pairs (compaction off, both wire
-    formats), in place."""
-    if state.alive is not None and "alive_slot" in arrays:
+    formats), in place.  ``space_chunks`` (a space-sharded mesh) are the
+    unpacked chunks of the shard's data row in chunk order: a key's
+    records may straddle chunks and last-writer-wins is order-sensitive,
+    so every space shard applies all S chunks' pairs in that order, each
+    masked to its own slot range (the reference all-gathers the pairs
+    over the space axis; here the row's chunks are already on the
+    device)."""
+    if state.alive is None or "alive_slot" not in arrays:
+        return
+    for chunk in space_chunks if space_chunks is not None else (arrays,):
         bitmap_apply_pairs(
             state.alive.words,
-            arrays["alive_slot"],
-            arrays["alive_flag"],
-            arrays["n_pairs"],
+            chunk["alive_slot"],
+            chunk["alive_flag"],
+            chunk["n_pairs"],
             bits=config.alive_bitmap_bits,
             scratch=scratch,
+            space_index=space_index,
+            space_shards=config.space_shards,
         )
 
 
@@ -116,6 +141,8 @@ def analyzer_step_v5(
     arrays: dict,
     config: AnalyzerConfig,
     scratch: "torch.Tensor | None" = None,
+    space_index: int = 0,
+    space_chunks: "list[dict] | None" = None,
 ) -> AnalyzerState:
     """Wire-v5 fold of one unpacked batch (`packing.unpack_device`).  The
     counter-table merge always runs through `counters_merge` — the CUDA
@@ -127,11 +154,11 @@ def analyzer_step_v5(
         m.per_partition, arrays["counts"],  # int64[P, 7], COUNTER_CHANNELS order
         overall_size=m.overall_size, overall_count=m.overall_count,
     )
-    m.earliest_s, m.latest_s, m.smallest, m.largest = extremes_update(
+    extremes_update(
         m.earliest_s, m.latest_s, m.smallest, m.largest,
         arrays["ts_min"], arrays["ts_max"], arrays["sz_min"], arrays["sz_max"],
     )
-    _apply_alive(state, arrays, config, scratch)
+    _apply_alive(state, arrays, config, scratch, space_index, space_chunks)
 
     if state.hll is not None:
         regs = state.hll.regs
@@ -155,6 +182,8 @@ def analyzer_step(
     arrays: dict,
     config: AnalyzerConfig,
     scratch: "torch.Tensor | None" = None,
+    space_index: int = 0,
+    space_chunks: "list[dict] | None" = None,
 ) -> AnalyzerState:
     """Fold one unpacked batch into the state, in place; returns it.
     Wire-v5 rows (a ``counts`` table present) take `analyzer_step_v5`;
@@ -163,9 +192,12 @@ def analyzer_step(
     card, its plain version on the host — and adds the global sums in the
     same call.  ``scratch`` is the pair
     scatter's accumulator (`ops.bitmap.bitmap_scratch`) for per-row
-    alive pairs."""
+    alive pairs; under a mesh ``space_index`` and ``space_chunks`` are
+    `_apply_alive`'s."""
     if "counts" in arrays:
-        return analyzer_step_v5(state, arrays, config, scratch)
+        return analyzer_step_v5(
+            state, arrays, config, scratch, space_index, space_chunks
+        )
     valid = arrays["valid"]
     key_null = arrays["key_null"]
     value_null = arrays["value_null"]
@@ -179,11 +211,11 @@ def analyzer_step(
         valid, config.num_partitions,
         overall_size=m.overall_size, overall_count=m.overall_count,
     )
-    m.earliest_s, m.latest_s, m.smallest, m.largest = extremes_update(
+    extremes_update(
         m.earliest_s, m.latest_s, m.smallest, m.largest,
         arrays["ts_min"], arrays["ts_max"], arrays["sz_min"], arrays["sz_max"],
     )
-    _apply_alive(state, arrays, config, scratch)
+    _apply_alive(state, arrays, config, scratch, space_index, space_chunks)
 
     if state.hll is not None:
         regs = state.hll.regs

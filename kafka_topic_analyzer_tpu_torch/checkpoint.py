@@ -19,10 +19,16 @@ uint32, ...).  A state here is the dict of numpy leaves that
 `models.state.state_to_numpy` gives (leaf path → array), so a snapshot
 written by either package resumes in the other.
 
-Only the single-device layout exists in the port: `_canonicalize` is the
-identity, and the reference's ``_distribute`` (a canonical snapshot
-spread over a stacked mesh state) and its one-file-per-process layout of
-a multi-controller scan wait for the mesh.
+Two layouts, the reference's: the single-device one, and a mesh
+backend's stacked one (record-parallel leaves ``[D·S, ...]``, the bitmap
+``[D, W]``; parallel/sharded.py).  A snapshot without the alive bitmap is
+stored canonical — its rows folded into the single-device layout through
+each leaf's merge law (`_canonicalize`) — and resumes under any mesh
+shape, spread back as (canonical, identity, ...) rows (`_distribute`).
+An alive-key snapshot keeps the writer's stacked layout and resumes only
+under the writer's mesh: its fingerprint names the mesh, and a mismatch
+names the writer's ``--mesh``.  The reference's one-file-per-process
+layout of a multi-controller scan waits for that mesh.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
+from kafka_topic_analyzer_tpu_torch.models.state import identity_leaves, merge_rows
 
 SNAPSHOT_NAME = "scan_snapshot.npz"
 
@@ -76,8 +83,7 @@ def _fingerprint_at(
     mesh_shape: "Optional[Tuple[int, int]]" = None,
 ) -> str:
     """The stamp of ``config`` (with ``mesh_shape`` in place of its own,
-    when given: the port's config refuses any mesh but (1, 1), and a
-    rejection message probes the stamps of the reference's meshes)."""
+    when given: a rejection message probes the stamps of other meshes)."""
     fields = dataclasses.asdict(config)
     if mesh_shape is not None:
         fields["mesh_shape"] = tuple(mesh_shape)
@@ -147,10 +153,33 @@ def acceptable_fingerprints(config: AnalyzerConfig, topic: str) -> "set[str]":
     return out
 
 
-def state_template(config: AnalyzerConfig) -> "Dict[str, Tuple[tuple, np.dtype]]":
-    """Shape and dtype of every state leaf of ``config`` in the
-    single-device layout (what `models.state.state_to_numpy` gives for
-    `models.state.AnalyzerState.init`), without building the state."""
+def _stacked(config: AnalyzerConfig) -> bool:
+    """Whether ``config``'s backend keeps the stacked mesh layout."""
+    return tuple(config.mesh_shape) != (1, 1)
+
+
+def state_template(
+    config: AnalyzerConfig, stacked: "bool | None" = None
+) -> "Dict[str, Tuple[tuple, np.dtype]]":
+    """Shape and dtype of every state leaf of ``config`` in its backend's
+    layout (``stacked``: the mesh layout, by default for any mesh but
+    (1, 1)), without building the state: the single-device leaves
+    `models.state.state_to_numpy` gives, or their stacked forms
+    (`parallel.sharded.ShardedTorchBackend.get_state`)."""
+    if stacked is None:
+        stacked = _stacked(config)
+    if stacked:
+        d, s = tuple(config.mesh_shape)
+        out = {
+            name: ((d * s,) + shape, dtype)
+            for name, (shape, dtype) in state_template(config, False).items()
+        }
+        if config.count_alive_keys:
+            out["alive.words"] = (
+                (d, 1 << max(config.alive_bitmap_bits - 5, 0)),
+                np.dtype(np.uint32),
+            )
+        return out
     p = config.num_partitions
     i64 = np.dtype(np.int64)
     out: "Dict[str, Tuple[tuple, np.dtype]]" = {
@@ -175,11 +204,30 @@ def state_template(config: AnalyzerConfig) -> "Dict[str, Tuple[tuple, np.dtype]]
     return out
 
 
-def _canonicalize(state: Leaves) -> Leaves:
-    """The canonical single-device layout of ``state``: the identity, the
-    port's only layout (the reference folds a stacked mesh state's leading
-    device axis here)."""
+def _canonicalize(state: Leaves, config: AnalyzerConfig) -> Leaves:
+    """What a snapshot of ``state`` stores: a mesh-free config's stacked
+    state folded into the canonical single-device layout through each
+    leaf's merge law (`models.state.merge_rows`); anything else as it
+    is."""
+    if mesh_free_snapshots(config) and state["metrics.per_partition"].ndim == 3:
+        return merge_rows(state)
     return state
+
+
+def _distribute(canonical: Leaves, config: AnalyzerConfig) -> Leaves:
+    """A canonical snapshot spread over ``config``'s stacked layout: row 0
+    holds the canonical fold, every other row its leaf's merge identity,
+    so the mesh's finalize reduces to exactly the canonical values, and
+    records folded after the resume land in whichever row their
+    partition now maps to (every fold but the bitmap's is associative and
+    commutative across rows)."""
+    identity = identity_leaves(config)
+    out = {}
+    for name, (shape, _) in state_template(config).items():
+        rows = np.broadcast_to(identity[name], shape).copy()
+        rows[0] = canonical[name]
+        out[name] = rows
+    return out
 
 
 def _snapshot_path(directory: str) -> str:
@@ -240,7 +288,10 @@ def save_snapshot(
                 "a successor took over).  Do not retry: the successor's "
                 "checkpoint is the live one"
             )
-    flat = {"state." + k: np.asarray(v) for k, v in _canonicalize(state).items()}
+    flat = {
+        "state." + k: np.asarray(v)
+        for k, v in _canonicalize(state, config).items()
+    }
     meta = {
         "fingerprint": config_fingerprint(config, topic),
         "topic": topic,
@@ -335,9 +386,10 @@ def load_snapshot(
     config or topic) raises — silently restarting would double-count.
 
     Every leaf must have the shape and dtype `state_template` gives for
-    ``config``.  ``lease_epoch``: a snapshot stamped with a newer epoch
-    was written by a successor, and resuming it raises
-    `StaleLeaseEpochError`."""
+    ``config`` — or, for a mesh-free config under a mesh, the canonical
+    single-device ones, spread over the mesh (`_distribute`).
+    ``lease_epoch``: a snapshot stamped with a newer epoch was written by
+    a successor, and resuming it raises `StaleLeaseEpochError`."""
     path = _snapshot_path(directory)
     if not os.path.exists(path):
         return None
@@ -359,13 +411,23 @@ def load_snapshot(
                 "successor owns the topic).  Re-acquire the lease to get "
                 "a current epoch before resuming"
             )
+        template = state_template(config)
+        spread = (
+            mesh_free_snapshots(config)
+            and _stacked(config)
+            and z["state.metrics.per_partition"].ndim == 2
+        )
+        if spread:
+            template = state_template(config, stacked=False)
         state: Leaves = {}
-        for name, (shape, dtype) in state_template(config).items():
+        for name, (shape, dtype) in template.items():
             key = "state." + name
             arr = z[key]
             if arr.shape != tuple(shape) or arr.dtype != dtype:
                 raise ValueError(f"snapshot leaf {key} has shape {arr.shape}")
             state[name] = arr
+    if spread:
+        state = _distribute(state, config)
     offsets = {int(k): int(v) for k, v in meta["next_offsets"].items()}
     return state, offsets, int(meta["records_seen"]), int(meta["init_now_s"])
 

@@ -25,7 +25,8 @@ single-scan paths).
          [--follow-idle-exit S] [--window-secs S] [--window-count N]] \\
         [--fleet [--fleet-exclude GLOBS] [--fleet-internal] \\
          [--fleet-concurrency N|auto] [--instance-id [ID] \\
-          [--lease-ttl S] [--lease-store auto|file|object]]] [--mesh 1]
+          [--lease-ttl S] [--lease-store auto|file|object]]] \\
+        [--mesh DATA[,SPACE]]
 
 Prints the same report bytes as the reference CLI for the same inputs
 (apart from the two timing lines), with the reference's DEGRADED, CORRUPT
@@ -60,7 +61,13 @@ resumable snapshots (every ``--snapshot-every`` seconds, on a failure or
 an interrupt, and when the scan degraded or skipped records) that
 ``--resume`` continues from, in this CLI or the reference's.
 ``--superbatch K`` folds K rows per device dispatch (the torch backend
-only).
+only).  ``--mesh D[,S]`` runs the torch backend over a (data, space)
+mesh of shards (`parallel.sharded.ShardedTorchBackend`): partitions split
+over D data rows, each row's batch into S chunks, the shards placed
+round-robin on the visible CUDA devices (``--device cpu``: the host).
+It composes with every source, ``--ingest-workers`` (split over the
+rows), ``--superbatch``, ``--resume``, ``--follow`` and ``-t a,b,c``;
+``--fleet`` refuses it, as the reference does.
 
 ``--follow`` runs the scan as a service (`serve.follow.FollowService`):
 after the initial pass it re-polls the watermarks every
@@ -97,7 +104,7 @@ import sys
 from typing import Dict, Optional
 
 from kafka_topic_analyzer_tpu_torch import __version__
-from kafka_topic_analyzer_tpu_torch.backends.base import make_backend
+from kafka_topic_analyzer_tpu_torch.backends.base import MetricBackend, make_backend
 from kafka_topic_analyzer_tpu_torch.config import (
     AnalyzerConfig,
     CorruptionConfig,
@@ -371,8 +378,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "--stats")
     p.add_argument("--mesh", metavar="DATA[,SPACE]", default="1",
                    help="Device mesh shape: data shards[, space shards]. "
-                        "Only 1 (one device) is ported; any other shape "
-                        "is refused")
+                        "Data shards split the partitions, space shards "
+                        "each data row's batch and the alive bitmap's slot "
+                        "space; the shards go round-robin onto the visible "
+                        "CUDA devices (or the host under --device cpu), so "
+                        "one card can hold them all")
     p.add_argument("--fleet", action="store_true",
                    help="Cluster-wide topic discovery and scan: ask the "
                         "cluster for all topics (one all-topics Metadata "
@@ -631,10 +641,36 @@ def wrap_with_dump(args, source: RecordSource,
     )
 
 
-def resolve_ingest_workers(args, num_partitions: int) -> int:
+def resolve_ingest_workers(args, num_partitions: int) -> "int | IngestConfig":
     """--ingest-workers → the concrete worker count after 'auto' and the
-    partition-count clamp; raises ValueError on a bad spec."""
-    return IngestConfig.parse(args.ingest_workers).resolve(num_partitions)
+    partition-count clamp; raises ValueError on a bad spec.  Under a mesh
+    (``--mesh`` other than 1) the parsed `config.IngestConfig` comes back
+    unresolved: the engine splits the budget over the data rows."""
+    cfg = IngestConfig.parse(args.ingest_workers)
+    if parse_mesh(args.mesh) != (1, 1):
+        return cfg
+    return cfg.resolve(num_partitions)
+
+
+def make_cli_backend(args, config: AnalyzerConfig, use_native: bool,
+                     dispatch) -> MetricBackend:
+    """The numpy oracle, the torch backend on one device, or, under a mesh
+    on a device backend, `parallel.sharded.ShardedTorchBackend` (on every
+    visible CUDA device, or the host under ``--device cpu``); raises
+    ValueError on a mesh shape the sharded backend cannot run."""
+    if args.backend != "cpu" and tuple(config.mesh_shape) != (1, 1):
+        from kafka_topic_analyzer_tpu_torch.parallel.sharded import (
+            ShardedTorchBackend,
+        )
+
+        return ShardedTorchBackend(
+            config, device=args.device, use_native=use_native,
+            native_requested=args.native != "off", dispatch=dispatch,
+        )
+    return make_backend(
+        args.backend, config, device=args.device, use_native=use_native,
+        native_requested=args.native != "off", dispatch=dispatch,
+    )
 
 
 def resolve_dispatch(args) -> "DispatchConfig | None":
@@ -834,15 +870,13 @@ def scan_session(args, open_source, start, banner: str, scan):
             config = analyzer_config(args, len(source.partitions()))
             ingest_workers = resolve_ingest_workers(args, config.num_partitions)
             start_at, rc = start(source, from_ts_ms)
+            if rc is None:
+                backend = make_cli_backend(args, config, use_native, dispatch)
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 1, None, None
         if rc is not None:
             return rc, None, None
-        backend = make_backend(
-            args.backend, config, device=args.device, use_native=use_native,
-            native_requested=args.native != "off", dispatch=dispatch,
-        )
         banner_out = sys.stderr if args.json else sys.stdout
         print(banner, file=banner_out)
         print("Starting message consumption...", file=banner_out)

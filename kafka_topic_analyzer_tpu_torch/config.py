@@ -7,10 +7,9 @@ sizing (``DispatchConfig``), the remote segment tier's knobs
 ``HealthConfig``, ``ServeConfig``), the reference's, with the same
 validation and error text.
 
-Same fields, defaults and validation as the reference, restricted to what
-the port runs: wire format 4 or 5, alive-pair compaction auto or off, one
-device.  Asking for a mesh raises "not yet ported" instead of quietly
-running something else.  The reference's two environment kill switches
+Same fields, defaults and validation as the reference: wire format 4 or
+5, alive-pair compaction auto or off, a (data, space) mesh whose sharded
+backend checks its shape (`AnalyzerConfig.validate_mesh`).  The reference's two environment kill switches
 hold here too: ``KTA_WIRE_V4`` resolves ``wire_format`` 0 to v4 and
 ``KTA_DISABLE_COMPACTION`` turns alive-pair compaction off, each with the
 reason recorded at resolution (`wire_v4_reason`,
@@ -677,7 +676,9 @@ class AnalyzerConfig:
     #: combiner format (per-partition tables); ``4`` ships per-record
     #: columns.
     wire_format: int = 0
-    #: Device mesh (data, space); only (1, 1) is ported.
+    #: Device mesh (data, space): data shards hold partitions, space
+    #: shards a contiguous chunk of each data row's batch and a slot range
+    #: of the alive bitmap (parallel/sharded.py).
     mesh_shape: Tuple[int, int] = (1, 1)
 
     def __post_init__(self) -> None:
@@ -743,15 +744,45 @@ class AnalyzerConfig:
             raise ValueError(
                 "use_pallas_counters requires batch_size % 1024 == 0"
             )
-        if tuple(self.mesh_shape) != (1, 1):
-            raise ValueError(
-                f"mesh_shape {tuple(self.mesh_shape)} is not yet ported "
-                "(one device only)"
-            )
 
     @property
     def hll_m(self) -> int:
         return 1 << self.hll_p
+
+    @property
+    def data_shards(self) -> int:
+        return self.mesh_shape[0]
+
+    @property
+    def space_shards(self) -> int:
+        return self.mesh_shape[1]
+
+    @property
+    def chunk_size(self) -> int:
+        """Records per (data, space) shard per step: each data row's batch
+        is split contiguously across the space axis."""
+        return self.batch_size // self.space_shards
+
+    def validate_mesh(self) -> None:
+        """Raise what a sharded backend cannot run, with the reference's
+        messages (its ``ShardedTpuBackend`` checks these at construction,
+        so the numpy oracle, which ignores the mesh, never raises them):
+        a batch that does not split into ``space_shards`` equal chunks,
+        and a v4 ``use_pallas_counters`` chunk that is no multiple of
+        1024."""
+        if self.batch_size % self.space_shards:
+            raise ValueError(
+                "batch_size must divide evenly into space_shards chunks"
+            )
+        if (
+            self.use_pallas_counters
+            and self.wire_format == 4
+            and self.chunk_size % 1024
+        ):
+            raise ValueError(
+                "use_pallas_counters requires a per-space-shard chunk "
+                "(batch_size / space_shards) that is a multiple of 1024"
+            )
 
     @property
     def wire_v4_reason(self) -> "str | None":

@@ -1,5 +1,5 @@
-"""The scan drive loop (port of the reference's ``engine.run_scan``, its
-single-device path).
+"""The scan drive loop (port of the reference's ``engine.run_scan``, with
+one controller).
 
 One full earliest→latest pass: fix the watermarks, stream every batch
 through the backend in per-partition offset order, finalize once.
@@ -36,6 +36,15 @@ throttle, then its ``update``), ``snapshot`` and ``finalize``; the scan
 counters, wire and fused bookings, per-partition lag/ETA gauges and the
 lifecycle events go to the default telemetry registry and event bus
 (``obs``), which cost nothing until a sink or exporter reads them.
+
+A sharded backend (``--mesh D[,S]``, `parallel.sharded.ShardedTorchBackend`)
+takes one round at a time: each data row's partitions
+(`parallel.mesh.assign_partitions`) stream through a pipeline of their
+own — one staged prefetch stream, or a fan-in of the row's share of the
+ingest workers (`parallel.ingest.allocate_row_workers`) — and every round
+carries the next item of each row (None once the row has drained) into
+``backend.update_shards``, or K rounds into
+``update_shards_superbatch``.
 
 Partition ids need not be dense: `PartitionIndex` maps the source's ids to
 state rows and the report prints the true ids.
@@ -79,13 +88,15 @@ from kafka_topic_analyzer_tpu_torch.obs import events as obs_events
 from kafka_topic_analyzer_tpu_torch.obs import health as obs_health
 from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
 from kafka_topic_analyzer_tpu_torch.obs import trace as obs_trace
-from kafka_topic_analyzer_tpu_torch.obs.registry import default_registry
+from kafka_topic_analyzer_tpu_torch.obs.registry import merge_snapshots
 from kafka_topic_analyzer_tpu_torch.packing import PackedRow, fused_ingest_enabled
 from kafka_topic_analyzer_tpu_torch.parallel.ingest import (
     ParallelIngest,
+    allocate_row_workers,
     iter_staged,
     shard_partitions,
 )
+from kafka_topic_analyzer_tpu_torch.parallel.mesh import assign_partitions
 from kafka_topic_analyzer_tpu_torch.records import RecordBatch
 from kafka_topic_analyzer_tpu_torch.results import TopicMetrics, WireStats
 from kafka_topic_analyzer_tpu_torch.utils.prefetch import prefetch
@@ -250,15 +261,16 @@ def _book_fused_bypass(source: RecordSource, backend: MetricBackend) -> None:
     obs_metrics.FUSED_FALLBACK.labels(reason=reason).inc()
 
 
-def _wire_stats(config, book: bool = True) -> WireStats:
-    """The wire accounting of a packed backend's config, with the v4 and
-    compaction-off bypasses booked once per scan (``book``)."""
+def _wire_stats(config, batch_size: int, book: bool = True) -> WireStats:
+    """The wire accounting of a packed backend's config at the row size it
+    packs (``batch_size``; a sharded backend's chunk size), with the v4
+    and compaction-off bypasses booked once per scan (``book``)."""
     from kafka_topic_analyzer_tpu_torch.packing import section_byte_split
 
-    per_rec, table = section_byte_split(config, config.batch_size)
+    per_rec, table = section_byte_split(config, batch_size)
     stats = WireStats(
         format=config.wire_format,
-        batch_size=config.batch_size,
+        batch_size=batch_size,
         per_record_bytes=per_rec,
         table_bytes=table,
         alive_compaction=(
@@ -486,13 +498,21 @@ def run_scan(
 
     wire = None
     if backend.packs_rows:
-        wire = _wire_stats(backend.config, book=book_once)
+        wire = _wire_stats(
+            backend.config,
+            backend.config.chunk_size if backend.sharded
+            else backend.config.batch_size,
+            book=book_once,
+        )
         wire_bytes0 = obs_metrics.WIRE_BYTES.value
         pairs_raw0 = obs_metrics.ALIVE_PAIRS_RAW.value
         pairs_emitted0 = obs_metrics.ALIVE_PAIRS_EMITTED.value
 
     def stage(b: RecordBatch):
         return backend.prepare(pindex.dense_batch(b))
+
+    def stage_shard(b: RecordBatch):
+        return backend.prepare_shard(pindex.dense_batch(b))
 
     # Superbatch dispatch: accumulate K staged items and fold them in one
     # dispatch.  Progress commits (and therefore snapshots) happen ONLY at
@@ -502,6 +522,10 @@ def run_scan(
     # as a partial superbatch (`fault_flush`), so every observed batch is
     # folded and committed before the failure snapshot.
     super_k = backend.superbatch_k
+    dispatch_items = (
+        backend.update_shards_superbatch if backend.sharded
+        else backend.update_superbatch
+    )
     pend: dict = {"items": [], "valid": 0, "nbytes": 0,
                   "offsets": None, "seq": 0}
 
@@ -529,7 +553,7 @@ def run_scan(
         if not pend["items"]:
             return
         with profile.stage("dispatch", items=pend["valid"], nbytes=pend["nbytes"]):
-            backend.update_superbatch(pend["items"])
+            dispatch_items(pend["items"])
         pend["items"] = []
         pend["valid"] = 0
         pend["nbytes"] = 0
@@ -538,84 +562,124 @@ def run_scan(
         committed_seq = pend["seq"]
         maybe_snapshot(offsets=committed_offsets, records_seen=committed_seq)
 
-    used_workers = ingest_cfg.resolve(len(pindex))
-    obs_metrics.INGEST_RESOLVED_WORKERS.set(used_workers)
-    _note_fetch_streams(source, used_workers)
-    if used_workers > 1:
-        # Partition-sharded parallel ingest: N private streams merged in a
-        # deterministic round-robin, yielding the same (item, staged)
-        # pairs as the prefetch path below.  Segment catalogs know their
-        # per-partition record counts: workers are balanced by records.
-        weigher = getattr(source, "partition_record_counts", None)
-        items = ParallelIngest(
-            source,
-            batch_size,
-            shard_partitions(
-                pindex.ids,
-                used_workers,
-                weights=weigher() if weigher is not None else None,
-            ),
-            start_at=start_at,
-            stage=stage,
-            depth=max(prefetch_depth, 1),
-            sink_factory=make_sink if fused else None,
+    def fold(staged, nvalid: int, nbytes: int, update) -> None:
+        """Fold one staged item (a batch, or a round of data-row shards)
+        through ``update``, or into the pending superbatch at K > 1; then
+        the scan counters and the heartbeat."""
+        nonlocal seq, committed_offsets, committed_seq
+        if super_k > 1:
+            add(staged, nvalid, nbytes)
+        else:
+            with profile.stage("dispatch", items=nvalid, nbytes=nbytes):
+                update(staged)
+            seq += nvalid
+            committed_offsets = dict(tracker.next_offsets)
+            committed_seq = seq
+            maybe_snapshot()
+        obs_metrics.SCAN_RECORDS.inc(nvalid)
+        obs_metrics.SCAN_BATCHES.inc()
+        obs_metrics.SCAN_BYTES.inc(nbytes)
+        obs_metrics.BATCH_RECORDS.observe(nvalid)
+        maybe_heartbeat()
+
+    streams: list = []
+    if backend.sharded:
+        used_workers, streams = _row_streams(
+            source, backend, pindex, ingest_cfg, batch_size, prefetch_depth,
+            start_at, stage_shard, make_sink if fused else None,
         )
     else:
-        items = prefetch(
-            iter_staged(
-                source.batches(
-                    batch_size,
-                    start_at=start_at,
-                    **({"sink": make_sink()} if fused else {}),
+        used_workers = ingest_cfg.resolve(len(pindex))
+        obs_metrics.INGEST_RESOLVED_WORKERS.set(used_workers)
+        _note_fetch_streams(source, used_workers)
+        if used_workers > 1:
+            # Partition-sharded parallel ingest: N private streams merged
+            # in a deterministic round-robin, yielding the same (item,
+            # staged) pairs as the prefetch path below.  Segment catalogs
+            # know their per-partition record counts: workers are balanced
+            # by records.
+            weigher = getattr(source, "partition_record_counts", None)
+            streams.append(ParallelIngest(
+                source,
+                batch_size,
+                shard_partitions(
+                    pindex.ids,
+                    used_workers,
+                    weights=weigher() if weigher is not None else None,
                 ),
-                stage,
-            ),
-            prefetch_depth,
-        )
+                start_at=start_at,
+                stage=stage,
+                depth=max(prefetch_depth, 1),
+                sink_factory=make_sink if fused else None,
+            ))
+        else:
+            streams.append(prefetch(
+                iter_staged(
+                    source.batches(
+                        batch_size,
+                        start_at=start_at,
+                        **({"sink": make_sink()} if fused else {}),
+                    ),
+                    stage,
+                ),
+                prefetch_depth,
+            ))
     try:
-        while True:
-            with profile.stage("ingest"):
-                item = next(items, None)
-            if item is None:
-                break
-            item, staged = item
-            nvalid = item.num_valid
-            if isinstance(item, PackedRow):
-                tracker.observe_packed(item)
-                last_partition = item.last_partition
-                last_offset = (
-                    str(item.last_offset) if item.last_offset >= 0 else "~"
-                )
-                last_ts = item.last_ts_s
-            else:
-                tracker.observe(item)
-                last = len(item) - 1
-                last_partition = int(item.partition[last])
-                last_offset = (
-                    str(int(item.offsets[last]))
-                    if item.offsets is not None else "~"
-                )
-                last_ts = int(item.ts_s[last])
-            if super_k > 1:
-                add(staged, nvalid, item.nbytes)
-            else:
+        if backend.sharded:
+            d = backend.config.data_shards
+            live = [True] * d
+            while True:
+                # One round: the next item of every data row that has one.
+                shards: list = [None] * d
+                nvalid = nbytes = 0
+                with profile.stage("ingest"):
+                    for r in range(d):
+                        item = next(streams[r], None) if live[r] else None
+                        if item is None:
+                            live[r] = False
+                            continue
+                        item, shards[r] = item
+                        nvalid += item.num_valid
+                        nbytes += item.nbytes
+                        if isinstance(item, PackedRow):
+                            tracker.observe_packed(item)
+                        else:
+                            tracker.observe(item)
+                if nvalid == 0:
+                    break
+                fold(shards, nvalid, nbytes, backend.update_shards)
+                spinner.set_message(f"[Sq: {seq} | T: {topic} | shards: {d}]")
+        else:
+            items = streams[0]
+            while True:
+                with profile.stage("ingest"):
+                    item = next(items, None)
+                if item is None:
+                    break
+                item, staged = item
+                if isinstance(item, PackedRow):
+                    tracker.observe_packed(item)
+                    last_partition = item.last_partition
+                    last_offset = (
+                        str(item.last_offset) if item.last_offset >= 0 else "~"
+                    )
+                    last_ts = item.last_ts_s
+                else:
+                    tracker.observe(item)
+                    last = len(item) - 1
+                    last_partition = int(item.partition[last])
+                    last_offset = (
+                        str(int(item.offsets[last]))
+                        if item.offsets is not None else "~"
+                    )
+                    last_ts = int(item.ts_s[last])
                 # nbytes is the decoded batch's size on either path, so
                 # the stat compares across backends and fused/chained.
-                with profile.stage("dispatch", items=nvalid, nbytes=item.nbytes):
-                    backend.update(staged)
-                seq += nvalid
-                committed_offsets = dict(tracker.next_offsets)
-                committed_seq = seq
-                maybe_snapshot()
-            obs_metrics.SCAN_RECORDS.inc(nvalid)
-            obs_metrics.SCAN_BATCHES.inc()
-            obs_metrics.SCAN_BYTES.inc(item.nbytes)
-            obs_metrics.BATCH_RECORDS.observe(nvalid)
-            maybe_heartbeat()
-            spinner.set_message(
-                f"[Sq: {seq} | T: {topic} | P: {last_partition} | "
-                f"O: {last_offset} | Ts: {format_utc_seconds(last_ts)}]"
-            )
+                fold(staged, item.num_valid, item.nbytes, backend.update)
+                spinner.set_message(
+                    f"[Sq: {seq} | T: {topic} | P: {last_partition} | "
+                    f"O: {last_offset} | Ts: {format_utc_seconds(last_ts)}]"
+                )
         flush()  # the partial superbatch tail at stream end
     except BaseException:
         # A failure or an interrupt mid-scan: fold the pending superbatch
@@ -646,8 +710,9 @@ def run_scan(
             log.exception("final failure snapshot could not be written")
         raise
     finally:
-        if hasattr(items, "close"):
-            items.close()
+        for it in streams:
+            if hasattr(it, "close"):
+                it.close()
         # The pass's ingest threads have ended: their staging rings go
         # back to the backend for the next pass (follow mode).
         backend.release_staging()
@@ -707,13 +772,60 @@ def run_scan(
         degraded_partitions=degraded,
         corrupt_partitions=corrupt,
         lost_partitions=lost,
-        telemetry=default_registry().snapshot(),
+        telemetry=merge_snapshots(backend.gather_telemetry()),
         ingest_workers=used_workers,
         superbatch_k=super_k,
         dispatch_depth=backend.dispatch_depth,
         wire=wire,
         next_offsets=dict(tracker.next_offsets),
     )
+
+
+def _row_streams(source, backend, pindex, ingest_cfg, batch_size: int,
+                 prefetch_depth: int, start_at, stage, make_sink):
+    """``(workers, streams)`` of a sharded scan: one pipeline per data row
+    over its partitions (`parallel.mesh.assign_partitions`), each a staged
+    prefetch stream, or a fan-in of the row's share of the worker budget
+    (`parallel.ingest.allocate_row_workers`; the rows' workers numbered
+    apart).  A row without partitions gets an empty stream."""
+    d = backend.config.data_shards
+    parts = assign_partitions(pindex.ids, d)
+    row_workers = allocate_row_workers(
+        ingest_cfg.resolve(max(1, len(pindex))),
+        {r: len(parts[r]) for r in range(d)},
+    )
+    used = max(1, sum(row_workers.values()))
+    obs_metrics.INGEST_RESOLVED_WORKERS.set(used)
+    _note_fetch_streams(source, used)
+    weights = None
+    if any(n > 1 for n in row_workers.values()):
+        weigher = getattr(source, "partition_record_counts", None)
+        weights = weigher() if weigher is not None else None
+    streams = []
+    wid_base = 0
+    for r in range(d):
+        n = row_workers.get(r, 0)
+        if not parts[r]:
+            streams.append(iter(()))
+        elif n > 1:
+            streams.append(ParallelIngest(
+                source, batch_size, shard_partitions(parts[r], n, weights=weights),
+                start_at=start_at, stage=stage, depth=max(prefetch_depth, 1),
+                sink_factory=make_sink, wid_base=wid_base,
+            ))
+        else:
+            streams.append(prefetch(
+                iter_staged(
+                    source.batches(
+                        batch_size, partitions=parts[r], start_at=start_at,
+                        **({"sink": make_sink()} if make_sink else {}),
+                    ),
+                    stage,
+                ),
+                prefetch_depth,
+            ))
+        wid_base += n
+    return used, streams
 
 
 def _booked(source: RecordSource, method: str) -> dict:

@@ -12,7 +12,8 @@ boundary as a dict of numpy arrays keyed by leaf path
 (``"metrics.per_partition"``, ``"alive.words"``, ...), with alive words as
 ``uint32`` — the reference's leaves, so a scan can start in one package
 and finish in the other; `copy_from_numpy_` loads such a dict into an
-existing state (a snapshot resume, `checkpoint.py`).
+existing state (a snapshot resume, `checkpoint.py`).  `merge_rows`
+folds a mesh state's stacked leaves into that layout (`MERGE_LAW`).
 """
 
 from __future__ import annotations
@@ -123,6 +124,61 @@ class AnalyzerState:
 
 
 _METRIC_LEAVES = tuple(f.name for f in dataclasses.fields(MessageMetricsState))
+
+#: Each leaf's merge across device rows (the reference's
+#: ``AnalyzerState.merge``): counters and DDSketch buckets add (int64,
+#: wrapping like the device adds), extremes take min or max, HLL
+#: registers max.  The alive bitmap has none: its last-writer-wins clears
+#: resolve only against the data row that set the bit, so its rows OR
+#: only at finalize, and never fold into a snapshot.
+MERGE_LAW = {
+    "metrics.per_partition": np.add,
+    "metrics.earliest_s": np.minimum,
+    "metrics.latest_s": np.maximum,
+    "metrics.smallest": np.minimum,
+    "metrics.largest": np.maximum,
+    "metrics.overall_size": np.add,
+    "metrics.overall_count": np.add,
+    "hll.regs": np.maximum,
+    "quantiles.counts": np.add,
+}
+
+
+def merge_rows(leaves: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Fold the leading device axis of stacked host leaves (a mesh
+    state's, `state_to_numpy`'s form with one row per shard) into the
+    single-device layout, leaf by leaf through `MERGE_LAW`."""
+    if "alive.words" in leaves:
+        raise ValueError("alive-bitmap rows do not fold: they are mesh-pinned")
+    return {
+        path: np.asarray(MERGE_LAW[path].reduce(arr, axis=0))
+        for path, arr in leaves.items()
+    }
+
+
+def identity_leaves(config: AnalyzerConfig) -> Dict[str, np.ndarray]:
+    """The single-device leaves of a fresh state of ``config`` without the
+    alive bitmap: each leaf's merge identity (what `MERGE_LAW` leaves
+    unchanged), as host arrays."""
+    p = config.num_partitions
+    out = {
+        "metrics.per_partition": np.zeros((p, 7), np.int64),
+        "metrics.earliest_s": np.full((p,), I64_MAX, np.int64),
+        "metrics.latest_s": np.full((p,), I64_MIN, np.int64),
+        "metrics.smallest": np.full((p,), I64_MAX, np.int64),
+        "metrics.largest": np.zeros((p,), np.int64),
+        "metrics.overall_size": np.zeros((), np.int64),
+        "metrics.overall_count": np.zeros((), np.int64),
+    }
+    if config.enable_hll:
+        rows = p if config.distinct_keys_per_partition else 1
+        out["hll.regs"] = np.zeros((rows, config.hll_m), np.int32)
+    if config.enable_quantiles:
+        rows = p if config.quantiles_per_partition else 1
+        out["quantiles.counts"] = np.zeros(
+            (rows, ddsketch_num_buckets(config.quantile_buckets)), np.int64
+        )
+    return out
 
 
 def state_to_numpy(state: AnalyzerState) -> Dict[str, np.ndarray]:

@@ -28,12 +28,13 @@ def extremes_update(
     sz_min: torch.Tensor,
     sz_max: torch.Tensor,
 ):
-    """Merge per-partition timestamp and message-size extremes; returns
-    the four merged tensors (min/max is associative, so merging batch
+    """Merge per-partition timestamp and message-size extremes into the
+    four state tensors, in place (a shard's state may be a view of a
+    stacked one); returns them (min/max is associative, so merging batch
     tables elementwise is exact)."""
     return (
-        torch.minimum(earliest_s, ts_min),
-        torch.maximum(latest_s, ts_max),
-        torch.minimum(smallest, sz_min),
-        torch.maximum(largest, sz_max),
+        torch.minimum(earliest_s, ts_min, out=earliest_s),
+        torch.maximum(latest_s, ts_max, out=latest_s),
+        torch.minimum(smallest, sz_min, out=smallest),
+        torch.maximum(largest, sz_max, out=largest),
     )

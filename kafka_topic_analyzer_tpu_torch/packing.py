@@ -632,6 +632,44 @@ def pack_batch(
     return out
 
 
+def pack_chunks(
+    batch: RecordBatch,
+    chunk_config: AnalyzerConfig,
+    space_shards: int,
+    use_native: bool = False,
+    out: "np.ndarray | None" = None,
+) -> np.ndarray:
+    """One data row's batch packed into its ``space_shards`` contiguous
+    record chunks: ``uint8[S, chunk_nbytes]``, chunk ``s`` holding records
+    ``[s*C, (s+1)*C)`` (``C = chunk_config.batch_size``), each packed with
+    the chunk config (whose batch size decides the HLL wire mode and so
+    the sections).  Contiguity makes the mesh's ordered alive apply exact:
+    chunk order is record order (backends/step.py).  The one chunking
+    rule of the sharded backend; ``out`` packs into the caller's
+    ``[S, chunk_nbytes]`` rows."""
+    c = chunk_config.batch_size
+    n = len(batch)
+    if n > c * space_shards:
+        raise ValueError(f"batch of {n} exceeds batch_size {c * space_shards}")
+    nbytes = packed_nbytes(chunk_config, c)
+    if out is None:
+        out = np.empty((space_shards, nbytes), dtype=np.uint8)
+    elif out.shape != (space_shards, nbytes) or out.dtype != np.uint8:
+        raise ValueError(
+            f"pack_chunks out buffer must be uint8[{space_shards}, "
+            f"{nbytes}], got {out.dtype}{list(out.shape)}"
+        )
+    for s in range(space_shards):
+        lo = s * c
+        pack_batch(
+            batch.take(np.arange(lo, min(lo + c, n))),
+            chunk_config,
+            use_native=use_native,
+            out=out[s],
+        )
+    return out
+
+
 def unpack_numpy(buf: np.ndarray, config: AnalyzerConfig) -> Dict[str, np.ndarray]:
     """Host-side reference unpack (the device self-check's oracle)."""
     header = buf[:HEADER_BYTES].view(np.int32)
@@ -721,7 +759,7 @@ def unpack_pair_table_device(
 
 
 # ---------------------------------------------------------------------------
-# fused sink: columns appended straight into rows (single device)
+# fused sink: columns appended straight into rows
 
 
 #: Decoded bytes per record (the RecordBatch column widths): a PackedRow
@@ -784,15 +822,18 @@ FALLBACK_LABEL = {"legacy": "python-decode", "python-decode": "python-decode"}
 
 
 class SuperbatchStager:
-    """Pinned host staging for the one buffer a superbatch dispatch
-    assembles on the main thread: its merged alive-pair table.
+    """Pinned host staging for the one buffer a dispatch assembles on the
+    main thread.
 
     The reference stacks a superbatch's K rows into one ``uint8[K, N]``
-    array and ships it in one transfer; the port does not: each row has
-    already left its ingest stream's staging slot through its own
-    asynchronous copy, so what is left to stage per dispatch is the
-    table `pack_pair_table` merges from the K rows' raw pairs.  The
-    stager owns a ring of ``depth + 1`` such buffers (pinned when
+    array and ships it in one transfer.  The single-device backend does
+    not: each row has already left its ingest stream's staging slot
+    through its own asynchronous copy, so what is left to stage per
+    dispatch is the table `pack_pair_table` merges from the K rows' raw
+    pairs.  The sharded backend (parallel/sharded.py) does: a slot holds
+    the K rounds' chunk stacks, ``[K, rows, S, chunk_nbytes]``, and under
+    compaction each data row's merged pair table behind them, and leaves
+    in one copy.  The stager owns a ring of ``depth + 1`` such buffers (pinned when
     ``pin``), so assembling superbatch ``i`` never allocates and never
     overwrites a buffer whose copy may still be in flight: the slot
     reused was last dispatched as superbatch ``i - depth - 1``, which the
@@ -801,7 +842,8 @@ class SuperbatchStager:
     keeps the event recorded behind a slot's copy too, and `next_slot`
     waits on it, so the ring stays safe without that argument."""
 
-    def __init__(self, nbytes: int, depth: int, pin: bool = False):
+    def __init__(self, nbytes: int, depth: int, pin: bool = False,
+                 book: bool = True):
         if depth < 1:
             raise ValueError("dispatch depth must be >= 1")
         self.hosts = [
@@ -811,6 +853,7 @@ class SuperbatchStager:
         self.views = [host.numpy() for host in self.hosts]
         self._events: list = [None] * len(self.hosts)
         self._next = 0
+        self._book = book
 
     def next_slot(self) -> int:
         """The index of the buffer to assemble the next superbatch's
@@ -821,8 +864,10 @@ class SuperbatchStager:
             self._events[slot].synchronize()
             self._events[slot] = None
         # Ring activity for the flight recorder: the hand-out rate is the
-        # superbatch assembly rate.
-        obs_metrics.STAGER_SLOTS.inc()
+        # superbatch assembly rate (``book``: the stager serves
+        # superbatches, as the reference's only does).
+        if self._book:
+            obs_metrics.STAGER_SLOTS.inc()
         return slot
 
     def record(self, slot: int, event) -> None:
@@ -831,13 +876,19 @@ class SuperbatchStager:
 
 
 class FusedPackSink:
-    """Incremental row assembly for one ingest stream (the reference's
-    single-device form: flat ``uint8[packed_nbytes]`` rows of
-    ``chunk_records`` records).
+    """Incremental row assembly for one ingest stream.
 
-    Rows fill greedily across appends and partitions, so a row equals
+    Single-device form (``space_shards`` 1): rows are flat
+    ``uint8[packed_nbytes]`` buffers of ``chunk_records`` records.  Rows
+    fill greedily across appends and partitions, so a row equals
     ``pack_batch`` over the same records cut at ``chunk_records``
-    boundaries.  ``dense_of`` maps a true partition id to its state row.
+    boundaries.
+
+    Sharded form (``space_shards`` S > 1 with the backend's chunk
+    config): rows are ``uint8[S, chunk_nbytes]`` — records fill
+    chunk 0..S-1 at ``chunk_records`` each, the `pack_chunks` rule, so a
+    fused row is what the sharded backend's ``prepare_shard`` would have
+    staged.  ``dense_of`` maps a true partition id to its state row.
     ``alloc`` returns the buffer the next row is packed into (a pinned
     staging slot; a fresh array by default); ``stage(row[, pairs])`` turns
     a completed row into the backend's staged form.  Not thread-safe: one
@@ -851,18 +902,24 @@ class FusedPackSink:
     altogether books one under ``native-*``."""
 
     def __init__(self, pack_config: AnalyzerConfig, chunk_records: int,
-                 dense_of, stage=None, alloc=None):
+                 dense_of, stage=None, alloc=None, space_shards: int = 1):
         self.pack_config = pack_config
         self.chunk_records = int(chunk_records)
+        self.space_shards = int(space_shards)
+        self._chunked = self.space_shards > 1
         self._dense_of = dense_of
         self._stage = stage
         self._nbytes = packed_nbytes(pack_config, self.chunk_records)
-        self._alloc = alloc or (lambda: np.empty(self._nbytes, dtype=np.uint8))
+        shape = (
+            (self.space_shards, self._nbytes) if self._chunked else self._nbytes
+        )
+        self._alloc = alloc or (lambda: np.empty(shape, dtype=np.uint8))
         self._scratch = np.zeros(
             _native.pack_scratch_len(pack_config, self.chunk_records),
             dtype=np.int64,
         )
         self._row: "np.ndarray | None" = None
+        self._chunk = 0
         self._count = 0
         self._next_offsets: "dict[int, int]" = {}
         self._counts: "dict[int, int]" = {}
@@ -875,17 +932,39 @@ class FusedPackSink:
         self._row_pairs: "list[tuple[np.ndarray, np.ndarray]]" = []
         self.fallbacks: "dict[str, int]" = {}
 
+    def _out_chunk(self) -> np.ndarray:
+        return self._row[self._chunk] if self._chunked else self._row
+
     def _ensure_row(self) -> None:
         if self._row is None:
             self._row = self._alloc()
+            self._chunk = 0
             self._count = 0
             self._next_offsets = {}
             self._counts = {}
             _native.pack_row_init(
-                self._row, self._scratch, self.pack_config, self.chunk_records
+                self._out_chunk(), self._scratch, self.pack_config,
+                self.chunk_records,
+            )
+
+    def _advance_full_chunks(self) -> None:
+        """Rotate past a filled chunk: the next chunk is initialized, or,
+        past the last one, the row completes (as soon as it is full, when
+        the chained path would yield the batch)."""
+        while self._row is not None and int(self._scratch[0]) == self.chunk_records:
+            self._harvest_pairs()
+            self._chunk += 1
+            if self._chunk >= self.space_shards:
+                self._complete_row()
+                return
+            _native.pack_row_init(
+                self._out_chunk(), self._scratch, self.pack_config,
+                self.chunk_records,
             )
 
     def _harvest_pairs(self) -> None:
+        """Copy the current chunk's compacted pairs out of the scratch's
+        emission region; run once per chunk, before any re-init."""
         if self._compact and int(self._scratch[1]):
             self._row_pairs.append(_native.pack_take_pairs(
                 self._scratch, self.pack_config, self.chunk_records
@@ -901,7 +980,6 @@ class FusedPackSink:
                 np.concatenate([p[1] for p in pairs]))
 
     def _complete_row(self) -> None:
-        self._harvest_pairs()  # before the next row's init resets the scratch
         row, self._row = self._row, None
         obs_metrics.FUSED_BATCHES.inc()
         obs_metrics.FUSED_RECORDS.inc(self._count)
@@ -937,7 +1015,7 @@ class FusedPackSink:
         while start < n:
             self._ensure_row()
             took = _native.pack_append_columns_native(
-                self._row, self._scratch, self.pack_config,
+                self._out_chunk(), self._scratch, self.pack_config,
                 self.chunk_records, dense, key_len, value_len, key_null,
                 value_null, ts, key_hash32, key_hash64, start, n,
                 ts_mode=ts_mode,
@@ -956,8 +1034,7 @@ class FusedPackSink:
                 int(offsets[start - 1]) if offsets is not None else None,
                 last_ts,
             )
-            if int(self._scratch[0]) == self.chunk_records:
-                self._complete_row()
+            self._advance_full_chunks()
         return n
 
     def append_record_set(
@@ -984,7 +1061,7 @@ class FusedPackSink:
             self._ensure_row()
             appended, pos, cov, last_off, last_ts, full, skip = (
                 _native.decode_pack_record_set_native(
-                    buf, self._row, self._scratch, self.pack_config,
+                    buf, self._out_chunk(), self._scratch, self.pack_config,
                     self.chunk_records, dense, min_off, max_off, verify,
                     start_pos=pos, skip=skip,
                 )
@@ -995,8 +1072,7 @@ class FusedPackSink:
                 last_all = last_off
                 self._note(partition, appended, last_off, last_ts)
             covered = max(covered, cov)
-            if int(self._scratch[0]) == self.chunk_records:
-                self._complete_row()
+            self._advance_full_chunks()
             if not full:
                 return total, pos, covered, last_all
 
@@ -1023,13 +1099,21 @@ class FusedPackSink:
 
     def flush(self) -> None:
         """Complete the partial row at stream end (a row with no records
-        is dropped, as the chained path yields no empty batch)."""
+        is dropped, as the chained path yields no empty batch).  Chunks
+        never reached are initialized, i.e. packed empty batches: a short
+        sharded row is what `pack_chunks` makes of a short batch."""
         if self._row is None:
             return
         if self._count == 0:
             self._row = None
             self._row_pairs = []
             return
+        self._harvest_pairs()  # before the pad inits reset the scratch
+        for s in range(self._chunk + 1, self.space_shards):
+            _native.pack_row_init(
+                self._row[s], self._scratch, self.pack_config,
+                self.chunk_records,
+            )
         self._complete_row()
 
     def take_completed(self) -> "list[PackedRow]":

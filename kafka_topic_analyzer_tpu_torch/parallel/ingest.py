@@ -267,18 +267,25 @@ class ParallelIngest:
         stage: "Optional[Callable[[RecordBatch], object]]" = None,
         depth: int = 2,
         sink_factory: "Optional[Callable[[], object]]" = None,
+        wid_base: int = 0,
     ):
+        """``wid_base`` numbers the workers from there on: a mesh scan
+        runs one fan-in per data row (engine.py), and the worker labels of
+        its pools must stay disjoint."""
         if not groups:
             raise ValueError("parallel ingest needs at least one group")
         self._cancel = threading.Event()
         self.workers = [
             _IngestWorker(
-                w, source, batch_size, g, start_at, stage, depth, self._cancel,
+                wid_base + w, source, batch_size, g, start_at, stage, depth,
+                self._cancel,
                 sink=sink_factory() if sink_factory is not None else None,
             )
             for w, g in enumerate(groups)
         ]
-        self._depth_gauge = obs_metrics.INGEST_QUEUE_DEPTH.labels(pool="0")
+        self._depth_gauge = obs_metrics.INGEST_QUEUE_DEPTH.labels(
+            pool=str(wid_base)
+        )
         #: Rotation position and per-worker liveness for the merge.
         self._rr = 0
         self._alive = [True] * len(self.workers)

@@ -17,6 +17,7 @@ blocks after the report (`render_degraded_block`, `render_corrupt_block`,
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict, List, Optional
 
 from kafka_topic_analyzer_tpu_torch.results import TopicMetrics
@@ -357,6 +358,12 @@ def render_trends(findings: "Optional[List[dict]]") -> str:
     return "\n".join(lines) + "\n"
 
 
+def _worker_sort_key(label: str):
+    """Natural order of worker labels: numeric runs compare as numbers
+    (``w2`` before ``w10``), as the reference sorts them."""
+    return [int(tok) if tok.isdigit() else tok for tok in re.split(r"(\d+)", label)]
+
+
 def render_telemetry_stats(
     snapshot: Optional[Dict],
     ingest_workers: int = 1,
@@ -489,7 +496,9 @@ def render_telemetry_stats(
                 f" (stalled {ingest.stalls[w]:.1f}s)"
                 if ingest.stalls.get(w, 0) >= 0.05 else ""
             )
-            for w, n in sorted(ingest.workers.items())
+            for w, n in sorted(
+                ingest.workers.items(), key=lambda kv: _worker_sort_key(kv[0])
+            )
         )
         line += f" — records {per}"
     lines.append(line)

@@ -92,6 +92,17 @@ class FollowService:
         health: "Optional[obs_health.HealthEngine]" = None,
         clock: Callable[[], float] = time.monotonic,
     ):
+        # A multi-controller mesh would need a lockstep agreement on every
+        # poll's decisions (new data, idle exit, stop) before each pass;
+        # with one controller every data row is local and a mesh backend
+        # folds each pass like any other.
+        if (getattr(backend, "sharded", False)
+                and len(backend.local_rows) < backend.config.data_shards):
+            raise ValueError(
+                "--follow does not support multi-controller meshes yet "
+                "(pass entry would need per-poll lockstep agreement); "
+                "run the service single-controller"
+            )
         self.topic = topic
         self.backend = backend
         self.batch_size = batch_size

@@ -499,7 +499,13 @@ def run(argv: "list[str] | None" = None) -> int:
     ap.add_argument("--alive-bits", type=int, default=26)
     ap.add_argument("--ingest-workers", default="1", metavar="N|auto",
                     help="partition-sharded parallel ingest workers for "
-                         "the scan (engine --ingest-workers)")
+                         "the scan (engine --ingest-workers; composes "
+                         "with --mesh: one fan-in per data row)")
+    ap.add_argument("--mesh", default="1", metavar="DATA[,SPACE]",
+                    help="device mesh of the sharded backend (shards "
+                         "round-robin on the visible CUDA devices, or the "
+                         "host under --device cpu): the mesh x workers "
+                         "sweep")
     ap.add_argument("--flight-record", action="store_true",
                     help="run the pipeline flight recorder during the "
                          "scan and print the doctor's BOTTLENECK verdict")
@@ -508,7 +514,7 @@ def run(argv: "list[str] | None" = None) -> int:
 
     from kafka_topic_analyzer_tpu_torch.io import native
     from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
-    from kafka_topic_analyzer_tpu_torch.cli import resolve_ingest_workers
+    from kafka_topic_analyzer_tpu_torch.cli import parse_mesh, resolve_ingest_workers
     from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
     from kafka_topic_analyzer_tpu_torch.engine import run_scan
     from kafka_topic_analyzer_tpu_torch.io.kafka_wire import KafkaWireSource
@@ -526,13 +532,22 @@ def run(argv: "list[str] | None" = None) -> int:
         alive_bitmap_bits=args.alive_bits,
         enable_hll="hll" in feats,
         enable_quantiles="quantiles" in feats,
+        mesh_shape=parse_mesh(args.mesh),
     )
     try:
         ingest_workers = resolve_ingest_workers(args, args.partitions)
     except ValueError as e:
         ap.error(str(e))
     use_native = native.native_available()
-    backend = TorchBackend(config, device=args.device, use_native=use_native)
+    if config.mesh_shape != (1, 1):
+        from kafka_topic_analyzer_tpu_torch.parallel.sharded import (
+            ShardedTorchBackend,
+        )
+
+        backend = ShardedTorchBackend(config, device=args.device,
+                                      use_native=use_native)
+    else:
+        backend = TorchBackend(config, device=args.device, use_native=use_native)
     with BrokerProcess(
         topic="bench-e2e", partitions=args.partitions, windows=windows,
         R=R, n_templates=16, vmin=100, vmax=420,
@@ -576,6 +591,7 @@ def run(argv: "list[str] | None" = None) -> int:
         "device": str(backend.device),
         "dispatch_depth": result.dispatch_depth,
         "ingest_workers": result.ingest_workers,
+        "mesh": list(config.mesh_shape),
         "batch_size": args.batch_size,
         "brokers": args.brokers,
     }

@@ -442,3 +442,119 @@ def test_snapshot_keys_are_the_reference_leaves(tmp_path):
             np.testing.assert_array_equal(got[key], want[key], err_msg=key)
         assert got["state.alive.words"].dtype == np.uint32
     assert dataclasses.asdict(config) == dataclasses.asdict(ref_config)
+
+
+# -- snapshots across meshes ---------------------------------------------------
+
+MESH_FREE = dict(num_partitions=3, batch_size=BATCH, enable_hll=True, hll_p=10,
+                 quantiles_per_partition=True)
+MESH_ALIVE = dict(num_partitions=3, batch_size=BATCH, **FEATURES)
+
+
+def mesh_backend(name: str, features: dict, mesh, now):
+    """``name``'s backend for ``mesh``: the sharded one, or the
+    single-device one at (1, 1)."""
+    from kafka_topic_analyzer_tpu.parallel.sharded import ShardedTpuBackend
+    from kafka_topic_analyzer_tpu_torch.parallel.sharded import ShardedTorchBackend
+
+    kw = dict(features, mesh_shape=mesh)
+    if name == "port":
+        if mesh == (1, 1):
+            return TorchBackend(AnalyzerConfig(**kw), init_now_s=now, device="cpu")
+        return ShardedTorchBackend(AnalyzerConfig(**kw), init_now_s=now, device="cpu")
+    if mesh == (1, 1):
+        return TpuBackend(RefConfig(**kw), init_now_s=now)
+    return ShardedTpuBackend(RefConfig(**kw), init_now_s=now)
+
+
+def interrupted_then_resumed(writer, w_mesh, reader, r_mesh, features, tmp_path):
+    """(the reader's uninterrupted scan and backend, its resumed scan and
+    backend) after ``writer`` on ``w_mesh`` died mid-topic with a
+    snapshot."""
+    w, r = Package(writer), Package(reader)
+    snap = str(tmp_path / "snap")
+    full_backend = mesh_backend(reader, features, r_mesh, NOW)
+    full = r.scan(TOPIC, r.source("synthetic", None), full_backend, BATCH)
+    with pytest.raises(Interrupt):
+        w.scan(TOPIC, Interrupting(w.source("synthetic", None), 7),
+               mesh_backend(writer, features, w_mesh, NOW), BATCH,
+               snapshot_dir=snap, snapshot_every_s=0.0)
+    assert 0 < checkpoint.snapshot_info(snap)["records_seen"] < 12_000
+    resumed_backend = mesh_backend(reader, features, r_mesh, 0)
+    resumed = r.scan(TOPIC, r.source("synthetic", None), resumed_backend, BATCH,
+                     snapshot_dir=snap, snapshot_every_s=3600.0, resume=True)
+    return r, (full, full_backend), (resumed, resumed_backend)
+
+
+@pytest.mark.parametrize("writer, w_mesh, reader, r_mesh", [
+    ("ref", (2, 1), "port", (4, 1)),
+    ("port", (2, 1), "ref", (4, 1)),
+    ("port", (2, 2), "port", (1, 1)),
+    ("ref", (1, 1), "port", (2, 2)),
+], ids=["ref2x1-port4x1", "port2x1-ref4x1", "port2x2-port1x1", "ref1x1-port2x2"])
+def test_mesh_free_snapshots_resume_across_meshes_and_packages(
+        writer, w_mesh, reader, r_mesh, tmp_path):
+    """Without the alive bitmap a snapshot is stored canonical (the mesh
+    rows folded by each leaf's merge law) and spread over any mesh on
+    load: the resumed scan's report and folded leaves equal the reader's
+    uninterrupted scan's."""
+    r, (full, full_backend), (resumed, resumed_backend) = interrupted_then_resumed(
+        writer, w_mesh, reader, r_mesh, MESH_FREE, tmp_path)
+    assert resumed_backend.init_now_s == NOW
+    assert r.report(resumed) == r.report(full)
+    got, want = r.leaves(resumed_backend), r.leaves(full_backend)
+    if r_mesh != (1, 1):
+        from kafka_topic_analyzer_tpu_torch.models.state import merge_rows
+
+        got, want = merge_rows(got), merge_rows(want)
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+@pytest.mark.parametrize("writer, reader", [("port", "ref"), ("ref", "port")])
+def test_alive_snapshot_resumes_across_packages_on_its_mesh(writer, reader, tmp_path):
+    """An alive-key snapshot keeps the stacked layout: on the writer's
+    mesh it resumes in the other package.  Each data row's bitmap equals
+    the uninterrupted scan's word for word; the other leaves once their
+    rows fold (the resumed rounds cut each row's batches elsewhere, so
+    records land in other space shards)."""
+    from kafka_topic_analyzer_tpu_torch.models.state import merge_rows
+
+    r, (full, full_backend), (resumed, resumed_backend) = interrupted_then_resumed(
+        writer, (2, 2), reader, (2, 2), MESH_ALIVE, tmp_path)
+    assert r.report(resumed) == r.report(full)
+    got, want = r.leaves(resumed_backend), r.leaves(full_backend)
+    assert got["alive.words"].shape == (2, 1 << 15)
+    np.testing.assert_array_equal(got.pop("alive.words"), want.pop("alive.words"))
+    got, want = merge_rows(got), merge_rows(want)
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+@pytest.mark.parametrize("reader_mesh", [(4, 1), (2, 2), (1, 1)])
+def test_alive_snapshot_on_another_mesh_is_refused_like_the_reference(
+        reader_mesh, tmp_path):
+    """An alive-key snapshot written on a 2x1 mesh does not load on
+    another mesh, in either package, with the reference's message, which
+    names ``--mesh 2,1``."""
+    config = AnalyzerConfig(**dict(MESH_ALIVE, mesh_shape=(2, 1)))
+    backend = mesh_backend("port", MESH_ALIVE, (2, 1), NOW)
+    checkpoint.save_snapshot(str(tmp_path), TOPIC, config, backend.get_state(),
+                             {0: 0, 1: 0, 2: 0}, 0, NOW)
+    kw = dict(MESH_ALIVE, mesh_shape=reader_mesh)
+    with pytest.raises(ValueError) as port_err:
+        checkpoint.load_snapshot(str(tmp_path), TOPIC, AnalyzerConfig(**kw))
+    with pytest.raises(ValueError) as ref_err:
+        ref_checkpoint.load_snapshot(str(tmp_path), TOPIC, RefConfig(**kw))
+    assert str(port_err.value) == str(ref_err.value)
+    assert "--mesh 2,1" in str(port_err.value)
+
+
+@pytest.mark.parametrize("mesh", [(2, 1), (2, 2), (1, 4)])
+def test_mesh_state_template_is_the_sharded_state(mesh):
+    from kafka_topic_analyzer_tpu_torch.parallel.sharded import ShardedTorchBackend
+
+    config = AnalyzerConfig(**dict(MESH_ALIVE, mesh_shape=mesh))
+    leaves = ShardedTorchBackend(config, device="cpu").get_state()
+    assert {k: (tuple(s), d) for k, (s, d) in checkpoint.state_template(config).items()} \
+        == {k: (v.shape, v.dtype) for k, v in leaves.items()}

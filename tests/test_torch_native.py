@@ -60,14 +60,12 @@ def canonical_pairs(row: np.ndarray, config, capacity=None) -> bytes:
     """``row`` (or, with ``capacity``, a pair table) with its alive pair
     list in slot order."""
     row = row.copy()
-    n = int(row[:16].view(np.int32)[1])
-    secs, pos = {}, packing.HEADER_BYTES
-    for name, dtype, count in packing._sections(
-        config, capacity or config.batch_size, pair_table=capacity is not None
-    ):
-        nb = np.dtype(dtype).itemsize * count
-        secs[name] = row[pos : pos + nb].view(dtype)
-        pos += nb
+    # The host unpacks give views into ``row``: sorting them sorts it.
+    secs = (
+        packing.unpack_numpy(row, config) if capacity is None
+        else packing.unpack_pair_table_numpy(row, config, capacity)
+    )
+    n = int(secs["n_pairs"])
     if "alive_slot" in secs:
         order = np.argsort(secs["alive_slot"][:n], kind="stable")
         secs["alive_slot"][:n] = secs["alive_slot"][:n][order]

@@ -170,13 +170,22 @@ def test_device_unpack_matches_reference_host_unpack(case):
         np.testing.assert_array_equal(host(got[name], exp.dtype), exp, err_msg=name)
 
 
+def section_offsets(cfg) -> "dict[str, int]":
+    """Each section's byte offset in a packed row, from `packing._sections`
+    and `packing.packed_nbytes` (the header is what the sections leave)."""
+    secs = packing._sections(cfg, cfg.batch_size)
+    sizes = [np.dtype(dtype).itemsize * count for _, dtype, count in secs]
+    pos = packing.packed_nbytes(cfg, cfg.batch_size) - sum(sizes)
+    offsets = {}
+    for (name, _, _), size in zip(secs, sizes):
+        offsets[name] = pos
+        pos += size
+    return offsets
+
+
 def test_odd_batch_size_misaligns_qcounts_and_unpack_copies_it():
     _, cfg = configs(CASES["odd-batch_hll-flat-pairs_quant-pp"][0])
-    offsets, pos = {}, packing.HEADER_BYTES
-    for name, dtype, count in packing._sections(cfg, cfg.batch_size):
-        offsets[name] = pos
-        pos += np.dtype(dtype).itemsize * count
-    assert offsets["qcounts"] % 8  # the case the copy-before-view exists for
+    assert section_offsets(cfg)["qcounts"] % 8  # the case the copy-before-view exists for
     row = packing.pack_batch(as_port(ref_batches(cfg.batch_size)[0]), cfg)
     q = packing.unpack_device(torch.from_numpy(row), cfg)["qcounts"]
     assert q.dtype == torch.int64 and int(q.sum()) > 0
@@ -198,11 +207,7 @@ def test_v4_odd_batch_misaligns_ts_minmax_and_unpack_copies_it():
     only when 9·B is: at B = 1001 it is not, and long keys (u16 past
     32 KiB, negative as int16) must still unpack to their u16 value."""
     ref_cfg, cfg = configs(CASES["v4_odd-batch_hll-u16-pairs"][0])
-    offsets, pos = {}, packing.HEADER_BYTES
-    for name, dtype, count in packing._sections(cfg, cfg.batch_size):
-        offsets[name] = pos
-        pos += np.dtype(dtype).itemsize * count
-    assert offsets["ts_minmax"] % 8
+    assert section_offsets(cfg)["ts_minmax"] % 8
     batch = as_port(ref_batches(cfg.batch_size)[0])
     batch.key_len[:50] = np.where(batch.key_null[:50], 0, 65535)
     batch.key_len[50:60] = np.where(batch.key_null[50:60], 0, 40000)

@@ -486,6 +486,24 @@ def test_cli_workers_report_and_stats(capsys):
     assert re.search(r"ingest: 3 worker\(s\) — records w0 \d+", port.err), port.err
 
 
+def test_cli_stats_orders_twelve_workers_like_the_reference(capsys):
+    """Worker labels sort naturally (w2 before w10), as in the reference's
+    ``--stats`` digest: the ``ingest:`` lines name the same workers in the
+    same order."""
+    argv = ["-t", "t", "--source", "synthetic", "--synthetic",
+            "partitions=12,messages=2000", "--ingest-workers", "12", "--stats",
+            "--quiet"]
+    lines = []
+    for main, extra in ((cli.main, ["--device", "cpu"]),
+                        (ref_cli.main, ["--backend", "tpu"])):
+        default_registry().reset()
+        assert main(argv + extra) == 0
+        err = capsys.readouterr().err
+        line = next(l for l in err.splitlines() if re.search(r"ingest: \d+ worker", l))
+        lines.append(re.findall(r"\bw(\d+) ", line))
+    assert lines[0] == lines[1] == [str(w) for w in range(12)]
+
+
 # -- the staging rings ---------------------------------------------------------
 
 def test_staging_rings_are_never_shared(seg_dir, monkeypatch):

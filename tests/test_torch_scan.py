@@ -240,10 +240,47 @@ def test_state_carried_mid_scan_under_wire_v4():
     assert_metrics_equal(*carry_mid_scan(SLICE_V4))
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh_shape=(2, 1))])
+@pytest.mark.parametrize("kwargs", [
+    dict(mesh_shape=(2, 2), batch_size=1001,
+         message="batch_size must divide evenly into space_shards chunks"),
+    dict(mesh_shape=(1, 4), batch_size=2048, wire_format=4, use_pallas_counters=True,
+         message="use_pallas_counters requires a per-space-shard chunk "
+                 "(batch_size / space_shards) that is a multiple of 1024"),
+])
 def test_config_refuses_what_is_not_yet_ported(kwargs):
-    with pytest.raises(ValueError, match="not yet ported"):
-        AnalyzerConfig(**kwargs)
+    """Mesh shapes the sharded backend cannot run: the port's config
+    check and the reference's backend raise the same message."""
+    from kafka_topic_analyzer_tpu.parallel.sharded import ShardedTpuBackend
+
+    kwargs = dict(kwargs)
+    message = kwargs.pop("message")
+    with pytest.raises(ValueError) as port_err:
+        AnalyzerConfig(num_partitions=3, **kwargs).validate_mesh()
+    with pytest.raises(ValueError) as ref_err:
+        ShardedTpuBackend(RefConfig(num_partitions=3, **kwargs))
+    assert str(port_err.value) == str(ref_err.value) == message
+
+
+def test_fleet_still_refuses_a_mesh(capsys):
+    argv = ["-t", "a", "--fleet", "--mesh", "2", "-b", "127.0.0.1:1"]
+    assert cli.main(argv + ["--device", "cpu"]) == 1
+    err = capsys.readouterr().err
+    assert "--fleet does not support --mesh yet" in err
+    assert ref_cli.main(argv) == 1
+    assert capsys.readouterr().err == err
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(mesh_shape=(2, 1)), dict(mesh_shape=(2, 2), batch_size=2048),
+    dict(mesh_shape=(1, 2), batch_size=2048, wire_format=4, use_pallas_counters=True),
+    dict(mesh_shape=(8, 1), batch_size=1001),
+], ids=["2x1", "2x2", "1x2-v4-pallas", "8x1-odd-batch"])
+def test_config_accepts_mesh_shapes(kwargs):
+    config = AnalyzerConfig(num_partitions=3, **kwargs)
+    config.validate_mesh()
+    d, s = kwargs["mesh_shape"]
+    assert (config.data_shards, config.space_shards) == (d, s)
+    assert config.chunk_size == config.batch_size // s
 
 
 @pytest.mark.parametrize(
