@@ -137,6 +137,24 @@ Phases, in order; any failure exits non-zero:
   device busy share (the ``breakdown`` copy + fold per launch over the
   wall) and, for Kafka, the broker child's CPU seconds per record and
   its share of one core;
+- mesh: ``--mesh`` scans through the CLI on the card (synthetic v5/v4 at
+  2,2, segment files at 4,1 with 7 workers and K = 4, a 2,2 segment scan
+  killed and resumed): every report line but the alive keys equals the
+  (1, 1) scan's, the alive keys equal a numpy replay under the mesh's
+  rule, the format's kernel launches once per round and shard;
+- distributed: two CLI processes of one ``--distributed`` gloo group on
+  the one card (``DIST_CHILD``), each a data row: synthetic v5/v4 at
+  ``--mesh 2,1``, v4 at 2,2, segment files v5 at 2,1 with 1 and ``auto``
+  workers per controller (``--stats``: the workers across 2 controllers,
+  ``c0.``/``c1.`` labels), and the 2,1 segment scan SIGKILLed at its
+  first per-process snapshots and resumed.  Both exit 0, process 1 prints
+  nothing, process 0's report equals the (1, 1) scan's but for the alive
+  keys, which equal the mesh replay, the resumed report equals the
+  uninterrupted one, and each process launches its format's kernel once
+  per round and local shard.  Prints records/s against the (1, 1) scan
+  and the single-controller mesh of the same flags, each process's
+  finalize seconds, peak device memory and launches, and a gloo
+  bitwise-OR all-reduce of 2^27 words timed alone;
 - follow: the port's ``--follow`` service through the CLI's own session
   and ``cli.run`` (``--poll-interval 0.25 --follow-idle-exit 3
   --metrics-port P --sse --window-secs 5``) against the 16M-record
@@ -217,8 +235,9 @@ for ``counters_merge`` the chain's ``chain_ms``; ``launches`` counts the
 16M-record Kafka scan of the kernel's format, the slice's main path, and
 ``launches_by_path`` every full-size scan, the resumed and the N-worker
 scans, the follow services' initial and tail passes, the resumed follow,
-the fan-ins and the fleet runs among them; the lease instances are child
-processes, whose launches this process cannot count), and as its last line
+the fan-ins, the fleet runs and each distributed process among them (the
+distributed children report theirs; the lease instances are child
+processes, whose launches this process cannot count)), and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -311,6 +330,13 @@ SCAN_RATES: dict = {}
 MESH_CHUNK = SCAN_BATCH // 2
 #: Rows each data row's stream folds before the killed mesh scan dies.
 MESH_KILL_AFTER = 15
+#: Alive keys of the numpy mesh replays, keyed by (data rows, workers,
+#: synthetic order, controllers) (`mesh_rows`).
+MESH_REPLAYS: dict = {}
+#: Seconds a child of the distributed phase may run.
+DIST_CHILD_TIMEOUT_S = 300.0
+#: The distributed phase's child documents and logs.
+DIST_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke_distributed"
 
 
 def fail(msg: str) -> "None":
@@ -3393,12 +3419,16 @@ def phase_fleet_leases(np, cli, kernels, broker, port: int) -> None:
                 f.close()
 
 
-def mesh_rows(np, replay, catalog, data: int, workers: str, synthetic: bool):
+def mesh_rows(np, replay, catalog, data: int, workers: str, synthetic: bool,
+              controllers: int = 1):
     """Each data row's records (slot, keyed, alive), in the order the row
-    folds them under ``--mesh data,..`` at ``--ingest-workers workers``:
-    the row's partitions (`assign_partitions`), interleaved record by
-    record from the synthetic source, else through the row's share of
-    the workers (`allocate_row_workers`) as `Replay.fanin` merges them."""
+    folds them under ``--mesh data,..`` at ``--ingest-workers workers``
+    with ``controllers`` processes (``--distributed``): the row's
+    partitions (`assign_partitions`), interleaved record by record from
+    the synthetic source, else through the row's share of its
+    controller's workers (`allocate_row_workers`, the budget resolved
+    against the controller's partitions) as `Replay.fanin` merges
+    them."""
     from kafka_topic_analyzer_tpu_torch.config import IngestConfig
     from kafka_topic_analyzer_tpu_torch.parallel.ingest import (
         allocate_row_workers,
@@ -3411,8 +3441,12 @@ def mesh_rows(np, replay, catalog, data: int, workers: str, synthetic: bool):
     if synthetic:
         return [tuple(np.stack([replay.parts[p][k] for p in row], axis=1).reshape(-1)
                       for k in range(3)) for row in parts]
-    alloc = allocate_row_workers(IngestConfig.parse(workers).resolve(len(ids)),
-                                 {r: len(parts[r]) for r in range(data)})
+    alloc, per = {}, data // controllers
+    for c in range(controllers):
+        rows = range(c * per, (c + 1) * per)
+        alloc.update(allocate_row_workers(
+            IngestConfig.parse(workers).resolve(sum(len(parts[r]) for r in rows)),
+            {r: len(parts[r]) for r in rows}))
     weights = (catalog.partition_record_counts()
                if any(n > 1 for n in alloc.values()) else None)
     return [replay.fanin(shard_partitions(parts[r], alloc[r], weights=weights)
@@ -3543,22 +3577,24 @@ def phase_mesh(torch, np, cli, kernels, dump: str, reports: dict, rates: dict,
          (4, 1), "7", False),
     ]
     launches = {"counters_merge": {}, "counters_update": {}}
-    # The three replays, on threads (numpy's sorts release the GIL),
-    # before any mesh scan runs.
+    # The replays of this phase and the distributed one, on threads
+    # (numpy's sorts release the GIL), before any mesh scan runs.
     t0 = time.perf_counter()
-    shapes = [(2, "1", True), (4, "7", False), (2, "1", False)]
+    shapes = [(2, "1", True, 1), (4, "7", False, 1), (2, "1", False, 1),
+              (2, "auto", False, 2)]
     with ThreadPoolExecutor(len(shapes)) as pool:
         futures = {shape: pool.submit(
             lambda shape: mesh_alive_keys(np, mesh_rows(np, replay, catalog, *shape)),
             shape) for shape in shapes}
-        replays = {shape: f.result() for shape, f in futures.items()}
+        MESH_REPLAYS.update({shape: f.result() for shape, f in futures.items()})
     print(f"mesh: numpy replays under the mesh's rule in "
           f"{time.perf_counter() - t0:.3f} s: " + "; ".join(
-              f"{d} data rows at {w} worker(s), {'synthetic' if syn else 'segfile'} "
-              f"order: {n} alive keys" for (d, w, syn), n in replays.items()))
+              f"{d} data rows at {w} worker(s) per {c} controller(s), "
+              f"{'synthetic' if syn else 'segfile'} order: {n} alive keys"
+              for (d, w, syn, c), n in MESH_REPLAYS.items()))
 
     def replayed(data, workers, synth):
-        return replays[data, workers, synth]
+        return MESH_REPLAYS[data, workers, synth, 1]
 
     bitmap = 1 << (ALIVE_BITS - 3)
     for label, argv, kernel, single, single_rate, (d, s), workers, synth in runs:
@@ -3599,6 +3635,282 @@ def phase_mesh(torch, np, cli, kernels, dump: str, reports: dict, rates: dict,
         FULL_PARTITIONS * FULL_MESSAGES)
     print("mesh: every report line equals the (1, 1) scan's but the alive keys, "
           "which equal the mesh replay (last writer wins per data row, rows ORed)")
+    return launches
+
+
+#: The child of the distributed phase: the port's CLI as ``python -m``
+#: runs it (``cli.main``) in one process of a ``--distributed`` pair, then
+#: what the parent cannot count there: its kernels' launches, its peak
+#: device memory, its own stage seconds and rounds, the wall without the
+#: group's rendezvous, and (with a second port) a timed gloo bitwise-OR
+#: all-reduce of a 2^32-bit bitmap's words.  Needs a card: no fallback.
+DIST_CHILD = r"""
+import json, sys, time
+import torch
+argv, out, or_port = json.loads(sys.argv[1]), sys.argv[2], int(sys.argv[3])
+if not torch.cuda.is_available():
+    sys.exit("no CUDA device: this child runs on the card only")
+from kafka_topic_analyzer_tpu_torch import cli
+from kafka_topic_analyzer_tpu_torch.obs.registry import default_registry
+from kafka_topic_analyzer_tpu_torch.ops import counters_merge as cm
+from kafka_topic_analyzer_tpu_torch.ops import counters_update as cu
+from kafka_topic_analyzer_tpu_torch.parallel import mesh
+kernels = {"counters_merge": cm.counters_merge, "counters_update": cu.counters_update}
+init = {}
+def timed_init(spec, _init=cli.initialize_distributed):
+    t0 = time.perf_counter()
+    _init(spec)
+    init["s"] = time.perf_counter() - t0
+cli.initialize_distributed = timed_init
+torch.zeros(1, device="cuda")  # the context, outside the wall (the parent has one)
+for fn in kernels.values():
+    fn.launches = 0
+torch.cuda.reset_peak_memory_stats()
+t0 = time.perf_counter()
+rc = cli.main(argv)
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+snap = default_registry().snapshot()
+doc = {"rc": rc, "wall": wall, "init": init.get("s", 0.0),
+       "launches": {name: fn.launches for name, fn in kernels.items()},
+       "peak": torch.cuda.max_memory_allocated(),
+       "stages": {s["labels"]["stage"]: s["value"]
+                  for s in snap["kta_stage_seconds_total"]["samples"]},
+       "rounds": snap["kta_scan_batches_total"]["samples"][0]["value"]}
+if or_port:
+    pid = int(argv[argv.index("--distributed") + 1].split(",")[1])
+    mesh.initialize_distributed(f"127.0.0.1:{or_port},{pid},2")
+    import torch.distributed as dist
+    words = torch.randint(-2**31, 2**31 - 1, (1 << 27,), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(pid))
+    want = torch.randint(-2**31, 2**31 - 1, (1 << 27,), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1 - pid)) | words
+    times = []
+    for _ in range(3):
+        t = words.clone()
+        dist.barrier()
+        t1 = time.perf_counter()
+        dist.all_reduce(t, op=dist.ReduceOp.BOR)
+        times.append(time.perf_counter() - t1)
+        if not torch.equal(t, want):
+            sys.exit("the gloo bitwise-OR all-reduce disagrees with torch's |")
+    doc["or_s"] = times
+    mesh.shutdown_distributed()
+with open(out, "w") as f:
+    json.dump(doc, f)
+sys.exit(rc)
+"""
+
+
+def dist_pair(argv, tag: str, or_timing: bool = False, until=None):
+    """Runs the port's CLI on ``argv`` in two processes of one
+    ``--distributed`` group on loopback (`DIST_CHILD`); returns each
+    process's (exit code, stdout, stderr, child document or None).  With
+    ``until`` (a function of nothing), both children are SIGKILLed once it
+    holds.  Fails on a child that outlives the phase's time limit."""
+    DIST_ROOT.mkdir(parents=True, exist_ok=True)
+    port, or_port = free_port(), free_port() if or_timing else 0
+    procs, outs, logs = [], [], []
+    try:
+        for pid in range(2):
+            out = DIST_ROOT / f"{tag}.p{pid}.json"
+            out.unlink(missing_ok=True)
+            outs.append(out)
+            logs.append((open(DIST_ROOT / f"{tag}.p{pid}.out", "w+"),
+                         open(DIST_ROOT / f"{tag}.p{pid}.err", "w+")))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", DIST_CHILD,
+                 json.dumps(argv + ["--quiet", "--distributed",
+                                    f"127.0.0.1:{port},{pid},2"]),
+                 str(out), str(or_port)],
+                cwd=Path(__file__).resolve().parent,
+                stdout=logs[-1][0], stderr=logs[-1][1]))
+        deadline = time.monotonic() + DIST_CHILD_TIMEOUT_S
+        while until is not None and all(p.poll() is None for p in procs):
+            if until():
+                for p in procs:
+                    p.kill()
+                break
+            if time.monotonic() > deadline:
+                fail(f"distributed {tag}: the kill condition never held")
+            time.sleep(0.05)
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        fail(f"distributed {tag}: a child ran past {DIST_CHILD_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    runs = []
+    for p, out, (fout, ferr) in zip(procs, outs, logs):
+        fout.seek(0)
+        ferr.seek(0)
+        runs.append((p.returncode, fout.read(), ferr.read(),
+                     json.loads(out.read_text()) if out.exists() else None))
+        fout.close()
+        ferr.close()
+    return runs
+
+
+def dist_scan(np, label: str, argv, kernel: str, want_report: str, want_alive: int,
+              shards: int, or_timing: bool = False) -> dict:
+    """One two-process scan through the CLI: both exit 0, process 1
+    prints nothing, process 0's report equals ``want_report`` but for the
+    alive keys, which equal ``want_alive`` (the numpy mesh replay), and
+    each process launches its format's kernel once per round and local
+    shard (``shards``), the other never.  Returns process 0's report and
+    both child documents."""
+    runs = dist_pair(argv, label.replace(" ", "-").replace(",", "x"), or_timing)
+    for pid, (rc, out, err, doc) in enumerate(runs):
+        if rc != 0 or doc is None:
+            fail(f"distributed {label}: process {pid} exited {rc}: {err[-3000:]}")
+        if pid == 1 and out:
+            fail(f"distributed {label}: process 1 printed on stdout:\n{out[:2000]}")
+        n, rounds = doc["launches"][kernel], int(doc["rounds"])
+        if not (n > 0 and n == rounds * shards) or any(
+                v for name, v in doc["launches"].items() if name != kernel):
+            fail(f"distributed {label}: process {pid} launched {doc['launches']} "
+                 f"in {rounds} rounds of {shards} local shard(s)")
+    got = drop_timing("".join(
+        line for line in runs[0][1].splitlines(keepends=True)
+        if not line.startswith(("Subscribing to", "Starting message consumption"))))
+    alive = next((l for l in got.splitlines() if l.startswith("Alive keys")), "")
+    if drop_alive_keys(got) != drop_alive_keys(want_report) or \
+            alive != f"Alive keys: {want_alive}":
+        fail(f"distributed {label}: '{alive}' (the mesh replay {want_alive}), or "
+             f"another line differs from the (1, 1) report:\n{want_report}\n{got}")
+    return dict(report=got, docs=[r[3] for r in runs], stderr=[r[2] for r in runs])
+
+
+def phase_distributed(torch, np, cli, kernels, dump: str, reports: dict) -> dict:
+    """``--mesh D,S --distributed COORD:PORT,PID,2`` on the card: two CLI
+    processes (`DIST_CHILD`) share the one H100, each holding and feeding
+    its own data row.  The full synthetic scan at 2,1 in v5 and v4 and at
+    2,2 in v4 (two space shards a process, B/S = 131,072 records a
+    launch), the segment-file v5 scan at 2,1 at 1 and at ``auto`` workers
+    per controller (``--stats``: the fleet's workers across 2 controllers,
+    ``c0.``/``c1.`` labels), and the 2,1 segment-file scan killed (both
+    processes SIGKILLed once both per-process snapshots exist) and
+    resumed, whose report must equal the uninterrupted one.  Every report
+    (process 0's) equals the (1, 1) scan's but for the alive keys, which
+    equal the numpy mesh replay; process 1 prints nothing.  Each line
+    gives records/s against the (1, 1) scan and the single-controller
+    mesh of the same flags (run here, in this process), each process's
+    finalize seconds (its merge's gloo all-reduces included), peak
+    device memory and launches; the first pair also times a gloo
+    bitwise-OR all-reduce of 2^27 int32 words alone.  Returns launches by
+    path."""
+    from kafka_topic_analyzer_tpu_torch import checkpoint
+
+    base = ["-t", "scan", *SKETCH_FLAGS, "--native", "on", "--backend", "gpu"]
+    synthetic = base + ["--source", "synthetic", "--synthetic", FULL_SPEC]
+    segments = base + ["--source", "segfile", "--segment-dir", dump]
+    v4 = ["--wire-format", "v4"]
+    total = FULL_PARTITIONS * FULL_MESSAGES
+    runs = [
+        ("synthetic v5 2,1", synthetic + ["--mesh", "2,1"], "counters_merge", "v5",
+         (2, "1", True, 1), 1),
+        ("synthetic v4 2,1", synthetic + v4 + ["--mesh", "2,1"], "counters_update",
+         "v4", (2, "1", True, 1), 1),
+        ("synthetic v4 2,2", synthetic + v4 + ["--mesh", "2,2"], "counters_update",
+         "v4", (2, "1", True, 1), 2),
+        ("segfile v5 2,1", segments + ["--mesh", "2,1"], "counters_merge",
+         "segfile v5", (2, "1", False, 1), 1),
+        ("segfile v5 2,1 auto workers",
+         segments + ["--mesh", "2,1", "--ingest-workers", "auto", "--stats"],
+         "counters_merge", "segfile v5", (2, "auto", False, 2), 1),
+    ]
+    launches = {"counters_merge": {}, "counters_update": {}}
+    done = {}
+    for i, (label, argv, kernel, single, shape, shards) in enumerate(runs):
+        run = dist_scan(np, label, argv, kernel, reports[single], MESH_REPLAYS[shape],
+                        shards, or_timing=i == 0)
+        done[label] = run
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        one = session_run(cli, kernels, [a for a in argv if a != "--stats"],
+                          f"dist-single-{i}", False)
+        torch.cuda.synchronize()
+        one_peak = torch.cuda.max_memory_allocated()
+        if drop_alive_keys(rendered(one["result"])) != drop_alive_keys(reports[single]):
+            fail(f"distributed {label}: the single-controller mesh's report differs "
+                 "from the (1, 1) scan's beyond the alive keys")
+        docs = run["docs"]
+        rate = total / (docs[0]["wall"] - docs[0]["init"])
+        base_rate = SCAN_RATES.get(single) or float("nan")
+        print(f"distributed {label}: {total} records in "
+              f"{docs[0]['wall'] - docs[0]['init']:.3f} s (process 0's CLI wall "
+              f"{docs[0]['wall']:.3f} s less the group's rendezvous "
+              f"{docs[0]['init']:.3f} s; its stages "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(docs[0]["stages"].items())
+                          if v) +
+              f" s) = {rate:.1f} records/s; (1, 1) scan "
+              f"{base_rate:.1f} ({rate / base_rate:.3f}x); single-controller "
+              f"mesh {one['rate']:.1f} ({rate / one['rate']:.3f}x); finalize s "
+              f"{docs[0]['stages'].get('finalize', 0.0):.3f} / "
+              f"{docs[1]['stages'].get('finalize', 0.0):.3f} (single-controller "
+              f"{stage_seconds(one['result'].telemetry).get('finalize', 0.0):.3f}, "
+              f"its stages " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in sorted(
+                      stage_seconds(one['result'].telemetry).items())) + " s); "
+              f"peak max_memory_allocated {docs[0]['peak']} / {docs[1]['peak']} B "
+              f"(single-controller mesh {one_peak} B, {resident} B resident "
+              f"before it); rounds "
+              f"{docs[0]['rounds']:.0f}; launches {docs[0]['launches']} / "
+              f"{docs[1]['launches']}")
+        for pid, doc in enumerate(docs):
+            launches[kernel][f"distributed {label}, process {pid}"] = \
+                doc["launches"][kernel]
+        if "or_s" in docs[0]:
+            print(f"distributed: gloo bitwise-OR all-reduce of 2^27 int32 words "
+                  f"(the 2^32-bit bitmap) between the two processes: "
+                  + ", ".join(f"{t:.3f}" for t in docs[0]["or_s"]) + " s")
+    stats = done["segfile v5 2,1 auto workers"]["stderr"][0]
+    line = next((l for l in stats.splitlines() if "ingest: " in l and "worker(s)" in l),
+                "")
+    if "across 2 controller(s)" not in line or " c0." not in line or " c1." not in line:
+        fail(f"distributed: the --stats ingest line names no 2 controllers: {line}")
+    print(f"distributed segfile v5 2,1 auto workers: --stats{line}")
+    # Killed once both per-process snapshots exist, then resumed.
+    snaps = SNAPSHOT_ROOT / "distributed"
+    shutil.rmtree(snaps, ignore_errors=True)
+    scopes = [(pid, 2, [pid]) for pid in range(2)]
+    files = [snaps / f"scan_snapshot.p{pid}of2.npz" for pid in range(2)]
+    argv = segments + ["--mesh", "2,1", "--snapshot-dir", str(snaps)]
+    t0 = time.perf_counter()
+    dist_pair(argv + ["--snapshot-every", "0"], "segfile-killed",
+              until=lambda: all(f.exists() for f in files))
+    seen = [checkpoint.snapshot_info(str(snaps), scope)["records_seen"]
+            for scope in scopes]
+    print(f"distributed segfile v5 2,1: both processes SIGKILLed "
+          f"{time.perf_counter() - t0:.3f} s after their start, with "
+          f"{seen[0]} / {seen[1]} records folded in their snapshots "
+          f"({os.path.getsize(files[0])} / {os.path.getsize(files[1])} B)")
+    if not all(0 < n < total // 2 for n in seen):
+        fail(f"distributed: a snapshot lies outside its process's records: {seen}")
+    resumed = dist_scan(np, "segfile v5 2,1 resumed", argv + ["--resume"],
+                        "counters_merge", reports["segfile v5"],
+                        MESH_REPLAYS[2, "1", False, 1], 1)
+    if resumed["report"] != done["segfile v5 2,1"]["report"]:
+        fail("distributed: the resumed pair's report differs from the "
+             "uninterrupted one's")
+    full = done["segfile v5 2,1"]["docs"]
+    for pid, doc in enumerate(resumed["docs"]):
+        if not doc["launches"]["counters_merge"] < full[pid]["launches"]["counters_merge"]:
+            fail(f"distributed: process {pid} resumed with no fewer launches")
+        launches["counters_merge"][f"distributed segfile v5 2,1 resumed, process {pid}"] \
+            = doc["launches"]["counters_merge"]
+    print(f"distributed segfile v5 2,1 resumed: launches "
+          f"{[d['launches']['counters_merge'] for d in resumed['docs']]} (uninterrupted "
+          f"{[d['launches']['counters_merge'] for d in full]}); the report equals the "
+          "uninterrupted pair's")
+    shutil.rmtree(snaps, ignore_errors=True)
+    shutil.rmtree(DIST_ROOT, ignore_errors=True)
+    print("distributed: every process 0 report equals the (1, 1) scan's but the alive "
+          "keys, which equal the mesh replay; process 1 printed nothing")
     return launches
 
 
@@ -3730,6 +4042,9 @@ def main() -> int:
             launches[kernel][path] = n
         for kernel, paths in phase_mesh(torch, np, cli, kernels, dump, reports, rates,
                                         replay, catalog).items():
+            launches[kernel].update(paths)
+        for kernel, paths in phase_distributed(torch, np, cli, kernels, dump,
+                                               reports).items():
             launches[kernel].update(paths)
     finally:
         shutil.rmtree(dump, ignore_errors=True)

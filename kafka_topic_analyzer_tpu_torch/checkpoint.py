@@ -27,8 +27,15 @@ each leaf's merge law (`_canonicalize`) — and resumes under any mesh
 shape, spread back as (canonical, identity, ...) rows (`_distribute`).
 An alive-key snapshot keeps the writer's stacked layout and resumes only
 under the writer's mesh: its fingerprint names the mesh, and a mismatch
-names the writer's ``--mesh``.  The reference's one-file-per-process
-layout of a multi-controller scan waits for that mesh.
+names the writer's ``--mesh``.
+
+A scan of several controllers (``--distributed``) writes one file per
+process, ``scan_snapshot.p<pid>of<nproc>.npz``, with that process's data
+rows alone (``[L·S, ...]`` leaves, the bitmap ``[L, W]``; canonical when
+mesh-free) and its partitions' offsets: the ``scope`` argument, ``(pid,
+nproc, local_rows)``.  Data rows fold apart, so each process resumes from
+its own file, and one without a file rescans its rows from zero, which is
+still exact.
 """
 
 from __future__ import annotations
@@ -159,17 +166,20 @@ def _stacked(config: AnalyzerConfig) -> bool:
 
 
 def state_template(
-    config: AnalyzerConfig, stacked: "bool | None" = None
+    config: AnalyzerConfig, stacked: "bool | None" = None,
+    rows: "int | None" = None,
 ) -> "Dict[str, Tuple[tuple, np.dtype]]":
     """Shape and dtype of every state leaf of ``config`` in its backend's
     layout (``stacked``: the mesh layout, by default for any mesh but
     (1, 1)), without building the state: the single-device leaves
     `models.state.state_to_numpy` gives, or their stacked forms
-    (`parallel.sharded.ShardedTorchBackend.get_state`)."""
+    (`parallel.sharded.ShardedTorchBackend.get_state`) over ``rows`` data
+    rows (default: all of the mesh's; one process's under a scope)."""
     if stacked is None:
         stacked = _stacked(config)
     if stacked:
         d, s = tuple(config.mesh_shape)
+        d = d if rows is None else rows
         out = {
             name: ((d * s,) + shape, dtype)
             for name, (shape, dtype) in state_template(config, False).items()
@@ -214,25 +224,30 @@ def _canonicalize(state: Leaves, config: AnalyzerConfig) -> Leaves:
     return state
 
 
-def _distribute(canonical: Leaves, config: AnalyzerConfig) -> Leaves:
-    """A canonical snapshot spread over ``config``'s stacked layout: row 0
-    holds the canonical fold, every other row its leaf's merge identity,
-    so the mesh's finalize reduces to exactly the canonical values, and
-    records folded after the resume land in whichever row their
-    partition now maps to (every fold but the bitmap's is associative and
-    commutative across rows)."""
+def _distribute(canonical: Leaves, config: AnalyzerConfig,
+                rows: "int | None" = None) -> Leaves:
+    """A canonical snapshot spread over ``config``'s stacked layout (of
+    ``rows`` data rows, `state_template`): row 0 holds the canonical fold,
+    every other row its leaf's merge identity, so the mesh's finalize
+    reduces to exactly the canonical values, and records folded after the
+    resume land in whichever row their partition now maps to (every fold
+    but the bitmap's is associative and commutative across rows)."""
     identity = identity_leaves(config)
     out = {}
-    for name, (shape, _) in state_template(config).items():
-        rows = np.broadcast_to(identity[name], shape).copy()
-        rows[0] = canonical[name]
-        out[name] = rows
+    for name, (shape, _) in state_template(config, rows=rows).items():
+        spread = np.broadcast_to(identity[name], shape).copy()
+        spread[0] = canonical[name]
+        out[name] = spread
     return out
 
 
-def _snapshot_path(directory: str) -> str:
-    """The one snapshot file of a single-controller scan."""
-    return os.path.join(directory, SNAPSHOT_NAME)
+def _snapshot_path(directory: str, scope=None) -> str:
+    """The one snapshot file of a single-controller scan, or one process's
+    file under several (``scope``: ``(pid, nproc, local_rows)``)."""
+    if scope is None:
+        return os.path.join(directory, SNAPSHOT_NAME)
+    pid, nproc, _rows = scope
+    return os.path.join(directory, f"scan_snapshot.p{pid}of{nproc}.npz")
 
 
 def save_snapshot(
@@ -243,6 +258,7 @@ def save_snapshot(
     next_offsets: Dict[int, int],
     records_seen: int,
     init_now_s: int,
+    scope=None,
     degraded: "Optional[Dict[int, str]]" = None,
     corrupt: "Optional[list]" = None,
     lease_epoch: "Optional[int]" = None,
@@ -251,6 +267,10 @@ def save_snapshot(
 ) -> str:
     """Atomically write the snapshot of ``state`` (leaf path → host
     array); returns its path.
+
+    ``scope``: None, or ``(pid, nproc, local_rows)`` under several
+    controllers; ``state`` is then that process's rows
+    (`parallel.sharded.ShardedTorchBackend.get_state_local`).
 
     ``degraded``: partition -> reason for partitions the scan dropped.
     Informational only — resume reads ``next_offsets``, which already stop
@@ -275,7 +295,7 @@ def save_snapshot(
     os.makedirs(directory, exist_ok=True)
     if lease_epoch is not None:
         try:
-            prev = snapshot_info(directory)
+            prev = snapshot_info(directory, scope)
         except Exception:
             prev = None  # an unreadable snapshot cannot outrank us
         prev_epoch = int((prev or {}).get("lease_epoch", 0))
@@ -315,7 +335,10 @@ def save_snapshot(
         }
     if lease_epoch is not None:
         meta["lease_epoch"] = int(lease_epoch)
-    path = _snapshot_path(directory)
+    if scope is not None:
+        meta["process"] = [int(scope[0]), int(scope[1])]
+        meta["local_rows"] = [int(r) for r in scope[2]]
+    path = _snapshot_path(directory, scope)
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".npz.tmp")
     os.close(fd)
     try:
@@ -380,6 +403,7 @@ def load_snapshot(
     topic: str,
     config: AnalyzerConfig,
     lease_epoch: "Optional[int]" = None,
+    scope=None,
 ) -> "Optional[Tuple[Leaves, Dict[int, int], int, int]]":
     """Load (state leaves, next_offsets, records_seen, init_now_s), or
     None if no snapshot exists.  An incompatible snapshot (different
@@ -389,8 +413,10 @@ def load_snapshot(
     ``config`` — or, for a mesh-free config under a mesh, the canonical
     single-device ones, spread over the mesh (`_distribute`).
     ``lease_epoch``: a snapshot stamped with a newer epoch was written by
-    a successor, and resuming it raises `StaleLeaseEpochError`."""
-    path = _snapshot_path(directory)
+    a successor, and resuming it raises `StaleLeaseEpochError`.  With a
+    ``scope`` (`save_snapshot`) the file and the state are that process's,
+    and a file of another process layout raises."""
+    path = _snapshot_path(directory, scope)
     if not os.path.exists(path):
         return None
     with np.load(path, allow_pickle=False) as z:
@@ -411,7 +437,19 @@ def load_snapshot(
                 "successor owns the topic).  Re-acquire the lease to get "
                 "a current epoch before resuming"
             )
-        template = state_template(config)
+        rows = None
+        if scope is not None:
+            pid, nproc, rows = scope
+            if meta.get("process") != [pid, nproc] or meta.get(
+                "local_rows"
+            ) != [int(r) for r in rows]:
+                raise ValueError(
+                    f"snapshot at {path} belongs to a different process "
+                    "layout (process/data-row mismatch) — delete it or "
+                    "rerun with the original mesh and process count"
+                )
+            rows = len(rows)
+        template = state_template(config, rows=rows)
         spread = (
             mesh_free_snapshots(config)
             and _stacked(config)
@@ -427,16 +465,17 @@ def load_snapshot(
                 raise ValueError(f"snapshot leaf {key} has shape {arr.shape}")
             state[name] = arr
     if spread:
-        state = _distribute(state, config)
+        state = _distribute(state, config, rows=rows)
     offsets = {int(k): int(v) for k, v in meta["next_offsets"].items()}
     return state, offsets, int(meta["records_seen"]), int(meta["init_now_s"])
 
 
-def snapshot_info(directory: str) -> "Optional[dict]":
+def snapshot_info(directory: str, scope=None) -> "Optional[dict]":
     """Snapshot METADATA (fingerprint, topic, per-partition next offsets,
     records_seen, degraded/corrupt annotations) without loading the state
-    arrays — or None when no snapshot exists."""
-    path = _snapshot_path(directory)
+    arrays — or None when no snapshot exists (``scope``: one process's
+    file, `save_snapshot`)."""
+    path = _snapshot_path(directory, scope)
     if not os.path.exists(path):
         return None
     with np.load(path, allow_pickle=False) as z:
@@ -455,23 +494,23 @@ def history_dir(directory: str) -> str:
     return os.path.join(directory, HISTORY_DIR_NAME)
 
 
-def load_corrupt_spans(directory: str) -> list:
+def load_corrupt_spans(directory: str, scope=None) -> list:
     """The ``corrupt_spans`` metadata of a snapshot, or [] when the
     snapshot (or the list) is absent."""
-    return list((snapshot_info(directory) or {}).get("corrupt_spans", []))
+    return list((snapshot_info(directory, scope) or {}).get("corrupt_spans", []))
 
 
-def load_lost_spans(directory: str) -> list:
+def load_lost_spans(directory: str, scope=None) -> list:
     """The ``lost_spans`` metadata of a snapshot, or [] when the snapshot
     (or the list) is absent."""
-    return list((snapshot_info(directory) or {}).get("lost_spans", []))
+    return list((snapshot_info(directory, scope) or {}).get("lost_spans", []))
 
 
-def load_partition_meta(directory: str) -> "Dict[int, dict]":
+def load_partition_meta(directory: str, scope=None) -> "Dict[int, dict]":
     """The ``partition_meta`` fencing map of a snapshot ({partition:
     {leader_epoch, log_start_offset}}), or {} when the snapshot (or the
     map) is absent."""
-    meta = snapshot_info(directory) or {}
+    meta = snapshot_info(directory, scope) or {}
     return {
         int(k): {
             "leader_epoch": int(v.get("leader_epoch", -1)),

@@ -26,7 +26,7 @@ single-scan paths).
         [--fleet [--fleet-exclude GLOBS] [--fleet-internal] \\
          [--fleet-concurrency N|auto] [--instance-id [ID] \\
           [--lease-ttl S] [--lease-store auto|file|object]]] \\
-        [--mesh DATA[,SPACE]]
+        [--mesh DATA[,SPACE]] [--distributed COORD:PORT,PID,NPROCS]
 
 Prints the same report bytes as the reference CLI for the same inputs
 (apart from the two timing lines), with the reference's DEGRADED, CORRUPT
@@ -67,7 +67,16 @@ over D data rows, each row's batch into S chunks, the shards placed
 round-robin on the visible CUDA devices (``--device cpu``: the host).
 It composes with every source, ``--ingest-workers`` (split over the
 rows), ``--superbatch``, ``--resume``, ``--follow`` and ``-t a,b,c``;
-``--fleet`` refuses it, as the reference does.
+``--fleet`` refuses it, as the reference does.  ``--distributed
+COORD:PORT,PID,NPROCS`` runs one controller per process: every process
+runs the same command with its own PID, joins one gloo process group at
+COORD:PORT, feeds its own block of the mesh's data rows (each resolves
+``--ingest-workers`` against its rows' partitions) and snapshots them to
+a file of its own; the processes agree once per round and merge at
+finalize, process 0 alone prints the report (or ``--json``), and every
+process exits with the scan's status.  The banners of the other
+processes go to stderr.  ``--follow`` and ``--fleet`` refuse it, as the
+reference does.
 
 ``--follow`` runs the scan as a service (`serve.follow.FollowService`):
 after the initial pass it re-polls the watermarks every
@@ -128,6 +137,11 @@ from kafka_topic_analyzer_tpu_torch.io.synthetic import SyntheticSource, Synthet
 from kafka_topic_analyzer_tpu_torch.obs import health as obs_health
 from kafka_topic_analyzer_tpu_torch.obs import history as obs_history
 from kafka_topic_analyzer_tpu_torch.obs import telemetry_session
+from kafka_topic_analyzer_tpu_torch.parallel.mesh import (
+    initialize_distributed,
+    process_index,
+    shutdown_distributed,
+)
 from kafka_topic_analyzer_tpu_torch.report import (
     attach_issue_blocks,
     attach_scan_digests,
@@ -383,6 +397,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "space; the shards go round-robin onto the visible "
                         "CUDA devices (or the host under --device cpu), so "
                         "one card can hold them all")
+    p.add_argument("--distributed", metavar="COORD:PORT,PID,NPROCS",
+                   help="Multi-controller mode: join the gloo process group "
+                        "at the given coordinator address as process PID "
+                        "of NPROCS before building the mesh; each process "
+                        "feeds its own block of the --mesh data rows, and "
+                        "process 0 prints the report"),
     p.add_argument("--fleet", action="store_true",
                    help="Cluster-wide topic discovery and scan: ask the "
                         "cluster for all topics (one all-topics Metadata "
@@ -645,7 +665,8 @@ def resolve_ingest_workers(args, num_partitions: int) -> "int | IngestConfig":
     """--ingest-workers → the concrete worker count after 'auto' and the
     partition-count clamp; raises ValueError on a bad spec.  Under a mesh
     (``--mesh`` other than 1) the parsed `config.IngestConfig` comes back
-    unresolved: the engine splits the budget over the data rows."""
+    unresolved: the engine resolves it per controller, against the
+    partitions of the data rows it feeds, and splits it over them."""
     cfg = IngestConfig.parse(args.ingest_workers)
     if parse_mesh(args.mesh) != (1, 1):
         return cfg
@@ -794,6 +815,7 @@ def print_stats(result: ScanResult, diagnosis) -> None:
             superbatch_k=result.superbatch_k,
             dispatch_depth=result.dispatch_depth,
             wire=result.wire,
+            ingest_workers_per_controller=result.ingest_workers_per_controller,
         )
     )
     sys.stderr.write(render_bottleneck(diagnosis))
@@ -877,7 +899,9 @@ def scan_session(args, open_source, start, banner: str, scan):
             return 1, None, None
         if rc is not None:
             return rc, None, None
-        banner_out = sys.stderr if args.json else sys.stdout
+        banner_out = (
+            sys.stderr if args.json or not_report_process(args) else sys.stdout
+        )
         print(banner, file=banner_out)
         print("Starting message consumption...", file=banner_out)
         with maybe_torch_trace(args.profile_dir, backend.device):
@@ -911,6 +935,12 @@ def scan_session(args, open_source, start, banner: str, scan):
             source.close()  # flush segment dumps, release broker connections
 
 
+def not_report_process(args) -> bool:
+    """Whether this process prints no report: under ``--distributed``
+    every process scans and merges, and process 0 alone reports."""
+    return bool(args.distributed) and process_index() != 0
+
+
 def batch_scan(args):
     """The ``scan`` of `scan_session` for a batch scan."""
     def scan(source, backend, start_at, ingest_workers):
@@ -930,7 +960,14 @@ def run(args) -> "tuple[int, ScanResult | None]":
     warning blocks go to stdout, errors to stderr.  Returns the exit
     status and the scan's result (None when no scan ran).  ``-t a,b,c``
     goes to `run_multi_topic`; ``--fleet`` and ``-t a,b --follow`` go to
-    `run_fleet`, whose result is a `fleet.service.FleetResult`."""
+    `run_fleet`, whose result is a `fleet.service.FleetResult`.  Under
+    ``--distributed`` the process group is joined first."""
+    if args.distributed:
+        try:
+            initialize_distributed(args.distributed)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1, None
     if args.fleet:
         return run_fleet(args)
     # Kafka topic names cannot contain commas: an explicit topic list
@@ -990,6 +1027,9 @@ def run(args) -> "tuple[int, ScanResult | None]":
     )
     if rc is not None:
         return rc, None
+    if not_report_process(args):
+        # One report, from process 0; the exit status is agreed.
+        return scan_issue_exit(result), result
     if args.json:
         doc = build_json_doc(
             args.topic,
@@ -1100,6 +1140,8 @@ def run_multi_topic(args, topics: "list[str]") -> "tuple[int, ScanResult | None]
     )
     if rc is not None:
         return rc, None
+    if not_report_process(args):
+        return scan_issue_exit(result), result
 
     union = result.metrics
     # Per-topic projections, computed once for both output formats.
@@ -1117,8 +1159,7 @@ def run_multi_topic(args, topics: "list[str]") -> "tuple[int, ScanResult | None]
             "topics": {},
             "duration_secs": result.duration_secs,
             "ingest_workers": result.ingest_workers,
-            # One controller: the reference's per-process list has one entry.
-            "ingest_workers_per_controller": [result.ingest_workers],
+            "ingest_workers_per_controller": result.ingest_workers_per_controller,
             "superbatch_k": result.superbatch_k,
             "dispatch_depth": result.dispatch_depth,
         }
@@ -1267,6 +1308,12 @@ def fleet_plan(args):
             "--fleet does not support --mesh yet (fleet scans run "
             "per-topic single-device backends); drop --mesh, or scan "
             "one topic solo to use a device mesh"
+        )
+    if args.distributed:
+        raise ValueError(
+            "--fleet does not support --distributed (per-poll "
+            "admission would need fleet-wide lockstep agreement); "
+            "run the fleet single-controller"
         )
     if args.dump_segments:
         raise ValueError(
@@ -1567,3 +1614,5 @@ def main(argv: "list[str] | None" = None) -> int:
         # A bad --trace-json/--events-jsonl path or a busy --metrics-port.
         print(f"error: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutdown_distributed()

@@ -1,5 +1,4 @@
-"""The scan drive loop (port of the reference's ``engine.run_scan``, with
-one controller).
+"""The scan drive loop (port of the reference's ``engine.run_scan``).
 
 One full earliest→latest pass: fix the watermarks, stream every batch
 through the backend in per-partition offset order, finalize once.
@@ -45,6 +44,21 @@ ingest workers (`parallel.ingest.allocate_row_workers`) — and every round
 carries the next item of each row (None once the row has drained) into
 ``backend.update_shards``, or K rounds into
 ``update_shards_superbatch``.
+
+Under several controllers (``--distributed``: `parallel.mesh`) each
+process feeds only the rows it owns (``backend.local_rows``), and the
+processes keep the same rounds: every round ends in one agreement
+(``backend.global_any``: does any process still have data?), so each
+reaches the same superbatch flushes and stops at the same round.  A
+failing process's pending superbatch tail is not flushed, as in the
+reference, where that flush would be a collective its peers never join:
+its failure snapshot falls back to the last committed boundary.  After
+the stream, one agreement per scan issue (degraded, corrupt, lost, in
+that order) names an issue another process booked
+(`_issues_elsewhere`), finalize merges every process's rows, and
+``backend.gather_telemetry`` gives every process's registry snapshot:
+the merged ``telemetry`` and ``ingest_workers_per_controller``.
+Snapshots are per process (``backend.snapshot_scope``).
 
 Partition ids need not be dense: `PartitionIndex` maps the source's ids to
 state rows and the report prints the true ids.
@@ -160,8 +174,15 @@ class ScanResult:
     #: Registry snapshot taken at scan end (obs.registry format): what
     #: ``--stats`` renders and the scan doctor attributes from.
     telemetry: "Optional[dict]" = None
-    #: Ingest streams the scan ran (``--ingest-workers``, resolved).
+    #: Ingest streams the scan ran (``--ingest-workers``, resolved) in this
+    #: process.
     ingest_workers: int = 1
+    #: Ingest streams of every controller, in process order (one entry
+    #: with one controller): each resolves ``--ingest-workers`` against
+    #: its own rows' partitions.
+    ingest_workers_per_controller: "list[int]" = dataclasses.field(
+        default_factory=list
+    )
     #: Batches folded per dispatch (``--superbatch``, resolved; 1 for the
     #: oracle).
     superbatch_k: int = 1
@@ -367,6 +388,15 @@ def run_scan(
     if start_at:
         tracker.next_offsets.update(start_at)
     seq = initial_seq
+    # Under several controllers a process feeds only its rows' partitions,
+    # and its lag gauges name only those: the gathered registries then
+    # hold each partition once.
+    feed_rows = backend.local_rows if backend.sharded else []
+    multiproc = backend.sharded and len(feed_rows) < backend.config.data_shards
+    fed_partitions = list(end_offsets)
+    if multiproc:
+        parts = assign_partitions(pindex.ids, backend.config.data_shards)
+        fed_partitions = [p for r in feed_rows for p in parts[r]]
 
     def maybe_heartbeat() -> None:
         """Rate-limited telemetry refresh: per-partition lag/ETA gauges +
@@ -378,7 +408,8 @@ def run_scan(
         # snapshot's count, which elapsed knows nothing about.
         rate = (seq - seq_base) / elapsed if elapsed > 0 else 0.0
         lag_total = 0
-        for p, end in end_offsets.items():
+        for p in fed_partitions:
+            end = end_offsets[p]
             lag = max(0, end - tracker.next_offsets.get(p, start_offsets[p]))
             lag_total += lag
             obs_metrics.PARTITION_LAG.labels(partition=p).set(lag)
@@ -405,13 +436,18 @@ def run_scan(
             "backend %s does not support snapshots; continuing without",
             type(backend).__name__,
         )
+    # Several controllers snapshot per process: its own rows, its own file.
+    scope = backend.snapshot_scope if multiproc else None
+    get_state = backend.get_state_local if multiproc else backend.get_state
+    set_state = backend.set_state_local if multiproc else backend.set_state
     if resume and can_snapshot:
         snap = checkpoint.load_snapshot(
-            snapshot_dir, topic, backend.config, lease_epoch=lease_epoch
+            snapshot_dir, topic, backend.config, lease_epoch=lease_epoch,
+            scope=scope,
         )
         if snap is not None:
             state, offsets, records_seen, init_now_s = snap
-            backend.set_state(state)
+            set_state(state)
             backend.init_now_s = init_now_s
             tracker.next_offsets.update(offsets)
             start_at = offsets
@@ -420,13 +456,13 @@ def run_scan(
                 # Spans a previous run already skipped or quarantined:
                 # re-walking one (a skip leaves no records for the tracker
                 # to advance past) neither re-counts nor re-quarantines it.
-                spans = checkpoint.load_corrupt_spans(snapshot_dir)
+                spans = checkpoint.load_corrupt_spans(snapshot_dir, scope=scope)
                 if spans:
                     source.seed_corrupt_spans(spans)
             if hasattr(source, "seed_lost_spans"):
                 # Loss a previous run already booked: the logical scan's
                 # report names it without booking it again.
-                lspans = checkpoint.load_lost_spans(snapshot_dir)
+                lspans = checkpoint.load_lost_spans(snapshot_dir, scope=scope)
                 if lspans:
                     source.seed_lost_spans(lspans)
                 if hasattr(source, "validate_resume"):
@@ -436,7 +472,8 @@ def run_scan(
                     # epoch that moved since the save runs the divergence
                     # check.
                     source.validate_resume(
-                        offsets, checkpoint.load_partition_meta(snapshot_dir)
+                        offsets,
+                        checkpoint.load_partition_meta(snapshot_dir, scope=scope),
                     )
                     tracker.next_offsets.update(offsets)
     seq_base = seq  # resumed records predate t0; the rate excludes them
@@ -463,10 +500,11 @@ def run_scan(
                 snapshot_dir,
                 topic,
                 backend.config,
-                backend.get_state(),
+                get_state(),
                 tracker.next_offsets if offsets is None else offsets,
                 seq if records_seen is None else records_seen,
                 backend.init_now_s,
+                scope=scope,
                 degraded=_booked(source, "degraded_partitions") or None,
                 corrupt=_spans(source, "corruption_spans"),
                 lost=_spans(source, "lost_spans"),
@@ -587,6 +625,7 @@ def run_scan(
         used_workers, streams = _row_streams(
             source, backend, pindex, ingest_cfg, batch_size, prefetch_depth,
             start_at, stage_shard, make_sink if fused else None,
+            label_prefix=f"c{backend.controller_index}." if multiproc else "",
         )
     else:
         used_workers = ingest_cfg.resolve(len(pindex))
@@ -627,16 +666,17 @@ def run_scan(
     try:
         if backend.sharded:
             d = backend.config.data_shards
-            live = [True] * d
+            live = [True] * len(feed_rows)
             while True:
-                # One round: the next item of every data row that has one.
+                # One round: the next item of every fed data row that has
+                # one (None for the others).
                 shards: list = [None] * d
                 nvalid = nbytes = 0
                 with profile.stage("ingest"):
-                    for r in range(d):
-                        item = next(streams[r], None) if live[r] else None
+                    for j, r in enumerate(feed_rows):
+                        item = next(streams[j], None) if live[j] else None
                         if item is None:
-                            live[r] = False
+                            live[j] = False
                             continue
                         item, shards[r] = item
                         nvalid += item.num_valid
@@ -645,7 +685,12 @@ def run_scan(
                             tracker.observe_packed(item)
                         else:
                             tracker.observe(item)
-                if nvalid == 0:
+                have_data = nvalid > 0
+                if multiproc:
+                    # Every process keeps the same rounds: it goes on while
+                    # any process has data (an all-None round folds nothing).
+                    have_data = backend.global_any(have_data)
+                if not have_data:
                     break
                 fold(shards, nvalid, nbytes, backend.update_shards)
                 spinner.set_message(f"[Sq: {seq} | T: {topic} | shards: {d}]")
@@ -683,12 +728,14 @@ def run_scan(
         flush()  # the partial superbatch tail at stream end
     except BaseException:
         # A failure or an interrupt mid-scan: fold the pending superbatch
-        # tail, retire the in-flight folds, then save what was folded so
-        # a rerun with --resume continues here instead of rescanning from
+        # tail (not under several controllers, whose rounds are agreed),
+        # retire the in-flight folds, then save what was folded so a
+        # rerun with --resume continues here instead of rescanning from
         # earliest.  Best effort — the original failure is what must
         # surface.
         try:
-            flush()
+            if not multiproc:
+                flush()
         except Exception:
             log.exception(
                 "pending superbatch tail could not be flushed; the "
@@ -719,6 +766,11 @@ def run_scan(
     degraded = _booked(source, "degraded_partitions")
     corrupt = _booked(source, "corruption_stats")
     lost = _booked(source, "loss_stats")
+    if multiproc:
+        # Process 0 renders the report and every process picks the exit
+        # code: whether the scan met an issue is agreed, one collective per
+        # issue, in this order on every process.
+        degraded, corrupt, lost = _issues_elsewhere(backend, degraded, corrupt, lost)
     if degraded or corrupt or lost or final_snapshot:
         # Degraded partitions carry an unscanned tail, corrupt ones
         # skipped spans the tracker never saw, lost ones booked spans a
@@ -738,16 +790,23 @@ def run_scan(
     if emit_lifecycle:
         heartbeat.force()
     maybe_heartbeat()
-    obs_metrics.DEGRADED_PARTITIONS.set(len(degraded))
+    # Locally booked issues only: another process's (key -1) is its own
+    # to book, and its gauge merges by sum.
+    local_degraded = sum(1 for p in degraded if p >= 0)
+    obs_metrics.DEGRADED_PARTITIONS.set(local_degraded)
     if emit_lifecycle:
         obs_events.emit(
             "scan_end",
             topic=topic,
             records=seq,
             duration_secs=duration_secs,
-            degraded=len(degraded),
-            corrupt_frames=sum(d.get("frames", 0) for d in corrupt.values()),
-            lost_records=sum(d.get("records", 0) for d in lost.values()),
+            degraded=local_degraded,
+            corrupt_frames=sum(
+                d.get("frames", 0) for p, d in corrupt.items() if p >= 0
+            ),
+            lost_records=sum(
+                d.get("records", 0) for p, d in lost.items() if p >= 0
+            ),
         )
     if wire is not None:
         wire.bytes_total = int(obs_metrics.WIRE_BYTES.value - wire_bytes0)
@@ -761,6 +820,8 @@ def run_scan(
     for sink in sinks:
         for reason, n in sink.fallbacks.items():
             fallbacks[reason] = fallbacks.get(reason, 0) + n
+    # A collective under several controllers: every process reaches it.
+    snaps = backend.gather_telemetry()
     return ScanResult(
         metrics=metrics,
         duration_secs=duration_secs,
@@ -772,8 +833,14 @@ def run_scan(
         degraded_partitions=degraded,
         corrupt_partitions=corrupt,
         lost_partitions=lost,
-        telemetry=merge_snapshots(backend.gather_telemetry()),
+        telemetry=merge_snapshots(snaps),
         ingest_workers=used_workers,
+        # Each process's snapshot carries its resolved worker gauge (read
+        # only then: a fleet's concurrent topics share the gauge).
+        ingest_workers_per_controller=[
+            max(1, int(_metric_value(s, "kta_ingest_resolved_workers")))
+            for s in snaps
+        ] if multiproc else [used_workers],
         superbatch_k=super_k,
         dispatch_depth=backend.dispatch_depth,
         wire=wire,
@@ -782,17 +849,21 @@ def run_scan(
 
 
 def _row_streams(source, backend, pindex, ingest_cfg, batch_size: int,
-                 prefetch_depth: int, start_at, stage, make_sink):
+                 prefetch_depth: int, start_at, stage, make_sink,
+                 label_prefix: str = ""):
     """``(workers, streams)`` of a sharded scan: one pipeline per data row
-    over its partitions (`parallel.mesh.assign_partitions`), each a staged
-    prefetch stream, or a fan-in of the row's share of the worker budget
-    (`parallel.ingest.allocate_row_workers`; the rows' workers numbered
-    apart).  A row without partitions gets an empty stream."""
-    d = backend.config.data_shards
-    parts = assign_partitions(pindex.ids, d)
+    this process feeds (``backend.local_rows``) over its partitions
+    (`parallel.mesh.assign_partitions`), each a staged prefetch stream, or
+    a fan-in of the row's share of the worker budget
+    (`parallel.ingest.allocate_row_workers`, resolved against the fed
+    rows' partitions; the rows' workers numbered apart, their labels
+    after ``label_prefix``).  A row without partitions gets an empty
+    stream."""
+    parts = assign_partitions(pindex.ids, backend.config.data_shards)
+    rows = backend.local_rows
+    fed = sum(len(parts[r]) for r in rows)
     row_workers = allocate_row_workers(
-        ingest_cfg.resolve(max(1, len(pindex))),
-        {r: len(parts[r]) for r in range(d)},
+        ingest_cfg.resolve(max(1, fed)), {r: len(parts[r]) for r in rows},
     )
     used = max(1, sum(row_workers.values()))
     obs_metrics.INGEST_RESOLVED_WORKERS.set(used)
@@ -803,7 +874,7 @@ def _row_streams(source, backend, pindex, ingest_cfg, batch_size: int,
         weights = weigher() if weigher is not None else None
     streams = []
     wid_base = 0
-    for r in range(d):
+    for r in rows:
         n = row_workers.get(r, 0)
         if not parts[r]:
             streams.append(iter(()))
@@ -812,6 +883,7 @@ def _row_streams(source, backend, pindex, ingest_cfg, batch_size: int,
                 source, batch_size, shard_partitions(parts[r], n, weights=weights),
                 start_at=start_at, stage=stage, depth=max(prefetch_depth, 1),
                 sink_factory=make_sink, wid_base=wid_base,
+                label_prefix=label_prefix,
             ))
         else:
             streams.append(prefetch(
@@ -826,6 +898,33 @@ def _row_streams(source, backend, pindex, ingest_cfg, batch_size: int,
             ))
         wid_base += n
     return used, streams
+
+
+def _issues_elsewhere(backend, degraded: dict, corrupt: dict, lost: dict):
+    """Each scan issue another process booked and this one did not, as the
+    reference's one-entry stand-in (key -1, "... on another process (see
+    its log)"); the agreement runs on every process, flag set or not."""
+    if backend.global_any(bool(degraded)) and not degraded:
+        degraded = {-1: "partition(s) degraded on another process (see its log)"}
+    if backend.global_any(bool(corrupt)) and not corrupt:
+        corrupt = {-1: {
+            "frames": 0, "records": 0, "bytes": 0, "quarantined": 0,
+            "kinds": {}, "spans": [],
+            "note": "corrupt frame(s) on another process (see its log)",
+        }}
+    if backend.global_any(bool(lost)) and not lost:
+        lost = {-1: {
+            "records": 0, "ranges": 0, "reasons": {}, "authoritative": True,
+            "spans": [], "note": "data loss on another process (see its log)",
+        }}
+    return degraded, corrupt, lost
+
+
+def _metric_value(snapshot: dict, name: str) -> float:
+    """The first sample of metric ``name`` in a registry snapshot (0 when
+    it has none)."""
+    samples = (snapshot.get(name) or {}).get("samples") or []
+    return samples[0]["value"] if samples else 0
 
 
 def _booked(source: RecordSource, method: str) -> dict:

@@ -597,7 +597,7 @@ def diagnose_scan(result) -> Diagnosis:
         rec.sample_once()
     return diagnose(
         result.telemetry,
-        controllers=1,  # the port runs one controller
+        controllers=max(1, len(result.ingest_workers_per_controller)),
         dispatch_depth=result.dispatch_depth,
         flight=rec.series() if rec is not None else None,
     )

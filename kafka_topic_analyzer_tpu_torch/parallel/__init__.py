@@ -1,6 +1,6 @@
-"""Ingest staging, partition-sharded parallel ingest and the
-single-controller device mesh (port of the reference's ``parallel``
-package).  ``make_mesh`` and ``ShardedTorchBackend`` load on first use,
+"""Ingest staging, partition-sharded parallel ingest and the device
+mesh, with one controller or several (port of the reference's
+``parallel`` package).  ``make_mesh`` and ``ShardedTorchBackend`` load on first use,
 so that a scan which never builds a mesh (the numpy oracle's) imports no
 torch backend."""
 

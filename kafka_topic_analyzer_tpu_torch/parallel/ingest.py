@@ -148,7 +148,7 @@ class _IngestWorker(threading.Thread):
 
     def __init__(
         self,
-        wid: "int | str",
+        wid: str,
         source: RecordSource,
         batch_size: int,
         group: List[int],
@@ -268,23 +268,26 @@ class ParallelIngest:
         depth: int = 2,
         sink_factory: "Optional[Callable[[], object]]" = None,
         wid_base: int = 0,
+        label_prefix: str = "",
     ):
         """``wid_base`` numbers the workers from there on: a mesh scan
         runs one fan-in per data row (engine.py), and the worker labels of
-        its pools must stay disjoint."""
+        its pools must stay disjoint; ``label_prefix`` (the controller,
+        ``"c1."``, under several) keeps them apart across processes."""
         if not groups:
             raise ValueError("parallel ingest needs at least one group")
         self._cancel = threading.Event()
         self.workers = [
             _IngestWorker(
-                wid_base + w, source, batch_size, g, start_at, stage, depth,
+                f"{label_prefix}{wid_base + w}", source, batch_size, g,
+                start_at, stage, depth,
                 self._cancel,
                 sink=sink_factory() if sink_factory is not None else None,
             )
             for w, g in enumerate(groups)
         ]
         self._depth_gauge = obs_metrics.INGEST_QUEUE_DEPTH.labels(
-            pool=str(wid_base)
+            pool=f"{label_prefix}{wid_base}"
         )
         #: Rotation position and per-worker liveness for the merge.
         self._rr = 0

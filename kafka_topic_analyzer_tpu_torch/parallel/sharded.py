@@ -1,5 +1,5 @@
 """ShardedTorchBackend: the streaming reduction over a (data, space) mesh
-(port of the reference's ``parallel/sharded.py``, single-controller).
+(port of the reference's ``parallel/sharded.py``).
 
 The record stream is sharded over both mesh axes, as in the reference:
 partitions go to data rows (`parallel.mesh.assign_partitions`), and each
@@ -43,6 +43,18 @@ dispatch), the pair tables, and one completion token per dispatch.  The
 reference pads a partial superbatch tail with empty rounds; the port
 folds only the rounds it has (`backends.gpu`, ROADMAP's standing
 divergences).
+
+Several controllers (``--distributed``, `parallel.mesh.
+initialize_distributed`): each process holds, stages and folds only its
+own data rows (`local_rows`, a contiguous block of L rows: ``D`` above
+reads L), and ignores the round entries of the others' rows.  A fold
+launches no collective.  The processes meet at the collectives the engine
+runs in the same order on every process, all of them over the gloo group
+on host tensors: the per-round `global_any` agreement, finalize's merge
+(each process first reduces its own rows, then one all-reduce per leaf
+by its merge law, the bitmap's words by bitwise OR) and
+`gather_telemetry`.  Snapshots are per process (`snapshot_scope`,
+`get_state_local`).
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kafka_topic_analyzer_tpu_torch._torch_support import i32_to_u32, u32_to_i32
 from kafka_topic_analyzer_tpu_torch.backends.base import (
@@ -68,6 +81,7 @@ from kafka_topic_analyzer_tpu_torch.backends.step import (
 )
 from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig, DispatchConfig
 from kafka_topic_analyzer_tpu_torch.models.state import (
+    MERGE_LAW,
     AliveBitmapState,
     AnalyzerState,
     DDSketchState,
@@ -76,6 +90,7 @@ from kafka_topic_analyzer_tpu_torch.models.state import (
     merge_rows,
 )
 from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
+from kafka_topic_analyzer_tpu_torch.obs.registry import default_registry
 from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_num_words, bitmap_scratch
 from kafka_topic_analyzer_tpu_torch.packing import (
     FusedPackSink,
@@ -94,10 +109,28 @@ from kafka_topic_analyzer_tpu_torch.parallel.mesh import (
     Mesh,
     local_data_rows,
     make_mesh,
+    process_count,
+    process_index,
 )
 from kafka_topic_analyzer_tpu_torch.records import RecordBatch
 from kafka_topic_analyzer_tpu_torch.results import TopicMetrics
 from kafka_topic_analyzer_tpu_torch.utils.timefmt import utc_now_seconds
+
+
+#: The collective of each `models.state.MERGE_LAW` fold.
+_REDUCE_OP = {
+    np.add: dist.ReduceOp.SUM,
+    np.minimum: dist.ReduceOp.MIN,
+    np.maximum: dist.ReduceOp.MAX,
+}
+
+
+def _all_reduce(arr: np.ndarray, op) -> np.ndarray:
+    """``arr`` reduced by ``op`` over every process of the group (a host
+    tensor on the gloo group; the same result on every process)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr).reshape(-1))
+    dist.all_reduce(t, op=op)
+    return t.numpy().reshape(arr.shape)
 
 
 def _align16(n: int) -> int:
@@ -209,7 +242,10 @@ class ShardedTorchBackend(MetricBackend):
     """The analyzer over a (data, space) mesh of torch devices: feed it one
     round at a time through `update_shards` (one batch per data row, each
     row's partitions in offset order), read the results once at the end.
-    `update` splits a mixed batch by partition → row (``partition % D``)."""
+    `update` splits a mixed batch by partition → row (``partition % D``).
+    Under several controllers every process must call `update_shards`,
+    `global_any`, `finalize` and `gather_telemetry` for the same rounds
+    and in the same order (the engine does)."""
 
     packs_rows = True
     snapshots = True
@@ -237,9 +273,11 @@ class ShardedTorchBackend(MetricBackend):
         if mesh.shape != (d, s):
             raise ValueError("mesh shape does not match config.mesh_shape")
         self.mesh = mesh
-        #: The data rows this process feeds: all of them (one controller).
+        #: The data rows this process feeds and holds: all of them with one
+        #: controller, else its contiguous block (`parallel.mesh`).
         self.local_rows = local_data_rows(mesh)
-        self.device = mesh.device_of(0, 0)
+        self._multiprocess = process_count() > 1
+        self.device = mesh.device_of(self.local_rows[0], 0)
         self.use_native = use_native
         self.native_requested = (
             use_native if native_requested is None else native_requested
@@ -251,13 +289,15 @@ class ShardedTorchBackend(MetricBackend):
             dataclasses.replace(config, batch_size=config.chunk_size)
             if s > 1 else config
         )
-        #: Shard index (d·S + s) → (device, row in that device's stack).
+        #: Local shard index j·S + s (j-th local row) → (device, row in
+        #: that device's stack).
         self._where: "list[tuple[torch.device, int]]" = []
         counts: "dict[torch.device, int]" = {}
-        for i in range(d * s):
-            dev = mesh.device_of(i // s, i % s)
-            self._where.append((dev, counts.get(dev, 0)))
-            counts[dev] = counts.get(dev, 0) + 1
+        for r in self.local_rows:
+            for c in range(s):
+                dev = mesh.device_of(r, c)
+                self._where.append((dev, counts.get(dev, 0)))
+                counts[dev] = counts.get(dev, 0) + 1
         self.devices = list(counts)
         self._compact = config.compact_alive
         self.dispatch_config = dispatch if dispatch is not None else DispatchConfig()
@@ -282,17 +322,19 @@ class ShardedTorchBackend(MetricBackend):
                     if pair_lists else None
                 )
         self._shards = [_row_view(self._stacks[dev], r) for dev, r in self._where]
-        # The pinned slot of one dispatch: K rounds of [D, S] chunks, each
-        # on a 16-byte stride (typed views need no copy), then D tables.
+        # The pinned slot of one dispatch: K rounds of [L, S] chunks (L
+        # local rows), each on a 16-byte stride (typed views need no copy),
+        # then L tables.
+        rows = len(self.local_rows)
         self._chunk_nbytes = packed_nbytes(self.chunk_config, config.chunk_size)
         self._stride = _align16(self._chunk_nbytes)
-        self._table_off = _align16(k * d * s * self._stride)
+        self._table_off = _align16(k * rows * s * self._stride)
         self._table_nbytes = (
             pair_table_nbytes(config, self._pair_cap) if self._compact else 0
         )
         self._table_stride = _align16(self._table_nbytes)
         self._stager = SuperbatchStager(
-            self._table_off + d * self._table_stride,
+            self._table_off + rows * self._table_stride,
             self.dispatch_depth,
             pin=any(dev.type == "cuda" for dev in self.devices),
             book=k > 1,
@@ -348,7 +390,9 @@ class ShardedTorchBackend(MetricBackend):
 
     def update_shards(self, batches: list) -> None:
         """Fold one round; ``batches[d]`` feeds data row ``d``: a
-        `PackedShard`, a decoded batch or None (a drained row)."""
+        `PackedShard`, a decoded batch or None (a drained row).  Entries
+        of rows another process owns are ignored (that process folds
+        them in its own call)."""
         self._dispatch([batches])
 
     def update_shards_superbatch(self, rounds: list) -> None:
@@ -365,13 +409,15 @@ class ShardedTorchBackend(MetricBackend):
         for batches in rounds:
             if len(batches) != d:
                 raise ValueError(f"expected {d} shard batches, got {len(batches)}")
+        rows = self.local_rows
         self._queue.throttle()  # before staging: bounds the stager's ring
         slot = self._stager.next_slot()
         view = self._stager.views[slot]
-        chunks = view[: self._table_off].reshape(-1, d, s, self._stride)
+        chunks = view[: self._table_off].reshape(-1, len(rows), s, self._stride)
         for i, batches in enumerate(rounds):
-            for r, b in enumerate(batches):
-                out = chunks[i, r, :, : self._chunk_nbytes]
+            for j, r in enumerate(rows):
+                b = batches[r]
+                out = chunks[i, j, :, : self._chunk_nbytes]
                 if isinstance(b, PackedShard):
                     np.copyto(out, b.chunks)
                 elif b is None:
@@ -380,22 +426,22 @@ class ShardedTorchBackend(MetricBackend):
                     np.copyto(out, self._empty)
                 else:
                     self._pack(b, out=out)
-            obs_metrics.WIRE_BYTES.inc(d * s * self._chunk_nbytes)
+            obs_metrics.WIRE_BYTES.inc(len(rows) * s * self._chunk_nbytes)
         if self._compact:
-            for r in range(d):
+            for j, r in enumerate(rows):
                 lists = [
                     b.pairs if isinstance(b, PackedShard) else self._row_pairs(b)
                     for b in (batches[r] for batches in rounds)
                     if b is not None
                 ]
-                off = self._table_off + r * self._table_stride
+                off = self._table_off + j * self._table_stride
                 _, raw, emitted = pack_pair_table(
                     lists, cfg, self._pair_cap, use_native=self.use_native,
                     out=view[off : off + self._table_nbytes],
                 )
                 obs_metrics.ALIVE_PAIRS_RAW.inc(raw)
                 obs_metrics.ALIVE_PAIRS_EMITTED.inc(emitted)
-            obs_metrics.WIRE_BYTES.inc(d * self._table_nbytes)
+            obs_metrics.WIRE_BYTES.inc(len(rows) * self._table_nbytes)
         host = self._stager.hosts[slot]
         copies = {}
         for dev in self.devices:
@@ -409,41 +455,43 @@ class ShardedTorchBackend(MetricBackend):
         self.dispatches += len(rounds)
 
     def _fold(self, copies: dict, n_rounds: int) -> None:
-        """Every round's shards, in round order, then the rows' pair
-        tables: each shard on its device, from that device's copy."""
+        """Every round's local shards, in round order, then the local
+        rows' pair tables: each shard on its device, from that device's
+        copy."""
         cfg, ccfg = self.config, self.chunk_config
-        d, s = cfg.data_shards, cfg.space_shards
+        s = cfg.space_shards
+        rows = len(self.local_rows)
         ordered = cfg.count_alive_keys and not self._compact and s > 1
         for k in range(n_rounds):
-            for r in range(d):
+            for j in range(rows):
                 unpacked = {}
 
                 def chunk(dev, c):
                     if (dev, c) not in unpacked:
                         row = copies[dev][
-                            ((k * d + r) * s + c) * self._stride :
+                            ((k * rows + j) * s + c) * self._stride :
                         ][: self._chunk_nbytes]
                         unpacked[dev, c] = unpack_device(row, ccfg)
                     return unpacked[dev, c]
 
                 for c in range(s):
-                    dev, _ = self._where[r * s + c]
+                    dev, _ = self._where[j * s + c]
                     with _on(dev):
                         analyzer_step(
-                            self._shards[r * s + c], chunk(dev, c), ccfg,
+                            self._shards[j * s + c], chunk(dev, c), ccfg,
                             scratch=self._scratch[dev], space_index=c,
                             space_chunks=(
                                 [chunk(dev, o) for o in range(s)] if ordered else None
                             ),
                         )
         if self._compact:
-            for r in range(d):
-                off = self._table_off + r * self._table_stride
+            for j in range(rows):
+                off = self._table_off + j * self._table_stride
                 for c in range(s):
-                    dev, _ = self._where[r * s + c]
+                    dev, _ = self._where[j * s + c]
                     with _on(dev):
                         apply_pair_table(
-                            self._shards[r * s + c],
+                            self._shards[j * s + c],
                             unpack_pair_table_device(
                                 copies[dev][off : off + self._table_nbytes],
                                 cfg, self._pair_cap,
@@ -465,13 +513,54 @@ class ShardedTorchBackend(MetricBackend):
         return events[0] if len(events) == 1 else _Tokens(events)
 
     def drain_dispatch(self) -> None:
+        """Retire the in-flight folds: a local wait, never a collective
+        (the engine's failure path calls it on one process alone)."""
         self._queue.drain()
+
+    # -- lockstep (several controllers) ---------------------------------------
+
+    def global_any(self, flag: bool) -> bool:
+        """Whether any process's ``flag`` is set: the per-round agreement
+        (does anyone still have data?) and the scan-issue flags.  A
+        collective under several controllers, with the same result on
+        every process."""
+        if not self._multiprocess:
+            return bool(flag)
+        t = torch.tensor([int(bool(flag))], dtype=torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
+
+    def gather_telemetry(self) -> "list[dict]":
+        """Every process's registry snapshot, in process order, the same
+        list on every process (a collective under several controllers)."""
+        snap = default_registry().snapshot()
+        if not self._multiprocess:
+            return [snap]
+        docs: list = [None] * process_count()
+        dist.all_gather_object(docs, {"pid": process_index(), "telemetry": snap})
+        return [doc["telemetry"] for doc in sorted(docs, key=lambda d: d["pid"])]
+
+    @property
+    def controller_index(self) -> int:
+        """This process's index (0 with one controller): the engine
+        prefixes its ingest workers' labels with it, so that the gathered
+        registries' worker samples stay apart."""
+        return process_index()
+
+    @property
+    def snapshot_scope(self):
+        """None with one controller; ``(pid, nproc, local_rows)`` under
+        several, and the engine then snapshots per process through
+        `get_state_local`/`set_state_local` (`checkpoint._snapshot_path`)."""
+        if not self._multiprocess:
+            return None
+        return process_index(), process_count(), list(self.local_rows)
 
     # -- snapshots -----------------------------------------------------------
 
     def _host_leaves(self, paths=None) -> "dict[str, np.ndarray]":
-        """Leaf path → the stacked host array, rows in shard order (the
-        bitmap as ``[D·S, W/S]`` int32 patterns)."""
+        """Leaf path → the stacked host array of the local shards, rows in
+        shard order (the bitmap as ``[L·S, W/S]`` int32 patterns)."""
         out = {}
         for dev, stack in self._stacks.items():
             rows = [i for i, (where, _) in enumerate(self._where) if where == dev]
@@ -490,18 +579,39 @@ class ShardedTorchBackend(MetricBackend):
     def get_state(self) -> "dict[str, np.ndarray]":
         """Retire the in-flight folds and copy the stacked state to the
         host in the reference's layout: ``[D·S, ...]`` record-parallel
-        leaves, the bitmap ``[D, W]`` (uint32)."""
+        leaves, the bitmap ``[D, W]`` (uint32).  One controller only: the
+        state of several spans their processes."""
+        self._single_controller("get_state")
+        return self.get_state_local()
+
+    def set_state(self, leaves: "dict[str, np.ndarray]") -> None:
+        """Copy stacked leaves (`get_state`'s form) into the state's own
+        tensors; one controller only."""
+        self._single_controller("set_state")
+        self.set_state_local(leaves)
+
+    def _single_controller(self, name: str) -> None:
+        if self._multiprocess:
+            raise ValueError(
+                f"{name} spans every process's rows; under several "
+                f"controllers use {name}_local"
+            )
+
+    def get_state_local(self) -> "dict[str, np.ndarray]":
+        """`get_state` of this process's L data rows: ``[L·S, ...]``
+        record-parallel leaves, the bitmap ``[L, W]`` (the reference's
+        process-local layout)."""
         self._queue.drain()
         out = self._host_leaves()
         if "alive.words" in out:
             out["alive.words"] = i32_to_u32(
-                out["alive.words"].reshape(self.config.data_shards, -1)
+                out["alive.words"].reshape(len(self.local_rows), -1)
             )
         return out
 
-    def set_state(self, leaves: "dict[str, np.ndarray]") -> None:
-        """Copy stacked leaves (`get_state`'s form) into the state's own
-        tensors."""
+    def set_state_local(self, leaves: "dict[str, np.ndarray]") -> None:
+        """Copy this process's stacked leaves (`get_state_local`'s form)
+        into the state's own tensors."""
         want = _leaves(next(iter(self._stacks.values())))
         if set(leaves) != set(want):
             raise ValueError(
@@ -527,14 +637,15 @@ class ShardedTorchBackend(MetricBackend):
     # -- finalize ------------------------------------------------------------
 
     def _alive_words(self) -> np.ndarray:
-        """The bitmap's D data rows ORed on the device, one space shard's
-        slot range at a time, then copied to the host (uint32[W])."""
-        d, s = self.config.data_shards, self.config.space_shards
+        """The bitmap's local data rows ORed on the device, one space
+        shard's slot range at a time, then copied to the host, and ORed
+        across the processes there (uint32[W])."""
+        s = self.config.space_shards
         parts = []
         for c in range(s):
             acc = None
-            for r in range(d):
-                dev, row = self._where[r * s + c]
+            for j in range(len(self.local_rows)):
+                dev, row = self._where[j * s + c]
                 words = self._stacks[dev].alive.words[row]
                 if acc is None:
                     acc_dev = dev
@@ -546,17 +657,25 @@ class ShardedTorchBackend(MetricBackend):
             with _on(acc_dev):
                 parts.append(acc.to("cpu").numpy())
             del acc
-        return i32_to_u32(np.concatenate(parts))
+        words = np.concatenate(parts)
+        if self._multiprocess:
+            words = _all_reduce(words, dist.ReduceOp.BOR)
+        return i32_to_u32(words)
 
     def finalize(self) -> TopicMetrics:
-        """Retire the in-flight folds, reduce the D·S rows of every leaf
+        """Retire the in-flight folds, reduce the local rows of every leaf
         (`models.state.merge_rows`: sums, min/max, HLL max, DDSketch sum)
-        and the bitmap's D rows (OR, on the device), and derive the
-        metrics on the host."""
+        and the bitmap's local rows (OR, on the device), then across the
+        processes (one all-reduce per leaf by its merge law, in leaf
+        order, the bitmap last), and derive the metrics on the host: the
+        same metrics on every process."""
         self._queue.drain()
         small = [p for p in _leaves(next(iter(self._stacks.values())))
                  if p != "alive.words"]
         leaves = merge_rows(self._host_leaves(small))
+        if self._multiprocess:
+            leaves = {path: _all_reduce(arr, _REDUCE_OP[MERGE_LAW[path]])
+                      for path, arr in sorted(leaves.items())}
         if self.config.count_alive_keys:
             leaves["alive.words"] = self._alive_words()
         return metrics_from_state(leaves, self.config, self.init_now_s)

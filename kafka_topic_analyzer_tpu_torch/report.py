@@ -370,10 +370,13 @@ def render_telemetry_stats(
     superbatch_k: int = 1,
     dispatch_depth: int = 1,
     wire=None,
+    ingest_workers_per_controller: "Optional[List[int]]" = None,
 ) -> str:
     """``--stats`` telemetry section from a registry snapshot: the
     reference's counter digest, with the lines of the features the port
-    has (the multi-controller split comes with the mesh)."""
+    has; under several controllers (``ingest_workers_per_controller``
+    longer than one) the ingest line gives the fleet's workers and each
+    controller's."""
     from kafka_topic_analyzer_tpu_torch.results import (
         DispatchStats,
         FollowStats,
@@ -489,10 +492,19 @@ def render_telemetry_stats(
             line += f" — fallbacks: {per}"
         lines.append(line)
     ingest = IngestStats.from_telemetry(snapshot)
-    line = f"  ingest: {ingest_workers} worker(s)"
+    per_ctrl = ingest_workers_per_controller or []
+    if len(per_ctrl) > 1:
+        line = (
+            f"  ingest: {sum(per_ctrl)} worker(s) across "
+            f"{len(per_ctrl)} controller(s) "
+            f"({'+'.join(str(v) for v in per_ctrl)})"
+        )
+    else:
+        line = f"  ingest: {ingest_workers} worker(s)"
     if ingest.workers:
         per = ", ".join(
-            f"w{w} {n:,}" + (
+            # Controller-prefixed labels ("c0.3") carry their own letter.
+            (f"w{w}" if w.isdigit() else w) + f" {n:,}" + (
                 f" (stalled {ingest.stalls[w]:.1f}s)"
                 if ingest.stalls.get(w, 0) >= 0.05 else ""
             )
@@ -571,8 +583,7 @@ def build_json_doc(
     doc["topic"] = topic
     doc["duration_secs"] = result.duration_secs
     doc["ingest_workers"] = result.ingest_workers
-    # One controller: the reference's per-process list has one entry.
-    doc["ingest_workers_per_controller"] = [result.ingest_workers]
+    doc["ingest_workers_per_controller"] = result.ingest_workers_per_controller
     doc["superbatch_k"] = result.superbatch_k
     doc["dispatch_depth"] = result.dispatch_depth
     doc["telemetry"] = result.telemetry
