@@ -1,5 +1,9 @@
 """CPU-exact oracle backend (vectorized numpy; port of the reference's
-``backends/cpu.py``, unchanged: ``--backend cpu``).  It folds decoded
+``backends/cpu.py`` with its semantics: ``--backend cpu``).  Faster on a
+2^20 batch: one scatter-add per channel, exact distinct keys kept only
+when a distinct count is reported (in one set unless per partition),
+the size histogram in sorted numpy arrays rather than a dict filled in a
+Python loop, and each bitmap slot's last writer found by one sort.  It folds decoded
 `RecordBatch`es only — no packed rows, no fused sink — and imports
 nothing of torch, so an oracle scan never touches a device.
 
@@ -14,8 +18,6 @@ implementation is what makes parity tests meaningful.
 """
 
 from __future__ import annotations
-
-from typing import Dict
 
 import numpy as np
 
@@ -77,10 +79,17 @@ class CpuExactBackend(MetricBackend):
         # partition (referee for the HLL sketch and its per-partition rows;
         # collision probability ~2^-64).  Global distinct = |union| — the
         # same key CAN appear in several partitions in arbitrary streams.
-        self._seen_keys: "list[set[int]]" = [set() for _ in range(p)]
+        # Kept only when a distinct count is reported, in one set when no
+        # per-partition count is.
+        self._track_keys = config.enable_hll or config.distinct_keys_per_partition
+        self._seen_keys: "list[set[int]]" = [
+            set() for _ in range(p if config.distinct_keys_per_partition else 1)
+        ]
         # Exact message sizes histogram referee for quantiles, keyed by
-        # (partition << 32 | size) so per-partition summaries are exact too.
-        self._size_counts: Dict[int, int] = {}
+        # (partition << 32 | size) so per-partition summaries are exact too:
+        # the sorted distinct keys and their counts.
+        self._size_keys = np.zeros(0, dtype=np.int64)
+        self._size_counts = np.zeros(0, dtype=np.int64)
 
     # -- update --------------------------------------------------------------
 
@@ -96,20 +105,10 @@ class CpuExactBackend(MetricBackend):
         k_bytes = np.where(kn, batch.key_len, 0).astype(np.int64)
         v_bytes = np.where(vn, batch.value_len, 0).astype(np.int64)
 
-        p = self.config.num_partitions
-        contrib = np.stack(
-            [
-                valid.astype(np.int64),
-                tomb.astype(np.int64),
-                vn.astype(np.int64),
-                knull.astype(np.int64),
-                kn.astype(np.int64),
-                k_bytes,
-                v_bytes,
-            ],
-            axis=1,
-        )
-        np.add.at(self.per_partition, part[valid], contrib[valid])
+        # One 1-D scatter-add per channel (a [B, 7] one is ~3x slower).
+        pv = part[valid]
+        for c, col in enumerate((valid, tomb, vn, knull, kn, k_bytes, v_bytes)):
+            np.add.at(self.per_partition[:, c], pv, col[valid].astype(np.int64))
 
         self.overall_count += int(valid.sum())
         self.overall_size += int(k_bytes.sum() + v_bytes.sum())
@@ -124,9 +123,12 @@ class CpuExactBackend(MetricBackend):
 
         keyed = valid & ~batch.key_null
         if keyed.any():
-            for pid in np.unique(part[keyed]):
-                sel = keyed & (part == pid)
-                self._seen_keys[int(pid)].update(batch.key_hash64[sel].tolist())
+            if self._track_keys and len(self._seen_keys) == 1:
+                self._seen_keys[0].update(batch.key_hash64[keyed].tolist())
+            elif self._track_keys:
+                for pid in np.unique(part[keyed]):
+                    sel = keyed & (part == pid)
+                    self._seen_keys[int(pid)].update(batch.key_hash64[sel].tolist())
             if self._alive_words is not None:
                 self._update_alive_bitmap(
                     batch.key_hash32[keyed], vn[keyed]
@@ -134,8 +136,11 @@ class CpuExactBackend(MetricBackend):
         if self.config.enable_quantiles:
             keys = (part[sized].astype(np.int64) << 32) | msg_size[sized]
             uniq, counts = np.unique(keys, return_counts=True)
-            for k, c in zip(uniq.tolist(), counts.tolist()):
-                self._size_counts[k] = self._size_counts.get(k, 0) + c
+            merged = np.union1d(self._size_keys, uniq)
+            total = np.zeros(len(merged), dtype=np.int64)
+            total[np.searchsorted(merged, self._size_keys)] = self._size_counts
+            total[np.searchsorted(merged, uniq)] += counts
+            self._size_keys, self._size_counts = merged, total
 
     def _update_alive_bitmap(self, h32: np.ndarray, alive: np.ndarray) -> None:
         """Last-writer-wins per slot within the batch, then packed-bit RMW.
@@ -145,12 +150,15 @@ class CpuExactBackend(MetricBackend):
         """
         bits = self.config.alive_bitmap_bits
         slot = (h32.astype(np.uint64) & np.uint64((1 << bits) - 1)).astype(np.int64)
-        # Last occurrence per slot: np.unique returns first occurrences, so
-        # scan the reversed array.
-        rev_slot = slot[::-1]
-        rev_alive = alive[::-1]
-        uniq, first_rev = np.unique(rev_slot, return_index=True)
-        final_alive = rev_alive[first_rev]
+        # Last occurrence per slot: sort (slot << 32 | record index), both
+        # below 2^32, and keep each slot's last entry, its largest index.
+        keyed = np.sort((slot.astype(np.uint64) << np.uint64(32))
+                        | np.arange(len(slot), dtype=np.uint64))
+        sorted_slot = (keyed >> np.uint64(32)).astype(np.int64)
+        last = np.ones(len(slot), dtype=bool)
+        last[:-1] = sorted_slot[1:] != sorted_slot[:-1]
+        uniq = sorted_slot[last]
+        final_alive = alive[(keyed[last] & np.uint64(0xFFFFFFFF)).astype(np.int64)]
         word = (uniq >> 5).astype(np.int64)
         bit = (np.uint32(1) << (uniq & 31).astype(np.uint32)).astype(np.uint32)
         set_w = word[final_alive]
@@ -176,11 +184,8 @@ class CpuExactBackend(MetricBackend):
             alive_keys = int(np.bitwise_count(self._alive_words).sum())
         quantiles = None
         quantiles_pp = None
-        if self.config.enable_quantiles and self._size_counts:
-            keys = np.array(sorted(self._size_counts), dtype=np.int64)
-            kcounts = np.array(
-                [self._size_counts[int(k)] for k in keys], dtype=np.int64
-            )
+        if self.config.enable_quantiles and len(self._size_keys):
+            keys, kcounts = self._size_keys, self._size_counts
             sizes_all = keys & 0xFFFFFFFF
             quantiles = _exact_quantiles(sizes_all, kcounts)
             if self.config.quantiles_per_partition:
@@ -205,10 +210,9 @@ class CpuExactBackend(MetricBackend):
             # Report the exact distinct counts only when distinct-key
             # counting was requested, so cpu/tpu reports stay line-compatible.
             distinct_keys_exact=(
-                len(set().union(*self._seen_keys))
-                if self.config.enable_hll
-                else None
-            ),
+                len(set().union(*self._seen_keys)) if len(self._seen_keys) > 1
+                else len(self._seen_keys[0])
+            ) if self.config.enable_hll else None,
             distinct_keys_exact_per_partition=(
                 [len(s) for s in self._seen_keys]
                 if self.config.distinct_keys_per_partition

@@ -82,6 +82,26 @@ class RecordBatch:
     def empty(cls, n: int = 0) -> "RecordBatch":
         return cls(**{name: np.zeros(n, dtype=dt) for name, dt in cls.FIELDS})
 
+    def pad_to(self, size: int) -> "RecordBatch":
+        """Pad with zeroed invalid records up to ``size`` (the same batch
+        when already there); ``offsets``, when set, pads with -1."""
+        n = len(self)
+        if n == size:
+            return self
+        if n > size:
+            raise ValueError(f"batch of {n} records cannot pad to {size}")
+        out = {}
+        for name, dt in self.FIELDS:
+            arr = np.zeros(size, dtype=dt)
+            arr[:n] = getattr(self, name)
+            out[name] = arr
+        padded = RecordBatch(**out)
+        if self.offsets is not None:
+            offs = np.full(size, -1, dtype=np.int64)
+            offs[:n] = self.offsets
+            padded.offsets = offs
+        return padded
+
     def _map(self, fn) -> "RecordBatch":
         """A batch of ``fn(column)`` for every column, offsets included."""
         out = RecordBatch(**{name: fn(getattr(self, name)) for name, _ in self.FIELDS})

@@ -1,11 +1,16 @@
 """A fast loopback Kafka broker for end-to-end runs of the wire scan, and
 the runner that scans it (port of the reference's ``tools/bench_e2e.py``:
-`build_templates`, `TemplateBroker`, `BrokerProcess` and ``run`` with the
-flags of the ingest-workers runner: an uncompressed v5 template topic on
-the torch backend).
+`build_templates`, `TemplateBroker`, `BrokerProcess` and ``run`` with
+every flag of the reference's runner, plus ``--device``).
 
     python -m kafka_topic_analyzer_tpu_torch.tools.bench_e2e \
         --records 16000000 --brokers 4 --ingest-workers auto
+
+``run`` times one scan of the template topic through the real engine
+(`engine.run_scan`, the same path as ``--source kafka``) and prints one
+JSON line with records/s and ``vs_baseline``, its ratio to the
+reference's published 590,221 msgs/s, which also times the whole consume
+pipeline.
 
 The serving side must be far faster than the client under test, so the
 broker never encodes per record at fetch time.  It pre-encodes a small set
@@ -46,6 +51,8 @@ from typing import List, Optional
 import numpy as np
 
 from kafka_topic_analyzer_tpu_torch.io import kafka_codec as kc
+
+BASELINE_MSGS_PER_SEC = 590_221.0
 
 
 def build_templates(
@@ -480,8 +487,9 @@ class BrokerProcess:
 
 def run(argv: "list[str] | None" = None) -> int:
     """Scan a `BrokerProcess` topic end to end through the engine and
-    print one JSON line: records/s, the resolved ingest workers, the
-    scan doctor's verdict with ``--flight-record``."""
+    print one JSON line: records/s, the resolved dispatch and ingest
+    workers, the scan doctor's verdict with ``--flight-record`` or
+    ``--service-obs``."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--partitions", type=int, default=16)
     ap.add_argument("--records", type=int, default=50_000_000,
@@ -489,42 +497,97 @@ def run(argv: "list[str] | None" = None) -> int:
     ap.add_argument("--batch-size", type=int, default=1 << 20)
     ap.add_argument("--records-per-batch", type=int, default=4096,
                     help="records per wire RecordBatch (template size)")
+    ap.add_argument("--templates", type=int, default=16,
+                    help="distinct templates (keys = templates x "
+                         "records-per-batch)")
     ap.add_argument("--features", default="counters",
-                    help="comma set: counters,alive,hll,quantiles")
+                    help="comma set: counters,alive,hll,quantiles "
+                         "(default matches the reference's headline scan)")
+    ap.add_argument("--backend", default="gpu", choices=["cpu", "tpu", "gpu"],
+                    help="the CLI's backends: cpu is the numpy exact oracle, "
+                         "gpu (or its reference spelling tpu) the torch "
+                         "backend on --device")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the torch backend runs")
+    ap.add_argument("--vmin", type=int, default=100)
+    ap.add_argument("--vmax", type=int, default=420)
+    ap.add_argument("--compression", default="none",
+                    choices=["none", "gzip", "snappy", "lz4", "zstd"])
+    ap.add_argument("--tombstone-every", type=int, default=0,
+                    help="make every Nth template record a tombstone "
+                         "(0 = none)")
     ap.add_argument("--brokers", type=int, default=1,
                     help="advertised broker nodes (partition p led by "
                          "p %% N) — exercises leader-parallel fetching")
     ap.add_argument("--alive-bits", type=int, default=26)
+    ap.add_argument("--wire-format", choices=["v4", "v5"], default="v5",
+                    help="packed wire format: v5 combiner rows or v4 "
+                         "per-record columns")
+    ap.add_argument("--alive-compaction", choices=["auto", "off"],
+                    default="auto",
+                    help="'auto' = one bounded per-dispatch pair table, "
+                         "'off' = per-row pair sections")
+    ap.add_argument("--superbatch", default="1", metavar="K|auto",
+                    help="fold K packed batches per dispatch (torch "
+                         "backend; 'auto' targets 2^20 records per "
+                         "dispatch)")
+    ap.add_argument("--dispatch-depth", type=int, default=2,
+                    help="dispatches allowed in flight while the device "
+                         "folds (default 2)")
     ap.add_argument("--ingest-workers", default="1", metavar="N|auto",
                     help="partition-sharded parallel ingest workers for "
                          "the scan (engine --ingest-workers; composes "
                          "with --mesh: one fan-in per data row)")
     ap.add_argument("--mesh", default="1", metavar="DATA[,SPACE]",
-                    help="device mesh of the sharded backend (shards "
-                         "round-robin on the visible CUDA devices, or the "
-                         "host under --device cpu): the mesh x workers "
-                         "sweep")
+                    help="device mesh of the sharded backend (torch "
+                         "backend; shards round-robin on the visible CUDA "
+                         "devices, or the host under --device cpu): the "
+                         "mesh x workers sweep")
     ap.add_argument("--flight-record", action="store_true",
                     help="run the pipeline flight recorder during the "
                          "scan and print the doctor's BOTTLENECK verdict")
+    ap.add_argument("--service-obs", metavar="DIR",
+                    help="run the whole service-observability stack during "
+                         "the scan: the flight recorder, the telemetry "
+                         "history persisted under DIR and the alert "
+                         "engine: its overhead against a plain run")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 
     from kafka_topic_analyzer_tpu_torch.io import native
-    from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
-    from kafka_topic_analyzer_tpu_torch.cli import parse_mesh, resolve_ingest_workers
+    from kafka_topic_analyzer_tpu_torch.backends.base import make_backend
+    from kafka_topic_analyzer_tpu_torch.cli import (
+        parse_mesh,
+        resolve_dispatch,
+        resolve_ingest_workers,
+    )
     from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
     from kafka_topic_analyzer_tpu_torch.engine import run_scan
     from kafka_topic_analyzer_tpu_torch.io.kafka_wire import KafkaWireSource
     from kafka_topic_analyzer_tpu_torch.obs import flight as obs_flight
+    from kafka_topic_analyzer_tpu_torch.obs import health as obs_health
+    from kafka_topic_analyzer_tpu_torch.obs import history as obs_history
     from kafka_topic_analyzer_tpu_torch.obs.doctor import diagnose_scan
 
     feats = {f.strip() for f in args.features.split(",") if f.strip()}
     R = args.records_per_batch
     windows = max(1, args.records // (args.partitions * R))
     total = windows * R * args.partitions
+    comp = {
+        "none": kc.COMPRESSION_NONE,
+        "gzip": kc.COMPRESSION_GZIP,
+        "snappy": kc.COMPRESSION_SNAPPY,
+        "lz4": kc.COMPRESSION_LZ4,
+        "zstd": kc.COMPRESSION_ZSTD,
+    }[args.compression]
+    try:
+        mesh_shape = parse_mesh(args.mesh)
+        if mesh_shape != (1, 1) and args.backend == "cpu":
+            raise ValueError("--mesh requires --backend tpu")
+        dispatch = resolve_dispatch(args)
+        ingest_workers = resolve_ingest_workers(args, args.partitions)
+    except ValueError as e:
+        ap.error(str(e))
     config = AnalyzerConfig(
         num_partitions=args.partitions,
         batch_size=args.batch_size,
@@ -532,34 +595,39 @@ def run(argv: "list[str] | None" = None) -> int:
         alive_bitmap_bits=args.alive_bits,
         enable_hll="hll" in feats,
         enable_quantiles="quantiles" in feats,
-        mesh_shape=parse_mesh(args.mesh),
+        mesh_shape=mesh_shape,
+        wire_format={"v4": 4, "v5": 5}[args.wire_format],
+        alive_compaction=args.alive_compaction,
     )
-    try:
-        ingest_workers = resolve_ingest_workers(args, args.partitions)
-    except ValueError as e:
-        ap.error(str(e))
     use_native = native.native_available()
-    if config.mesh_shape != (1, 1):
+    if mesh_shape != (1, 1):
         from kafka_topic_analyzer_tpu_torch.parallel.sharded import (
             ShardedTorchBackend,
         )
 
         backend = ShardedTorchBackend(config, device=args.device,
-                                      use_native=use_native)
+                                      use_native=use_native, dispatch=dispatch)
     else:
-        backend = TorchBackend(config, device=args.device, use_native=use_native)
+        backend = make_backend(args.backend, config, device=args.device,
+                               use_native=use_native, dispatch=dispatch)
     with BrokerProcess(
         topic="bench-e2e", partitions=args.partitions, windows=windows,
-        R=R, n_templates=16, vmin=100, vmax=420,
-        compression=kc.COMPRESSION_NONE, tombstone_every=0,
+        R=R, n_templates=args.templates, vmin=args.vmin, vmax=args.vmax,
+        compression=comp, tombstone_every=args.tombstone_every,
         brokers=args.brokers,
     ) as port:
         source = KafkaWireSource(
             f"127.0.0.1:{port}", "bench-e2e", use_native_hashing=use_native
         )
         recorder = None
-        if args.flight_record:
+        store = None
+        if args.flight_record or args.service_obs:
             recorder = obs_flight.FlightRecorder()
+            if args.service_obs:
+                store = obs_history.HistoryStore(args.service_obs)
+                recorder.attach_history(store)
+                obs_history.set_active(store)
+                obs_health.set_active(obs_health.HealthEngine())
             obs_flight.set_active(recorder)
             recorder.start()
         try:
@@ -573,25 +641,42 @@ def run(argv: "list[str] | None" = None) -> int:
             # Read inside the recorder's life, as --stats reads it.
             diagnosis = diagnose_scan(result) if recorder is not None else None
         finally:
+            # A failing scan must not leak a live sampler as the
+            # process-wide active recorder, nor an open history store.
             if recorder is not None:
                 recorder.stop()
                 obs_flight.set_active(None)
+            if store is not None:
+                store.close()
+                obs_history.set_active(None)
+                obs_health.set_active(None)
             source.close()
     got = int(result.metrics.overall_count)
     if got != total:
         print(f"bench-e2e: scanned {got} records, expected {total}",
               file=sys.stderr)
         return 1
+    value = total / elapsed
+    if not args.quiet:
+        print(
+            f"# e2e: {total} records, {args.partitions} partitions, "
+            f"{elapsed:.2f}s, backend={args.backend}, "
+            f"features={sorted(feats)}, compression={args.compression}",
+            file=sys.stderr,
+        )
     doc = {
         "metric": "e2e_msgs_per_sec",
-        "value": round(total / elapsed),
+        "value": round(value),
         "unit": "msgs/s",
+        "vs_baseline": round(value / BASELINE_MSGS_PER_SEC, 2),
         "records": total,
         "seconds": elapsed,
-        "device": str(backend.device),
+        "device": "cpu" if backend.device is None else str(backend.device),
+        "superbatch_k": result.superbatch_k,
         "dispatch_depth": result.dispatch_depth,
         "ingest_workers": result.ingest_workers,
-        "mesh": list(config.mesh_shape),
+        "ingest_workers_per_controller": result.ingest_workers_per_controller,
+        "mesh": list(mesh_shape),
         "batch_size": args.batch_size,
         "brokers": args.brokers,
     }
@@ -603,6 +688,9 @@ def run(argv: "list[str] | None" = None) -> int:
         doc["flight"] = {
             "verdict": diagnosis.verdict,
             "stages": {k: round(v, 4) for k, v in diagnosis.stages.items()},
+            "window_share": {
+                k: round(v, 4) for k, v in diagnosis.window_share.items()
+            },
         }
     print(json.dumps(doc))
     return 0
