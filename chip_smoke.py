@@ -101,9 +101,9 @@ Phases, in order; any failure exits non-zero:
   around ``cli.run``, each scan must book 62 ``kta_scan_batches_total``
   and launch its format's kernel 62 times, and its events must open and
   close the scan;
-- telemetry cost: the 16M-record Kafka v5 scan with the doctor's flags
-  and without them, in turns (on, off, on, off), records/s of each, each
-  report held against the scan phase's;
+- telemetry cost: the 16M-record Kafka v5 scan without the doctor's
+  flags, right after the doctor's v5 run with them: records/s of both,
+  the report held against the scan phase's;
 - profiler: the 16M-record segment-file v5 and v4 scans with
   ``--profile-dir``: the ``torch.profiler`` trace's launches and device
   time of each kernel (its ``__global__`` name), and the share of the wall
@@ -213,7 +213,7 @@ Phases, in order; any failure exits non-zero:
   verdicts, and from a ``--profile-dir`` run the streams that ran the
   kernel, the device busy share and the time two or more streams were
   busy at once.  Then the v4 fleet at 8 windows (``counters_update``); a
-  fleet follow (head at 16 windows, moved 3 times by 2, the rollup and
+  fleet follow (head at 16 windows, moved twice by 2, the rollup and
   ``/report.json?topic=orders.3`` scraped); the same with
   ``--snapshot-dir``, SIGTERM after the first advance (one checkpoint per
   topic subdirectory) and a ``--resume`` restart whose documents must
@@ -225,6 +225,28 @@ Phases, in order; any failure exits non-zero:
   and the other must take its topics over after ``--lease-ttl``, book one
   ``kta_fleet_failovers_total`` each and, SIGTERMed, print documents
   equal to solo scans;
+- conformance: the golden topic (3 records: a live one, a tombstone, an
+  unkeyed one), laid out byte by byte from the Kafka protocol spec and
+  the compression formats by this file's own writers (neither package's
+  encoder), served by a canned loopback ``GoldenBroker`` (ApiVersions v0
+  after the KIP-511 downgrade, Metadata v1, ListOffsets v1, Fetch v4).
+  The CLI on the card (no ``--device``) under each of the five codecs and
+  each of v5, v4 and ``--alive-compaction off``: every report must carry
+  the cells derived by hand from the reference tool's metric semantics
+  and equal the ``--device cpu`` run's (timing lines aside), and launch
+  its format's kernel exactly once.  Then the grand integration: a gzip
+  template topic from a 2-leader ``BrokerProcess`` (5 partitions x 100
+  windows of 4,000 records: 2M records, values 20-320 B, one template
+  record in ten a tombstone) scanned with ``--mesh 2,2 -c
+  --distinct-keys-per-partition --quantiles-per-partition`` at batch
+  2^17 and the 2^32-slot bitmap, in v5 and v4: every exact line equal to
+  numpy's from the templates, the alive keys to the numpy replay under
+  the mesh's rule, one launch per round and shard; then each scan with a
+  snapshot after every round, killed when each data row's stream has
+  folded 2 rows (two snapshots land, then the failure path's) and resumed
+  by a fresh source and backend: the resumed report must equal the
+  uninterrupted one.  Prints records/s, launches and finalize seconds
+  beside the card's name and power limit;
 - bench: the port's benchmark tools (``kafka_topic_analyzer_tpu_torch/
   tools/``).  ``tunnel_probe`` and ``bench_hw`` at their defaults, as
   child processes: every stage must report ok (none skipped); their JSON
@@ -232,14 +254,14 @@ Phases, in order; any failure exits non-zero:
   pack, stream, resident, counters (v5), pallas (v4), ``v4_vs_v5``, big)
   is printed.  Then ``tools.bench.main`` in this process for each
   BASELINE config 1-5 in wire v5 and config 3 in v4 with ``--pallas``, at
-  batch 2^20, ``--batches 8 --steps 32 --accuracy --accuracy-seeds 1``:
+  batch 2^20, ``--batches 8 --steps 8 --accuracy --accuracy-seeds 1``:
   the launch counters are zeroed before each run and read after it; its
   format's kernel must launch once per fold its flags call for (the warmup,
   the timed steps, the resident loop's first and timed steps, the
   accuracy seed's batches) and the other never; the result must name
   ``platform: "gpu"`` and the card, carry the breakdown (no
   ``breakdown_error``) and keep its sketch errors within DESIGN.md §7's
-  budgets.  Then ``bench_all --configs 1`` as a child process (config 1
+  budgets.  Then ``bench_all --configs 1 --steps 8`` as a child process (config 1
   and ``bench_e2e`` over 49,938,432 template records), neither child an
   error; ``bench_ingest --records 2000000 --repeat 1 --streams 2`` and
   ``--skip-drain --workers 4``, whose record counts must equal what they
@@ -257,7 +279,8 @@ for ``counters_merge`` the chain's ``chain_ms``; ``launches`` counts the
 16M-record Kafka scan of the kernel's format, the slice's main path, and
 ``launches_by_path`` every full-size scan, the resumed and the N-worker
 scans, the follow services' initial and tail passes, the resumed follow,
-the fan-ins, the fleet runs and each distributed process among them (the
+the fan-ins, the fleet runs, the golden and grand conformance scans and
+each distributed process among them (the
 distributed children report theirs; the lease instances are child
 processes, whose launches this process cannot count) and each bench run),
 and as its last line
@@ -267,14 +290,18 @@ and as its last line
 from __future__ import annotations
 
 import contextlib
+import gzip
 import io
 import json
 import math
 import os
 import shutil
+import socket
 import statistics
+import struct
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1133,18 +1160,12 @@ def kafka_timings(source, config, dense_of) -> "tuple[str, object]":
 TEMPLATE_COLUMNS: dict = {}
 
 
-def template_expectations(np, spec: dict) -> dict:
-    """What a scan of a `tools.bench_e2e` template topic must report,
-    computed with numpy from the templates' records (decoded by the
-    codec's Python decoder, not the native one the scan runs): each
-    partition's counters, time and size extremes, and the alive keys of
-    a last-writer-wins replay of one partition's records over the 2^32
-    slots of the keys' fnv32.  Every partition holds the same records
-    (window ``w`` is template ``w % n_templates``), so each key's last
-    write is the same in every partition and the count does not depend
-    on the order in which fetches of different partitions arrive.  A
-    ``salt`` in ``spec`` salts the templates' keys as the broker's extra
-    topics do."""
+def template_partition(np, spec: dict) -> dict:
+    """One partition's records of a `tools.bench_e2e` template topic as
+    numpy columns, in offset order (every partition holds the same ones:
+    window ``w`` is template ``w % n_templates``), decoded by the codec's
+    Python decoder, not the native one the scan runs.  A ``salt`` in
+    ``spec`` salts the templates' keys as the broker's extra topics do."""
     from kafka_topic_analyzer_tpu_torch.io import kafka_codec as kc
     from kafka_topic_analyzer_tpu_torch.ops.fnv import fnv1a32_ref_batch
     from kafka_topic_analyzer_tpu_torch.tools.bench_e2e import build_templates
@@ -1172,7 +1193,18 @@ def template_expectations(np, spec: dict) -> dict:
                 slot=fnv1a32_ref_batch(padded, lengths),
             ))
     window = [cols[w % len(cols)] for w in range(spec["windows"])]
-    cat = {k: np.concatenate([c[k] for c in window]) for k in window[0]}
+    return {k: np.concatenate([c[k] for c in window]) for k in window[0]}
+
+
+def template_expectations(np, spec: dict) -> dict:
+    """What a scan of a template topic must report, computed with numpy
+    from `template_partition`: each partition's counters, time and size
+    extremes, and the alive keys of a last-writer-wins replay of one
+    partition's records over the 2^32 slots of the keys' fnv32.  Every
+    partition holds the same records, so each key's last write is the
+    same in every partition and the count does not depend on the order in
+    which fetches of different partitions arrive."""
+    cat = template_partition(np, spec)
     alive = ~cat["tombstone"]
     size = (cat["key_len"] + cat["value_len"])[alive]
     _, last = np.unique(cat["slot"][::-1], return_index=True)
@@ -1518,22 +1550,18 @@ def phase_doctor(np, cli, kernels, label: str, argv, kernel: str, want_report: s
     return {"verdict": d.verdict, "rate": run["rate"]}
 
 
-def phase_telemetry_cost(np, cli, kernels, argv, want_report: str, want) -> None:
-    """The full-size Kafka v5 scan with the doctor's telemetry and
-    without, in turns (on, off, on, off): the records/s of each run, and
-    each run's report held against the scan phase's."""
-    rates = {True: [], False: []}
-    for i, on in enumerate((True, False, True, False)):
-        run = session_run(cli, kernels, argv, f"cost-{i}", on)
-        check_same_scan(np, f"telemetry cost run {i + 1}", run["result"], want_report,
-                        want)
-        rates[on].append(run["rate"])
-        print(f"telemetry cost: run {i + 1}, telemetry {'on' if on else 'off'}: "
-              f"{run['result'].records} records in {run['wall']:.3f} s = "
-              f"{run['rate']:.1f} records/s")
-    on, off = statistics.mean(rates[True]), statistics.mean(rates[False])
-    print(f"telemetry cost: mean on {on:.1f} records/s, off {off:.1f} records/s, "
-          f"on/off {on / off:.4f}")
+def phase_telemetry_cost(np, cli, kernels, argv, want_report: str, want,
+                         on: float) -> None:
+    """The full-size Kafka v5 scan without the doctor's telemetry, right
+    after the doctor's run of the same flags with it (records/s ``on``):
+    its records/s beside ``on``, and its report held against the scan
+    phase's."""
+    run = session_run(cli, kernels, argv, "cost-off", False)
+    check_same_scan(np, "telemetry cost off", run["result"], want_report, want)
+    off = run["rate"]
+    print(f"telemetry cost: telemetry off {run['result'].records} records in "
+          f"{run['wall']:.3f} s = {off:.1f} records/s; on (the doctor's run just "
+          f"before) {on:.1f} records/s; on/off {on / off:.4f}")
 
 
 def phase_profiler(cli, kernels, label: str, argv, kernel: str) -> None:
@@ -1925,11 +1953,9 @@ def superbatch_runs(np, cli, kernels, label: str, argv, kernel: str, specs,
     1-worker scan's; at n workers every line but the alive keys, which
     must equal ``alive_of(n)``, or for a template topic ``want``), the
     format's kernel must launch once per row (62 at one worker) and the
-    other never.  Each K = 4 run is followed by a K = 1 run of the same
-    flags (held to the same report), so the two are timed in turns on one
-    card; prints records/s and the doctor's dispatch share of both,
-    beside the workers phase's K = 1 run (``k1``, earlier in the call).
-    With
+    other never.  Prints records/s and the doctor's dispatch share beside
+    the workers phase's K = 1 run of the same flags (``k1``, earlier in
+    the call).  With
     ``json_doc`` the first run also prints ``--json``, which
     `check_json_doc` holds against its report.  Returns launches and
     records/s by worker count."""
@@ -1963,30 +1989,20 @@ def superbatch_runs(np, cli, kernels, label: str, argv, kernel: str, specs,
                 or any(v for name, v in launches.items() if name != kernel):
             fail(f"superbatch {label} {spec}: {n} workers launched {launches}")
         dispatches = metric_total(result.telemetry, "kta_stager_slots_total")
-        adjacent = session_run(cli, kernels, argv + ["--ingest-workers", spec],
-                               f"superbatch-k1-{label.replace(' ', '-')}-{spec}", True)
-        if rendered(adjacent["result"]) != got or adjacent["result"].superbatch_k != 1:
-            fail(f"superbatch {label} {spec}: the adjacent K = 1 run's report differs")
-        d1 = adjacent["diagnosis"]
         base = k1.get(n, {})
         print(f"superbatch {label} {spec} ({n}): K=4 depth 2, {result.records} records in "
-              f"{run['wall']:.3f} s = {run['rate']:.1f} records/s (adjacent K=1 "
-              f"{adjacent['rate']:.1f}, workers phase K=1 "
+              f"{run['wall']:.3f} s = {run['rate']:.1f} records/s (workers phase K=1 "
               f"{base.get('rate', float('nan')):.1f}); {dispatches:.0f} superbatch "
-              f"dispatches, launches {launches[kernel]}; verdict {d.verdict} (adjacent K=1 "
-              f"{d1.verdict}); dispatch share {d.stages.get('dispatch', 0.0):.4f} "
-              f"(adjacent K=1 {d1.stages.get('dispatch', 0.0):.4f}, workers phase K=1 "
+              f"dispatches, launches {launches[kernel]}; verdict {d.verdict}; dispatch "
+              f"share {d.stages.get('dispatch', 0.0):.4f} (workers phase K=1 "
               f"{base.get('dispatch', float('nan')):.4f}); throttle wait "
               f"{d.evidence.get('throttle_wait', 0.0):.4f}; stage shares "
-              + ", ".join(f"{k} {v:.4f}" for k, v in d.stages.items())
-              + "; adjacent K=1 stage shares "
-              + ", ".join(f"{k} {v:.4f}" for k, v in d1.stages.items()))
+              + ", ".join(f"{k} {v:.4f}" for k, v in d.stages.items()))
         if json_doc and i == 0:
             check_json_doc(f"{label} {spec}", json.loads(run["stdout"].splitlines()[-1]),
                            want_report if n == 1 else got, result)
         out[n] = {"launches": launches[kernel], "rate": run["rate"],
-                  "dispatch": d.stages.get("dispatch", 0.0),
-                  "k1_rate": adjacent["rate"]}
+                  "dispatch": d.stages.get("dispatch", 0.0)}
     return out
 
 
@@ -2455,24 +2471,21 @@ def follow_serving(cli, kernels, argv, broker, per: int, want_report: str,
     """The serving plane's cost at the follow phase's own size: the same
     v5 follow (16M records, 7 workers) under `SERVE_POLLERS` conditional
     pollers and 8 SSE listeners, polling from the service's start until
-    the last advance settled, twice, then bare once more (bare, loaded,
-    loaded, bare with ``bare`` the first run).  Every run's report must
+    the last advance settled (bare, loaded, with ``bare`` the first
+    run).  Every run's report must
     equal the batch scan's; prints each run's fold and pass seconds, the
     interference on each clock (mean loaded over mean bare, less 1) and
     the p50 / p99 of ``/report.json`` under the fleet; returns the first
     loaded run's ``counters_merge`` launches."""
-    runs = [("bare", bare)]
-    for arm in ("loaded", "loaded", "bare"):
-        broker.set_head(FOLLOW_HEADS[0])
-        fleet = SERVE_POLLERS if arm == "loaded" else None
-        run = follow_run(cli, kernels, argv, broker, FOLLOW_HEADS, per, f"v5 {arm}",
-                         fleet=fleet)
-        if run["report"] != want_report:
-            fail(f"follow-serving: the {arm} run's report differs from the batch "
-                 f"scan's:\n{want_report}\n{run['report']}")
-        if run["launches"]["counters_merge"] <= 0:
-            fail(f"follow-serving: the {arm} run launched {run['launches']}")
-        runs.append((arm, run))
+    broker.set_head(FOLLOW_HEADS[0])
+    run = follow_run(cli, kernels, argv, broker, FOLLOW_HEADS, per, "v5 loaded",
+                     fleet=SERVE_POLLERS)
+    if run["report"] != want_report:
+        fail(f"follow-serving: the loaded run's report differs from the batch "
+             f"scan's:\n{want_report}\n{run['report']}")
+    if run["launches"]["counters_merge"] <= 0:
+        fail(f"follow-serving: the loaded run launched {run['launches']}")
+    runs = [("bare", bare), ("loaded", run)]
     for i, (arm, run) in enumerate(runs):
         d, f = run["probe"], run["fleet"]
         lat = sorted(d.lat_ms)
@@ -2831,7 +2844,7 @@ FLEET_V4_WINDOWS = 8
 #: of 2 windows (1,024,000 records across the 8 topics each); SIGTERM
 #: after the first advance in the checkpoint run.
 FLEET_FOLLOW = ["--follow", "--poll-interval", "0.25", "--follow-idle-exit", "3"]
-FLEET_FOLLOW_HEADS = (16, 18, 20, 22)
+FLEET_FOLLOW_HEADS = (16, 18, 20)
 FLEET_FOLLOW_KILL_AFTER = 1
 #: Fleet leases: two instances at 4 windows (2.05M records), then the head
 #: at 12 windows and one instance SIGKILLed mid-pass.  A 2^24-slot
@@ -3003,7 +3016,7 @@ def phase_fleet(np, torch, cli, kernels) -> dict:
         walls: dict = {"streams": [], "default stream": []}
         peaks: dict = {"streams": [], "default stream": []}
         v5 = None
-        for arm in ("streams", "default stream", "default stream", "streams"):
+        for arm in ("streams", "default stream"):
             if arm == "default stream":
                 cli.make_backend = lambda *a, stream=None, **k: real_make_backend(*a, **k)
             try:
@@ -3041,7 +3054,7 @@ def phase_fleet(np, torch, cli, kernels) -> dict:
               f"counters_merge launches; discovery listed {discovered} topics, "
               f"{admitted} admitted; workers per topic {workers}; stage seconds "
               f"(all topics) {json.dumps({k: round(v, 3) for k, v in stages.items()})}")
-        print(f"fleet v5 in turns (streams, default, default, streams): walls "
+        print(f"fleet v5 in turns (streams, default): walls "
               f"{json.dumps({a: [round(x, 3) for x in w] for a, w in walls.items()})} s; "
               f"per-topic streams {mean['streams']:.3f} s = "
               f"{total / mean['streams']:.1f} records/s, default stream "
@@ -3201,7 +3214,7 @@ class FleetProbe:
 
 
 def phase_fleet_follow(np, cli, kernels, broker, port: int) -> dict:
-    """``--fleet --follow`` over the 8 topics with the head moved 3 times
+    """``--fleet --follow`` over the 8 topics with the head moved twice
     (served rollup and ``?topic=`` document checked while it runs); the
     same with ``--snapshot-dir``, SIGTERM after the first advance, then a
     ``--resume`` restart at the last head, whose documents must equal the
@@ -3233,7 +3246,7 @@ def phase_fleet_follow(np, cli, kernels, broker, port: int) -> dict:
           f"{stage_seconds(run['snapshot']).get('finalize', 0.0):.3f} s in all; "
           f"every topic equals numpy's exact lines; the served rollup and "
           f"?topic={FleetProbe.TOPIC} document checked")
-    out = {"counters_merge": {"fleet follow, initial + 3 advances": n}}
+    out = {"counters_merge": {f"fleet follow, initial + {len(heads) - 1} advances": n}}
 
     snaps = FLEET_ROOT / "follow-snapshots"
     broker.set_head(heads[0])
@@ -3484,9 +3497,12 @@ def mesh_rows(np, replay, catalog, data: int, workers: str, synthetic: bool,
 def mesh_alive_keys(np, rows) -> int:
     """Alive keys under the mesh's rule: last writer wins per bitmap slot
     within each data row in its fold order, then the rows' alive slots
-    OR together."""
-    alive = [lww_alive_slots(np, *row) for row in rows]
-    return int(np.unique(np.concatenate(alive)).size)
+    OR together.  Each row's slots come sorted, so a stable sort (a merge
+    of the rows' runs) orders their union; a quicksort of such runs can
+    fall to its heapsort."""
+    union = np.concatenate([lww_alive_slots(np, *row) for row in rows])
+    union.sort(kind="stable")
+    return int(np.count_nonzero(union[1:] != union[:-1]) + (len(union) > 0))
 
 
 def check_mesh_launches(label: str, result, launches: dict, kernel: str, shards: int):
@@ -3500,13 +3516,17 @@ def check_mesh_launches(label: str, result, launches: dict, kernel: str, shards:
 
 
 def mesh_snapshot_scan(torch, np, cli, kernels, label: str, argv, kernel: str,
-                       want_report: str, want_alive: int, total: int) -> int:
-    """A full-size mesh scan through the CLI's backend, killed when each
-    data row's stream has folded `MESH_KILL_AFTER` rows, then resumed on
-    the same mesh by a fresh source and backend: the snapshot lies inside
-    the topic, the resumed scan folds the rest with one launch per round
-    and shard, its report equals ``want_report`` but for the alive keys,
-    which equal ``want_alive``.  Returns the resumed scan's launches."""
+                       want_report: str, want_alive: int, total: int,
+                       kill_after: int = MESH_KILL_AFTER,
+                       every_s: float = SNAPSHOT_EVERY_S, min_snapshots: int = 1) -> int:
+    """A full-size mesh scan through the CLI's backend, snapshotting every
+    ``every_s`` seconds and killed when each data row's stream has folded
+    ``kill_after`` rows, after at least ``min_snapshots`` snapshots (its
+    failure path's included); then resumed on the same mesh by a fresh
+    source and backend: the snapshot lies inside the topic, the resumed
+    scan folds the rest with one launch per round and shard, its report
+    equals ``want_report`` but for the alive keys, which equal
+    ``want_alive``.  Returns the resumed scan's launches."""
     from kafka_topic_analyzer_tpu_torch import checkpoint
     from kafka_topic_analyzer_tpu_torch.engine import run_scan
     from kafka_topic_analyzer_tpu_torch.obs.registry import default_registry
@@ -3515,7 +3535,6 @@ def mesh_snapshot_scan(torch, np, cli, kernels, label: str, argv, kernel: str,
     directory = SNAPSHOT_ROOT / label.replace(" ", "-").replace(",", "x")
     shutil.rmtree(directory, ignore_errors=True)
     args = cli.build_parser().parse_args(argv)
-    workers = cli.resolve_ingest_workers(args, FULL_PARTITIONS)
 
     def fresh():
         source, config, use_native = cli.setup(args)
@@ -3525,13 +3544,14 @@ def mesh_snapshot_scan(torch, np, cli, kernels, label: str, argv, kernel: str,
         return source, backend
 
     source, backend = fresh()
+    workers = cli.resolve_ingest_workers(args, backend.config.num_partitions)
     shards = len(backend.mesh.devices) * len(backend.mesh.devices[0])
     default_registry().reset()
     t0 = time.perf_counter()
     try:
-        run_scan(args.topic, Interrupting(source, MESH_KILL_AFTER), backend,
-                 args.batch_size, snapshot_dir=str(directory),
-                 snapshot_every_s=SNAPSHOT_EVERY_S, ingest_workers=workers)
+        run_scan(args.topic, Interrupting(source, kill_after), backend, args.batch_size,
+                 snapshot_dir=str(directory), snapshot_every_s=every_s,
+                 ingest_workers=workers)
     except Interrupt:
         pass
     else:
@@ -3540,12 +3560,13 @@ def mesh_snapshot_scan(torch, np, cli, kernels, label: str, argv, kernel: str,
     telemetry = default_registry().snapshot()
     info = checkpoint.snapshot_info(str(directory))
     seen = info["records_seen"]
+    saved = metric_total(telemetry, "kta_snapshots_saved_total")
     print(f"mesh {label}: killed after {seen} of {total} records in {wall:.3f} s; "
-          f"{metric_total(telemetry, 'kta_snapshots_saved_total'):.0f} snapshots in "
-          f"{stage_seconds(telemetry).get('snapshot', 0.0):.3f} s; file "
-          f"{os.path.getsize(directory / checkpoint.SNAPSHOT_NAME)} B")
-    if not 0 < seen < total:
-        fail(f"mesh {label}: records_seen {seen} is not inside (0, {total})")
+          f"{saved:.0f} snapshots in {stage_seconds(telemetry).get('snapshot', 0.0):.3f} "
+          f"s; file {os.path.getsize(directory / checkpoint.SNAPSHOT_NAME)} B")
+    if not 0 < seen < total or saved < min_snapshots:
+        fail(f"mesh {label}: records_seen {seen} is not inside (0, {total}), or "
+             f"{saved:.0f} snapshots, fewer than {min_snapshots}")
     if hasattr(source, "close"):
         source.close()
     del backend
@@ -3944,8 +3965,11 @@ def phase_distributed(torch, np, cli, kernels, dump: str, reports: dict) -> dict
 #: The bench phase's in-process runs of ``tools/bench.py``: the five
 #: BASELINE configs in wire v5 and config 3 in v4 with ``--pallas``, at
 #: the headline batch, with the accuracy referee; each run's kernel.
-BENCH_FLAGS = ["--batch-size", str(1 << 20), "--batches", "8", "--steps", "32",
+BENCH_FLAGS = ["--batch-size", str(1 << 20), "--batches", "8", "--steps", "8",
                "--accuracy", "--accuracy-seeds", "1"]
+#: ``bench_all``'s flags: config 1 at the same timed steps, and
+#: ``bench_e2e``.
+BENCH_ALL_FLAGS = ["--configs", "1", "--steps", "8"]
 BENCH_RUNS = [(f"config {n} v5", ["--config", str(n)], "counters_merge")
               for n in range(1, 6)]
 BENCH_RUNS.append(("config 3 v4", ["--config", "3", "--wire-format", "v4", "--pallas"],
@@ -4084,8 +4108,9 @@ def phase_bench(torch, kernels) -> dict:
         check_bench_sketches(label, doc)
         launches[kernel][f"bench {label}"] = got[kernel]
 
-    report, _, secs = run_tool("bench_all", ["--configs", "1"])
-    print(f"bench: bench_all --configs 1 {secs:.3f} s: {json.dumps(report)}")
+    report, _, secs = run_tool("bench_all", BENCH_ALL_FLAGS)
+    print(f"bench: bench_all {' '.join(BENCH_ALL_FLAGS)} {secs:.3f} s: "
+          f"{json.dumps(report)}")
     for key in ("1", "e2e"):
         if "error" in report.get(key, {"error": "missing"}):
             fail(f"bench: bench_all {key}: {report.get(key)}")
@@ -4110,6 +4135,344 @@ def phase_bench(torch, kernels) -> dict:
         fail(f"bench: the 4-worker drain counted {doc['scan_worker_records']}, "
              f"served {scanned}")
     print(f"bench: phase wall {time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+
+# -- conformance: the golden broker and the grand integration ------------------
+#
+# The golden topic, laid out byte by byte from the Kafka protocol spec
+# (KIP-98 record batch v2, Metadata v1, ListOffsets v1, Fetch v4,
+# ApiVersions v0) and the compression formats (RFC 1952 gzip, the Snappy
+# block format, the LZ4 frame format, RFC 8878 zstd) with this file's own
+# writers: neither package's encoder builds a byte of it.
+
+#: Kafka API keys (the protocol's "Api Keys" table).
+API_FETCH, API_LIST_OFFSETS, API_METADATA, API_VERSIONS = 1, 2, 3, 18
+GOLDEN_TOPIC = "golden.topic"
+GOLDEN_T0_MS = 1_600_000_000_000  # 2020-09-13T12:26:40Z
+#: (offset, timestamp ms, key, value): a live record, a tombstone, an
+#: unkeyed record.
+GOLDEN_RECORDS = [
+    (0, GOLDEN_T0_MS + 0, b"alpha", b"v-zero"),
+    (1, GOLDEN_T0_MS + 1, b"beta", None),
+    (2, GOLDEN_T0_MS + 2, None, b"anonymous"),
+]
+GOLDEN_CODECS = {"none": 0, "gzip": 1, "snappy": 2, "lz4": 3, "zstd": 4}
+#: Each wire format's flags and the kernel its fold launches.
+GOLDEN_FORMATS = (("v5", [], "counters_merge"),
+                  ("v4", ["--wire-format", "v4"], "counters_update"),
+                  ("compaction off", ["--alive-compaction", "off"], "counters_merge"))
+
+
+def _uvarint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, v = v & 0x7F, v >> 7
+        out.append(b | 0x80 if v else b)
+        if not v:
+            return bytes(out)
+
+
+def _zigzag(v: int) -> bytes:
+    return _uvarint((v << 1) ^ (v >> 63))
+
+
+def _string(s) -> bytes:
+    if s is None:
+        return struct.pack(">h", -1)
+    return struct.pack(">h", len(s)) + s.encode()
+
+
+def _crc32c_table() -> list:
+    table = []
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
+        table.append(c)
+    return table
+
+
+_CRC32C_TABLE = _crc32c_table()
+
+
+def golden_crc32c(data: bytes) -> int:
+    """CRC-32C (Castagnoli), reflected 0x82F63B78, from its definition."""
+    c = 0xFFFFFFFF
+    for b in data:
+        c = (c >> 8) ^ _CRC32C_TABLE[(c ^ b) & 0xFF]
+    return c ^ 0xFFFFFFFF
+
+
+def golden_xxh32(data: bytes) -> int:
+    """xxHash32 at seed 0 of fewer than 16 bytes (the LZ4 frame
+    descriptor's checksum), from the published algorithm."""
+    m, p1, p2, p3, p4, p5 = (0xFFFFFFFF, 2654435761, 2246822519, 3266489917,
+                             668265263, 374761393)
+
+    def rotl(x, r):
+        return ((x << r) | (x >> (32 - r))) & m
+
+    assert len(data) < 16
+    h, i = (p5 + len(data)) & m, 0
+    while i <= len(data) - 4:
+        h = rotl((h + struct.unpack_from("<I", data, i)[0] * p3) & m, 17) * p4 & m
+        i += 4
+    for b in data[i:]:
+        h = rotl((h + b * p5) & m, 11) * p1 & m
+    h = ((h ^ (h >> 15)) * p2) & m
+    h = ((h ^ (h >> 13)) * p3) & m
+    return h ^ (h >> 16)
+
+
+def golden_section() -> bytes:
+    """The three records' section of a v2 batch (deltas from offset 0 and
+    the first timestamp; no headers)."""
+    out = bytearray()
+    for off, ts, key, value in GOLDEN_RECORDS:
+        body = b"\x00" + _zigzag(ts - GOLDEN_T0_MS) + _zigzag(off)
+        body += _zigzag(-1) if key is None else _zigzag(len(key)) + key
+        body += _zigzag(-1) if value is None else _zigzag(len(value)) + value
+        body += _zigzag(0)
+        out += _zigzag(len(body)) + body
+    return bytes(out)
+
+
+def golden_compress(codec: int, data: bytes) -> bytes:
+    """``data`` in the codec's format: stdlib gzip, or store-mode streams
+    laid out by hand (snappy literals of at most 60 bytes, one LZ4 frame
+    block of literals only, one raw zstd block)."""
+    if codec == 0:
+        return data
+    if codec == 1:
+        return gzip.compress(data)
+    if codec == 2:
+        out = bytearray(_uvarint(len(data)))
+        for i in range(0, len(data), 60):
+            chunk = data[i:i + 60]
+            out += bytes([(len(chunk) - 1) << 2]) + chunk
+        return bytes(out)
+    if codec == 3:
+        flg, bd = 0x60, 0x40
+        n, ext = len(data), bytearray()
+        if n >= 15:
+            rem = n - 15
+            while rem >= 255:
+                ext.append(255)
+                rem -= 255
+            ext.append(rem)
+        block = bytes([min(n, 15) << 4]) + bytes(ext) + data
+        return (struct.pack("<I", 0x184D2204)
+                + bytes([flg, bd, (golden_xxh32(bytes([flg, bd])) >> 8) & 0xFF])
+                + struct.pack("<I", len(block)) + block + struct.pack("<I", 0))
+    assert len(data) <= 255
+    return (struct.pack("<I", 0xFD2FB528) + bytes([0x20, len(data)])
+            + struct.pack("<I", (len(data) << 3) | 1)[:3] + data)
+
+
+def golden_batch(codec: int) -> bytes:
+    """One RecordBatch v2 at offset 0 holding `GOLDEN_RECORDS`, its
+    records section in ``codec``; the CRC-32C covers attributes onward."""
+    crc_part = (struct.pack(">hiqqqhii", codec, 2, GOLDEN_T0_MS, GOLDEN_T0_MS + 2,
+                            -1, -1, -1, 3)
+                + golden_compress(codec, golden_section()))
+    after = struct.pack(">ibI", 0, 2, golden_crc32c(crc_part)) + crc_part
+    return struct.pack(">qi", 0, len(after)) + after
+
+
+def golden_body(api_key: int, api_version: int, frame: bytes, port: int,
+                codec: int) -> bytes:
+    """The canned response body of a request: ApiVersions v0 (and, to a
+    v3 request, UNSUPPORTED_VERSION in the v0 layout, as KIP-511 has a
+    broker answer), Metadata v1 (one broker, one partition led by it),
+    ListOffsets v1 (offset 0 for earliest, 3 for latest) and Fetch v4
+    (high watermark 3, the golden batch)."""
+    if api_key == API_VERSIONS:
+        apis = [(API_FETCH, 0, 4), (API_LIST_OFFSETS, 0, 1), (API_METADATA, 0, 1),
+                (API_VERSIONS, 0, 0)]
+        return struct.pack(">hi", 35 if api_version >= 3 else 0, len(apis)) + b"".join(
+            struct.pack(">hhh", *api) for api in apis)
+    if api_key == API_METADATA and api_version == 1:
+        return (struct.pack(">ii", 1, 1) + _string("127.0.0.1") + struct.pack(">i", port)
+                + _string(None) + struct.pack(">ii", 1, 1) + struct.pack(">h", 0)
+                + _string(GOLDEN_TOPIC)
+                + struct.pack(">bihiiiiii", 0, 1, 0, 0, 1, 1, 1, 1, 1))
+    if api_key == API_LIST_OFFSETS and api_version == 1:
+        (ts,) = struct.unpack(">q", frame[-8:])
+        return (struct.pack(">i", 1) + _string(GOLDEN_TOPIC)
+                + struct.pack(">iihqq", 1, 0, 0, -1, 0 if ts == -2 else 3))
+    if api_key == API_FETCH and api_version == 4:
+        records = golden_batch(codec)
+        return (struct.pack(">ii", 0, 1) + _string(GOLDEN_TOPIC)
+                + struct.pack(">iihqqii", 1, 0, 0, 3, 3, 0, len(records)) + records)
+    raise RuntimeError(f"golden broker: unexpected api {api_key} v{api_version}")
+
+
+class GoldenBroker:
+    """A loopback socket that answers each request with `golden_body`
+    behind its correlation id; it reads only the request header's api key,
+    version and correlation id (and ListOffsets' timestamp)."""
+
+    def __init__(self, codec: int):
+        self.codec = codec
+        self.sock = socket.create_server(("127.0.0.1", 0))
+        self.port = self.sock.getsockname()[1]
+        threading.Thread(target=self._accept, daemon=True).start()
+
+    def _accept(self) -> None:
+        while True:
+            try:
+                conn, _ = self.sock.accept()
+            except OSError:
+                return
+            threading.Thread(target=self._serve, args=(conn,), daemon=True).start()
+
+    def _serve(self, conn) -> None:
+        with conn, conn.makefile("rb") as f:
+            while len(head := f.read(4)) == 4:
+                frame = f.read(struct.unpack(">i", head)[0])
+                api_key, api_version, corr = struct.unpack(">hhi", frame[:8])
+                body = golden_body(api_key, api_version, frame, self.port, self.codec)
+                conn.sendall(struct.pack(">ii", len(body) + 4, corr) + body)
+
+    def __enter__(self) -> "GoldenBroker":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.sock.close()
+
+
+def check_golden_report(label: str, report: str) -> None:
+    """The cells the reference tool's metric semantics give the golden
+    records, derived by hand: 3 records, 2 alive, 1 tombstone, 1 null
+    key; key bytes 9, value bytes 15; averages over the alive records;
+    message sizes 11 and 9 (the tombstone excluded); 1 alive key (alpha;
+    beta is tombstoned, the unkeyed record is not a key)."""
+    row = next((line for line in report.splitlines() if line.startswith("| 0 |")), "")
+    cells = [c.strip() for c in row.strip("|").split("|")]
+    lines = (f"Topic {GOLDEN_TOPIC}", "Topic Size: 24", "Largest Message: 11",
+             "Smallest Message: 9", "Alive keys: 1",
+             "Earliest Message: 2020-09-13 12:26:40", "Latest Message: 2020-09-13 12:26:40")
+    want = ["0", "0", "3", "3", "2", "1", "33.3333", "1", "2", "24", "9", "15", "4",
+            "7", "12"]
+    if cells != want or any(line not in report for line in lines):
+        fail(f"conformance golden {label}: the report is not the spec's cells:\n{report}")
+
+
+def phase_golden(cli, kernels) -> dict:
+    """The port's CLI against `GoldenBroker` under each codec and each of
+    v5, v4 and ``--alive-compaction off``, on the card (no ``--device``)
+    and on the host (``--device cpu``): each card report must carry the
+    hand-derived cells and equal the host run's (timing lines aside), and
+    fold the one row through its format's kernel exactly once.  Returns
+    launches by path."""
+    if golden_crc32c(b"123456789") != 0xE3069283 or \
+            (golden_xxh32(b""), golden_xxh32(b"Hello World")) != (0x02CC5D05, 0xB1FD16EE):
+        fail("conformance golden: CRC-32C or xxHash32 misses its published vector")
+    launches = {"counters_merge": {}, "counters_update": {}}
+    t0 = time.perf_counter()
+    for name, codec in GOLDEN_CODECS.items():
+        with GoldenBroker(codec) as broker:
+            base = ["-t", GOLDEN_TOPIC, "-b", f"127.0.0.1:{broker.port}", "--librdkafka",
+                    "check.crcs=true", "-c", "--alive-bitmap-bits", "20"]
+            for fmt, flags, kernel in GOLDEN_FORMATS:
+                label = f"{name} {fmt}"
+                zero(kernels)
+                card, _ = run_cli(cli, base + flags)
+                got = {k: fn.launches for k, fn in kernels.items()}
+                if got != {k: int(k == kernel) for k in kernels}:
+                    fail(f"conformance golden {label}: launches {got}, want one "
+                         f"{kernel}")
+                check_golden_report(label, card)
+                host, _ = run_cli(cli, base + flags + ["--device", "cpu"])
+                if drop_timing(card) != drop_timing(host):
+                    fail(f"conformance golden {label}: the card's report differs from "
+                         f"the host's:\n{host}\n{card}")
+                path = f"conformance golden {fmt}, 5 codecs"
+                launches[kernel][path] = launches[kernel].get(path, 0) + 1
+    print(f"conformance golden: {len(GOLDEN_CODECS) * len(GOLDEN_FORMATS)} reports on "
+          f"the card ({', '.join(GOLDEN_CODECS)} x {', '.join(f for f, _, _ in GOLDEN_FORMATS)}) "
+          f"carry the spec's cells and equal the --device cpu runs (timing lines "
+          f"aside); each launched its format's kernel once; "
+          f"{time.perf_counter() - t0:.3f} s with the host runs")
+    return launches
+
+
+#: The grand integration's topic: a 2-leader template broker serving
+#: gzip batches, 5 partitions x 100 windows of 4,000 records (2M records,
+#: values 20-320 B, every tenth template record a tombstone).
+GRAND = dict(topic="grand", partitions=5, windows=100, R=4000, n_templates=16, vmin=20,
+             vmax=320, tombstone_every=10)
+GRAND_FLAGS = ["--mesh", "2,2", "-c", "--distinct-keys-per-partition",
+               "--quantiles-per-partition", "--native", "on", "--batch-size",
+               str(1 << 17), "--backend", "gpu"]
+#: The killed scan snapshots after every round and dies when each data
+#: row's stream has folded this many rows: two snapshots land, then the
+#: failure path's.
+GRAND_KILL_AFTER = 2
+
+
+def phase_grand(torch, np, cli, kernels, card: str) -> dict:
+    """Every layer at once at a real size: the gzip `GRAND` topic from a
+    2-leader `BrokerProcess`, the CLI's wire client and fused ingest,
+    ``--mesh 2,2`` with the 2^32-slot bitmap (512 MiB per data row), -c
+    and the per-partition sketches, in v5 and v4.  Each uninterrupted
+    report's exact lines must equal numpy's from the templates, its alive
+    keys the numpy replay under the mesh's rule; each format's kernel
+    launches once per round and shard.  Then the same scan with a
+    snapshot after every round, killed after `GRAND_KILL_AFTER` rounds,
+    and resumed by a fresh source and backend: its report must equal the
+    uninterrupted one.  Returns launches by path."""
+    from kafka_topic_analyzer_tpu_torch.parallel.mesh import assign_partitions
+    from kafka_topic_analyzer_tpu_torch.tools.bench_e2e import BrokerProcess
+
+    launches = {"counters_merge": {}, "counters_update": {}}
+    want = template_expectations(np, GRAND)
+    total = GRAND["partitions"] * want["total"]
+    if not want["tombstones"]:
+        fail(f"conformance grand: the topic holds no tombstone: {want}")
+    # Each data row's records, its partitions one after the other: every
+    # partition holds the same records, so no fold order changes the count.
+    cat = template_partition(np, GRAND)
+    one = (cat["slot"], np.ones(len(cat["slot"]), dtype=bool), ~cat["tombstone"])
+    rows = [tuple(np.concatenate([a] * len(ids)) for a in one)
+            for ids in assign_partitions(list(range(GRAND["partitions"])), 2)]
+    want_alive = mesh_alive_keys(np, rows)
+    print(f"conformance grand: numpy from the templates {want}; mesh replay (2 data "
+          f"rows) {want_alive} alive keys")
+    reports = {}
+    with BrokerProcess(**GRAND, compression=GOLDEN_CODECS["gzip"], brokers=2) as port:
+        base = ["-t", GRAND["topic"], "-b", f"127.0.0.1:{port}", *GRAND_FLAGS]
+        for fmt, flags, kernel in GOLDEN_FORMATS[:2]:
+            label = f"grand gzip 2,2 {fmt}"
+            run = session_run(cli, kernels, base + flags, label.replace(" ", "-"), False)
+            result = run["result"]
+            check_template_scan(np, f"conformance {label}", result.metrics, want,
+                                quiet=True)
+            if result.records != total or result.metrics.alive_keys != want_alive:
+                fail(f"conformance {label}: {result.records} records, alive keys "
+                     f"{result.metrics.alive_keys} (mesh replay {want_alive})")
+            rounds = check_mesh_launches(label, result, run["launches"], kernel, 4)
+            print(f"conformance {label}: {result.records} records in {run['wall']:.3f} s "
+                  f"= {run['rate']:.1f} records/s on {card}; {rounds} rounds, launches "
+                  f"{run['launches']}; finalize "
+                  f"{stage_seconds(result.telemetry).get('finalize', 0.0):.3f} s; fused "
+                  f"{result.fused}, fallbacks {result.fallbacks}; every exact line "
+                  f"equals numpy's, alive keys the mesh replay")
+            launches[kernel][f"conformance {label}"] = run["launches"][kernel]
+            reports[fmt] = rendered(result)
+            t0 = time.perf_counter()
+            launches[kernel][f"conformance {label} resumed"] = mesh_snapshot_scan(
+                torch, np, cli, kernels, label, base + flags, kernel, reports[fmt],
+                want_alive, total, kill_after=GRAND_KILL_AFTER, every_s=0.0,
+                min_snapshots=GRAND_KILL_AFTER + 1)
+            print(f"conformance {label}: killed after {GRAND_KILL_AFTER} rounds and "
+                  f"resumed in {time.perf_counter() - t0:.3f} s on {card}; the resumed "
+                  f"report equals the uninterrupted one")
+    if reports["v4"] != reports["v5"]:
+        fail("conformance grand: the v4 report differs from the v5 report")
+    print("conformance grand: the v5 and v4 reports are byte-identical (timing lines "
+          "aside)")
     return launches
 
 
@@ -4320,7 +4683,9 @@ def main() -> int:
                                         ("kafka v4", cli_kafka + v4, "counters_update")):
                 verdicts[label] = phase_doctor(np, cli, kernels, label, argv, kernel,
                                                kafka[label], want)
-            phase_telemetry_cost(np, cli, kernels, cli_kafka, kafka["kafka v5"], want)
+                if label == "kafka v5":
+                    phase_telemetry_cost(np, cli, kernels, cli_kafka, kafka[label], want,
+                                         verdicts[label]["rate"])
             launches["counters_merge"]["kafka resumed"] = snapshot_scan(
                 torch, np, cli, kernels, "kafka v5", bootstrap, "counters_merge",
                 kafka["kafka v5"], KAFKA_FULL["partitions"] * KAFKA_FULL["windows"]
@@ -4359,16 +4724,21 @@ def main() -> int:
           f"records/s {json.dumps(rates)}")
     print("doctor: " + "; ".join(f"{label} {v['verdict']}" for label, v in verdicts.items()))
     walls.mark("workers kafka")
+    card = smi.stdout.strip().splitlines()[0]
     try:
-        for extra in (
-                phase_follow(np, cli, kernels, kafka["kafka v5"], want,
-                             rates.get(f"kafka v5 {FOLLOW_WORKERS} workers")),
-                {"counters_merge": phase_follow_resume(np, cli, kernels,
-                                                       kafka["kafka v5"], want)},
-                phase_multitopic(np, cli, kernels),
-                phase_fleet(np, torch, cli, kernels)):
-            for kernel, paths in extra.items():
+        for name, phase in (
+                ("follow", lambda: phase_follow(
+                    np, cli, kernels, kafka["kafka v5"], want,
+                    rates.get(f"kafka v5 {FOLLOW_WORKERS} workers"))),
+                ("follow-resume", lambda: {"counters_merge": phase_follow_resume(
+                    np, cli, kernels, kafka["kafka v5"], want)}),
+                ("multitopic", lambda: phase_multitopic(np, cli, kernels)),
+                ("fleet", lambda: phase_fleet(np, torch, cli, kernels)),
+                ("conformance golden", lambda: phase_golden(cli, kernels)),
+                ("conformance grand", lambda: phase_grand(torch, np, cli, kernels, card))):
+            for kernel, paths in phase().items():
                 launches[kernel].update(paths)
+            walls.mark(name)
     finally:
         shutil.rmtree(TELEMETRY_ROOT, ignore_errors=True)
         shutil.rmtree(SNAPSHOT_ROOT, ignore_errors=True)
@@ -4376,7 +4746,6 @@ def main() -> int:
         fail("scan: the kafka v4 report differs from the kafka v5 report "
              "(timing lines aside)")
     print("scan: the kafka v5 and v4 reports are byte-identical (timing lines aside)")
-    walls.mark("follow, follow-resume, multitopic, fleet")
     for kernel, paths in phase_bench(torch, kernels).items():
         launches[kernel].update(paths)
     walls.mark("bench")

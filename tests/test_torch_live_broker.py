@@ -4,13 +4,18 @@ and the live-broker tier run through the port.
 The produce record set must decode, through the port's own decoder, back
 to the records that went in; the Produce request body must be the
 reference's bytes; version negotiation runs against the loopback fake
-broker.  The live test needs a reachable broker and runs only with
-``KTA_KAFKA_BOOTSTRAP=host:port`` set:
+broker.  The live tests (the port's engine against the oracle, and the
+port's CLI against the reference CLI on the same produced topic) need a
+reachable broker and run only with ``KTA_KAFKA_BOOTSTRAP=host:port`` set:
 
     KTA_KAFKA_BOOTSTRAP=127.0.0.1:9092 pytest tests/test_torch_live_broker.py
 """
 
 import os
+import pathlib
+import re
+import subprocess
+import sys
 import uuid
 
 import numpy as np
@@ -138,3 +143,38 @@ def test_live_broker_end_to_end():
     assert (got.overall_count, got.overall_size, got.alive_keys) == \
         (want.overall_count, want.overall_size, want.alive_keys)
     assert (got.earliest_ts_s, got.latest_ts_s) == (want.earliest_ts_s, want.latest_ts_s)
+
+
+@pytest.mark.skipif(not BOOT, reason="set KTA_KAFKA_BOOTSTRAP=host:port to run "
+                                     "against a live broker")
+def test_live_broker_cli_equals_the_reference_cli():
+    """A fresh topic on the live broker, produced by the port's producer,
+    scanned by the port's CLI (``--device cpu``) and the reference's CLI
+    as child processes: stdout is the same bytes but for the
+    ``Scanning took:`` line and the rate line derived from it."""
+    topic = f"kta-live-cli-{uuid.uuid4().hex[:12]}"
+    partitions = 3
+    create_topic(BOOT, topic, partitions)
+    recs = records(partitions)
+    base = produce(BOOT, topic, recs)
+    assert all(b == 0 for b in base.values()), base
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = {**os.environ, "PYTHONPATH": str(root), "JAX_PLATFORMS": "cpu",
+           "KTA_ACCEL_OK": "1"}
+    argv = ["-b", BOOT, "-t", topic, "-c"]
+    outs = []
+    for module, extra in (("kafka_topic_analyzer_tpu_torch", ["--device", "cpu"]),
+                          ("kafka_topic_analyzer_tpu.cli", [])):
+        done = subprocess.run([sys.executable, "-m", module, *argv, *extra], env=env,
+                              cwd=root, capture_output=True, text=True, timeout=300)
+        assert done.returncode == 0, done.stderr[-2000:]
+        # The rate line is the record count over the wall line's seconds.
+        secs = int(re.search(r"^Scanning took: (\d+) seconds$", done.stdout,
+                             re.M).group(1))
+        total = partitions * len(recs[0])
+        assert f"\nEstimated Msg/s: {total // max(secs, 1)}\n" in done.stdout
+        outs.append("".join(line for line in done.stdout.splitlines(keepends=True)
+                            if not line.startswith(("Scanning took:", "Estimated Msg/s:"))))
+    port, ref = outs
+    assert f"Topic {topic}" in port
+    assert port == ref
