@@ -4,7 +4,9 @@
 The reference bounds in-flight *superbatch* dispatches with its
 `DispatchQueue`; so does the port, with a CUDA event recorded behind each
 dispatch (one packed row at K = 1, K rows at ``--superbatch K``) as the
-completion token.
+completion token.  A backend that also records a timing event before the
+dispatch's first launch has the device's span of each fold booked when
+the queue retires it (``kta_fold_device_seconds_total``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import time
 
 from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
 from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
+from kafka_topic_analyzer_tpu_torch.obs import trace as obs_trace
 from kafka_topic_analyzer_tpu_torch.records import RecordBatch
 from kafka_topic_analyzer_tpu_torch.results import TopicMetrics
 
@@ -88,9 +91,12 @@ class DispatchQueue:
                 time.perf_counter() - t0
             )
 
-    def launched(self, token, batches: int) -> None:
-        """Record a dispatch just launched; ``token`` completes with it."""
-        self._inflight.append((token, time.perf_counter(), batches))
+    def launched(self, token, batches: int, start=None) -> None:
+        """Record a dispatch just launched; ``token`` completes with it.
+        ``start``, a timing event recorded on the same stream before the
+        dispatch's first launch (``token`` then one too), times the fold
+        on the device when it retires."""
+        self._inflight.append((token, time.perf_counter(), batches, start))
         obs_metrics.DISPATCH_INFLIGHT.set(len(self._inflight))
         obs_metrics.SUPERBATCH_SIZE.observe(batches)
 
@@ -106,12 +112,15 @@ class DispatchQueue:
             self._retire(block=False)
 
     def _retire(self, block: bool) -> None:
-        token, t0, _batches = self._inflight[0]
+        token, t0, _batches, start = self._inflight[0]
         if block:
             token.synchronize()
         self._inflight.popleft()
         obs_metrics.DISPATCH_SECONDS.observe(time.perf_counter() - t0)
         obs_metrics.DISPATCH_INFLIGHT.set(len(self._inflight))
+        if start is not None:
+            # Both events have completed: reading them waits for nothing.
+            obs_metrics.FOLD_DEVICE_SECONDS.inc(start.elapsed_time(token) / 1e3)
 
 
 class MetricBackend(abc.ABC):
@@ -224,6 +233,23 @@ class MetricBackend(abc.ABC):
     @abc.abstractmethod
     def finalize(self) -> TopicMetrics:
         ...
+
+
+def book_resident(owners: "dict[str, int]") -> None:
+    """Add a new backend's device-resident bytes by owner
+    (``kta_device_resident_bytes_total``)."""
+    for owner, nbytes in owners.items():
+        obs_metrics.DEVICE_RESIDENT_BYTES.labels(owner=owner).inc(nbytes)
+
+
+def finalize_phase(phase: str) -> "obs_trace.timed":
+    """Time one phase of a backend's finalize (``drain``, ``copy``,
+    ``derive``) into ``kta_finalize_phase_seconds_total`` and a span of
+    the same name."""
+    return obs_trace.timed(
+        phase, obs_metrics.FINALIZE_PHASE_SECONDS.labels(phase=phase),
+        cat="finalize",
+    )
 
 
 def _timed(fn, hist):

@@ -17,6 +17,9 @@ Per batch:
   records a CUDA event behind the fold as its completion token in the
   launch-site `base.DispatchQueue` (``dispatch_depth`` folds in flight;
   the throttle's wait is the device's backpressure on the drive loop).
+  The token is a timing event, and a second one is recorded before the
+  fold's first launch: the queue books the fold's span on the device when
+  it retires it.
 
 At superbatch K > 1 (``--superbatch``) `update_superbatch` folds K staged
 rows per dispatch: one throttle, the K folds in list order
@@ -81,6 +84,8 @@ from kafka_topic_analyzer_tpu_torch.backends.base import (
     READY,
     DispatchQueue,
     MetricBackend,
+    book_resident,
+    finalize_phase,
     instrument_steps,
 )
 from kafka_topic_analyzer_tpu_torch.backends.finalize import metrics_from_state
@@ -93,9 +98,11 @@ from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig, DispatchConfig
 from kafka_topic_analyzer_tpu_torch.models.state import (
     AnalyzerState,
     copy_from_numpy_,
+    state_nbytes,
     state_to_numpy,
 )
 from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
+from kafka_topic_analyzer_tpu_torch.obs import trace as obs_trace
 from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_scratch
 from kafka_topic_analyzer_tpu_torch.packing import (
     FusedPackSink,
@@ -141,11 +148,13 @@ class StagingRing:
         self._next = 0
 
     def claim(self) -> int:
-        """The next slot, once its last copy has completed."""
+        """The next slot, once its last copy has completed (span
+        ``slot-wait``)."""
         slot = self._next
         self._next = (slot + 1) % len(self.hosts)
         if self.events[slot] is not None:
-            self.events[slot].synchronize()
+            with obs_trace.timed("slot-wait", cat="ingest"):
+                self.events[slot].synchronize()
         return slot
 
 
@@ -314,6 +323,10 @@ class TorchBackend(MetricBackend):
                 bitmap_scratch(config.alive_bitmap_bits, self.device)
                 if pair_lists else None
             )
+        resident = state_nbytes(self.state)
+        if self._scratch is not None:
+            resident["scratch"] = self._scratch.nbytes
+        book_resident(resident)
         self._row_nbytes = packed_nbytes(config, b)
         # The pair table starts on a 16-byte boundary of the staging row.
         # Only at K = 1 does a slot carry one (its own batch's); at K > 1
@@ -404,8 +417,8 @@ class TorchBackend(MetricBackend):
         on the backend's stream: the copy is enqueued before its item is
         queued to the main thread, and the fold after the item is
         dequeued, so the stream's order keeps every copy ahead of its
-        fold, whichever worker sent it."""
-        with self._on_stream():
+        fold, whichever worker sent it (span ``send``)."""
+        with obs_trace.timed("send", cat="ingest"), self._on_stream():
             dev = torch.empty(self._nbytes, dtype=torch.uint8, device=self.device)
             dev.copy_(ring.hosts[slot], non_blocking=True)
             if self.stream is not None:
@@ -472,13 +485,19 @@ class TorchBackend(MetricBackend):
 
     def _completion_token(self):
         """A token that completes with the work enqueued so far on the
-        backend's stream: a CUDA event recorded there, or `base.READY` on
-        the host, where the fold finished when it returned."""
+        backend's stream: a timing CUDA event recorded there, or
+        `base.READY` on the host, where the fold finished when it
+        returned."""
         if self.stream is None:
             return READY
-        event = torch.cuda.Event()
+        event = torch.cuda.Event(enable_timing=True)
         event.record(self.stream)
         return event
+
+    def _fold_start(self):
+        """A timing event recorded before a fold's first launch (None on
+        the host): the start of the fold's device span."""
+        return None if self.stream is None else self._completion_token()
 
     def update(self, batch: "RecordBatch | StagedBatch") -> None:
         """Fold one batch (packed here if it was not prepared) into the
@@ -495,6 +514,7 @@ class TorchBackend(MetricBackend):
             obs_metrics.WIRE_BYTES.inc(int(batch.pairs.numel()))
         self._queue.throttle()
         with self._on_stream():
+            start = self._fold_start()
             analyzer_step(
                 self.state, unpack_device(batch.row, self.config), self.config,
                 scratch=self._scratch,
@@ -507,7 +527,7 @@ class TorchBackend(MetricBackend):
                     scratch=self._scratch,
                 )
             token = self._completion_token()
-        self._queue.launched(token, 1)
+        self._queue.launched(token, 1, start)
         self.dispatches += 1
 
     def update_superbatch(
@@ -541,6 +561,8 @@ class TorchBackend(MetricBackend):
                      if item.raw_pairs is not None],
                     self._stager.views[slot],
                 )
+            start = self._fold_start()
+            if self.config.compact_alive:
                 host = self._stager.hosts[slot]
                 dev = torch.empty(host.numel(), dtype=torch.uint8,
                                   device=self.device)
@@ -555,7 +577,7 @@ class TorchBackend(MetricBackend):
                 pairs=pairs, scratch=self._scratch,
             )
             token = self._completion_token()
-        self._queue.launched(token, len(items))
+        self._queue.launched(token, len(items), start)
         self.dispatches += len(items)
 
     snapshots = True
@@ -580,5 +602,11 @@ class TorchBackend(MetricBackend):
 
     def finalize(self) -> TopicMetrics:
         """Retire the in-flight folds, copy the state to the host (waiting
-        for the device) and derive the metrics there."""
-        return metrics_from_state(self.get_state(), self.config, self.init_now_s)
+        for the device) and derive the metrics there: `get_state`'s work
+        and the derivation, each phase timed (`base.finalize_phase`)."""
+        with finalize_phase("drain"):
+            self._queue.drain()
+        with finalize_phase("copy"), self._on_stream():
+            leaves = state_to_numpy(self.state)
+        with finalize_phase("derive"):
+            return metrics_from_state(leaves, self.config, self.init_now_s)

@@ -497,8 +497,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "events to FILE as JSON lines")
     p.add_argument("--trace-json", metavar="FILE",
                    help="Write a Chrome trace-event JSON of host-side scan "
-                        "spans (fetch/decode/stages) to FILE; combine with "
-                        "--profile-dir for the device timeline")
+                        "spans (fetch rounds, decode/pack, staging, stages, "
+                        "finalize phases) to FILE; with --profile-dir the "
+                        "host spans are also merged into DIR/torch_trace.json "
+                        "on the profiler's time base, one track a thread")
     p.add_argument("--flight-record", action="store_true",
                    help="Run the pipeline flight recorder: per-stage "
                         "occupancy time series while the scan runs, adding "

@@ -373,6 +373,9 @@ def run_scan(
             f"{backend.config.num_partitions}"
         )
     start_offsets, end_offsets = source.watermarks()
+    # The scan's number rides on every span of this thread and of the
+    # ingest threads it starts (obs/trace.py).
+    obs_trace.begin_scan()
     profile = ScanProfile(tracer=obs_trace.active())
     spinner = spinner or Spinner(enabled=False)
     if heartbeat is None:

@@ -64,7 +64,6 @@ import logging
 import socket
 import struct
 import threading
-from time import perf_counter as _perf_counter
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -1735,12 +1734,10 @@ class KafkaWireSource(RecordSource):
                     pmax_sent,
                 )
             conn, corr, sent_offsets, order, pmax_sent = fl
-            _t_fetch = _perf_counter()
-            with obs_trace.maybe_span("fetch", cat="io"):
+            # The span's window, booked per fetch round — the flight
+            # recorder's source-wait track (obs/doctor.py).
+            with obs_trace.timed("fetch", obs_metrics.FETCH_SECONDS, cat="io"):
                 r = conn.read_response(corr)
-            # Same window as the span, booked per fetch round — the
-            # flight recorder's source-wait track (obs/doctor.py).
-            obs_metrics.FETCH_SECONDS.inc(_perf_counter() - _t_fetch)
             fps = kc.decode_fetch_response(r, self._version(conn, kc.API_FETCH))
             obs_metrics.FETCH_REQUESTS.inc()
             obs_metrics.FETCH_BYTES.inc(
@@ -1821,15 +1818,15 @@ class KafkaWireSource(RecordSource):
             # order (the scan above still powers the send-ahead).
             soas: "Dict[int, tuple]" = {}
             if scans and sink is None:
-                _t_dec = _perf_counter()
-                with obs_trace.maybe_span("decode", cat="io"):
+                with obs_trace.timed(
+                    "decode", obs_metrics.DECODE_SECONDS, cat="io"
+                ):
                     for fp in fps:
                         p = fp.partition
                         if p in scans:
                             soas[p] = native.decode_record_set_native(
                                 fp.records, self.verify_crc, prescan=scans[p]
                             )
-                obs_metrics.DECODE_SECONDS.inc(_perf_counter() - _t_dec)
             return (leader, fps, scans, soas, spec_sent, order, pmax_sent)
 
         def fetch_leader_guarded(leader: int, lparts: List[int], fetch_round: int):
@@ -1896,18 +1893,25 @@ class KafkaWireSource(RecordSource):
                     max_workers=8, thread_name_prefix="kta-fetch"
                 )
                 pools.append(pool)
-            if pool is not None and len(by_leader) > 1:
-                results = list(
-                    pool.map(
-                        lambda kv: fetch_leader_guarded(kv[0], kv[1], fetch_round),
-                        by_leader.items(),
-                    )
-                )
-            else:
-                results = [
-                    fetch_leader_guarded(leader, lparts, fetch_round)
-                    for leader, lparts in by_leader.items()
-                ]
+            # The stream's own thread waits here for the round's responses
+            # (span "round-wait"); the pool threads' spans carry its
+            # context (scan, worker).
+            with obs_trace.timed(
+                "round-wait", obs_metrics.INGEST_ROUND_WAIT_SECONDS, cat="io"
+            ):
+                if pool is not None and len(by_leader) > 1:
+                    ctx = obs_trace.context()
+
+                    def fetch_in_pool(kv):
+                        obs_trace.bind(ctx)
+                        return fetch_leader_guarded(kv[0], kv[1], fetch_round)
+
+                    results = list(pool.map(fetch_in_pool, by_leader.items()))
+                else:
+                    results = [
+                        fetch_leader_guarded(leader, lparts, fetch_round)
+                        for leader, lparts in by_leader.items()
+                    ]
             transport_failed = False
             for result in results:
                 if isinstance(result, _TransportFailure):
@@ -2078,16 +2082,15 @@ class KafkaWireSource(RecordSource):
                         # remainder (compressed/legacy/truncated/
                         # malformed) takes the per-frame chain below,
                         # entering the same rows via push_chunk.
-                        _t_dec = _perf_counter()
-                        n_acc, used, covered, last = sink.append_record_set(
-                            data, next_offset[p], end[p], p,
-                            self.verify_crc, prescan=scans.get(p),
-                        )
                         # Fused streams skip the phase-1 pre-decode; their
                         # decode IS this pack, booked on the same counter.
-                        obs_metrics.DECODE_SECONDS.inc(
-                            _perf_counter() - _t_dec
-                        )
+                        with obs_trace.timed(
+                            "pack", obs_metrics.DECODE_SECONDS, cat="io"
+                        ):
+                            n_acc, used, covered, last = sink.append_record_set(
+                                data, next_offset[p], end[p], p,
+                                self.verify_crc, prescan=scans.get(p),
+                            )
                         if used:
                             max_frame_end = max(max_frame_end, covered)
                             if n_acc:
@@ -2108,13 +2111,15 @@ class KafkaWireSource(RecordSource):
                             # prescan): booked on the same counter as the
                             # pre-decode pass — the doctor's decode
                             # evidence must see this path too.
-                            _t_dec = _perf_counter()
-                            soa, used, covered = native.decode_record_set_native(
-                                data, self.verify_crc, prescan=scans.get(p)
-                            )
-                            obs_metrics.DECODE_SECONDS.inc(
-                                _perf_counter() - _t_dec
-                            )
+                            with obs_trace.timed(
+                                "decode", obs_metrics.DECODE_SECONDS, cat="io"
+                            ):
+                                soa, used, covered = (
+                                    native.decode_record_set_native(
+                                        data, self.verify_crc,
+                                        prescan=scans.get(p),
+                                    )
+                                )
                         if used:
                             max_frame_end = max(max_frame_end, covered)
                             cnt = accept_records(soa, p, "frame-fallback")

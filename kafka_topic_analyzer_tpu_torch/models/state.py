@@ -125,6 +125,18 @@ class AnalyzerState:
 
 _METRIC_LEAVES = tuple(f.name for f in dataclasses.fields(MessageMetricsState))
 
+
+def state_nbytes(state: AnalyzerState) -> Dict[str, int]:
+    """Bytes of the state's tensors by sub-state (``metrics``, ``alive``,
+    ``hll``, ``quantiles``; those present), read from the tensors."""
+    out = {"metrics": sum(getattr(state.metrics, n).nbytes for n in _METRIC_LEAVES)}
+    for name, sub in (("alive", state.alive), ("hll", state.hll),
+                      ("quantiles", state.quantiles)):
+        if sub is not None:
+            out[name] = sum(getattr(sub, f.name).nbytes
+                            for f in dataclasses.fields(sub))
+    return out
+
 #: Each leaf's merge across device rows (the reference's
 #: ``AnalyzerState.merge``): counters and DDSketch buckets add (int64,
 #: wrapping like the device adds), extremes take min or max, HLL

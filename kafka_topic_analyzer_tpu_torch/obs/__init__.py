@@ -12,8 +12,8 @@ Dependency-free observability for the scan pipeline:
 - ``obs.events``    — structured JSONL event log (``--events-jsonl``) and
   the rate-limited heartbeat;
 - ``obs.trace``     — host-side span tracer exporting Chrome trace-event
-  JSON (``--trace-json``), complementary to the ``--profile-dir``
-  ``torch.profiler`` trace;
+  JSON (``--trace-json``), merged into the ``--profile-dir``
+  ``torch.profiler`` trace on its time base when both are given;
 - ``obs.flight``    — the pipeline flight recorder (``--flight-record``);
 - ``obs.doctor``    — the scan doctor's BOTTLENECK verdict and the trend
   doctor over the telemetry history;
@@ -58,9 +58,12 @@ def telemetry_session(
     """Wire up the flag-selected telemetry outputs around a scan.
 
     Yields the span tracer (None unless ``trace_json`` is set) for
-    ``run_scan``'s profile to mirror stages into.  On exit the trace file
-    is written, the event log closed, and the scrape endpoint shut down —
-    the endpoint therefore serves while the scan runs.
+    ``run_scan``'s profile to mirror stages into; it is the active one, so
+    ``--profile-dir``'s `utils.profiling.maybe_torch_trace`, entered
+    inside the session, merges its spans into the device trace.  On exit
+    the trace file is written, the event log closed, and the scrape
+    endpoint shut down — the endpoint therefore serves while the scan
+    runs.
 
     ``flight_record`` starts the occupancy sampler (obs/flight.py) as the
     process-wide active recorder for the session: the ``/flight``

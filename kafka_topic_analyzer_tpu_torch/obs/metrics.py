@@ -52,6 +52,13 @@ STAGE_BYTES = _REG.counter(
     "what makes the snapshot-sourced --stats stage digest carry the same "
     "MB/s the old in-process profile summary did",
     labelnames=("stage",))
+STAGE_CPU_SECONDS = _REG.counter(
+    "kta_stage_cpu_seconds_total",
+    "CPU seconds of the drive loop's thread inside each scan stage window "
+    "(time.thread_time over the window kta_stage_seconds_total times): "
+    "for dispatch, wall - CPU - kta_dispatch_throttle_seconds_total is "
+    "the thread's wait for the GIL or the scheduler",
+    labelnames=("stage",))
 PARTITION_LAG = _REG.gauge(
     "kta_partition_lag",
     "Records between the scan position and the end watermark",
@@ -111,6 +118,13 @@ INGEST_WORKER_ACTIVE_SECONDS = _REG.counter(
     "fraction: busy = (active - stall) / active — a worker whose "
     "partitions drained early must not read as 'stalled' for the rest "
     "of the scan (obs/doctor.py)",
+    labelnames=("worker",))
+INGEST_WORKER_CPU_SECONDS = _REG.counter(
+    "kta_ingest_worker_cpu_seconds_total",
+    "CPU seconds of each parallel-ingest worker's thread "
+    "(time.thread_time) over the window "
+    "kta_ingest_worker_active_seconds_total brackets: active - CPU is "
+    "the worker's waits (sockets, the GIL, its full queue)",
     labelnames=("worker",))
 
 # -- cold segment path (io/segfile.py + io/segstore.py) -----------------------
@@ -308,6 +322,12 @@ DECODE_SECONDS = _REG.counter(
     "pre-decode pass and the fused decode→pack appends (booked per fetch "
     "round; python per-frame fallback decoding is not timed — it shares "
     "the round with masking/state bookkeeping)")
+INGEST_ROUND_WAIT_SECONDS = _REG.counter(
+    "kta_ingest_round_wait_seconds_total",
+    "Seconds a wire stream's own thread spent blocked on its fetch "
+    "rounds' responses (the fetch pool's map over leaders, or the inline "
+    "leader fetch), mirroring the 'round-wait' trace span; "
+    "kta_fetch_seconds_total is the pool threads' socket time inside it")
 FETCH_ERRORS = _REG.counter(
     "kta_fetch_errors_total",
     "Per-partition Kafka protocol errors in fetch responses")
@@ -419,6 +439,12 @@ DISPATCH_SECONDS = _REG.histogram(
     "Per-dispatch latency: superbatch launch to fold completion "
     "(includes device queue time at depth > 1)",
     buckets=LATENCY_BUCKETS_S)
+FOLD_DEVICE_SECONDS = _REG.counter(
+    "kta_fold_device_seconds_total",
+    "Device seconds from each fold's first launch to its completion "
+    "(two timing events on the backend's stream, read when the dispatch "
+    "queue retires the fold; waits for the host's next launch within the "
+    "fold included); booked on CUDA only")
 
 # -- backends -----------------------------------------------------------------
 
@@ -430,6 +456,18 @@ BACKEND_FINALIZE_SECONDS = _REG.histogram(
     "kta_backend_finalize_seconds",
     "Backend finalize (device sync + collective merge) latency",
     buckets=LATENCY_BUCKETS_S)
+FINALIZE_PHASE_SECONDS = _REG.counter(
+    "kta_finalize_phase_seconds_total",
+    "Seconds of each backend finalize phase: drain (retire the in-flight "
+    "folds), copy (the state to the host; the mesh's gather and merge) "
+    "and derive (popcount and sketch estimates on the host)",
+    labelnames=("phase",))
+DEVICE_RESIDENT_BYTES = _REG.counter(
+    "kta_device_resident_bytes_total",
+    "Bytes each backend keeps on its device for its life, added at its "
+    "construction, by owner: metrics, alive, hll, quantiles (the "
+    "state's tensors) and scratch (the bitmap's word accumulator)",
+    labelnames=("owner",))
 
 # -- follow-mode service (serve/follow.py + io/kafka_wire.py) -----------------
 

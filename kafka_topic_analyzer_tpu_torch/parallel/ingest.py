@@ -56,6 +56,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 from kafka_topic_analyzer_tpu_torch.io.source import RecordSource
 from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
+from kafka_topic_analyzer_tpu_torch.obs import trace as obs_trace
 from kafka_topic_analyzer_tpu_torch.packing import PackedRow
 from kafka_topic_analyzer_tpu_torch.parallel.mesh import assign_partitions
 from kafka_topic_analyzer_tpu_torch.records import RecordBatch
@@ -177,12 +178,15 @@ class _IngestWorker(threading.Thread):
         self._source_closed = False
         self._stall = obs_metrics.INGEST_WORKER_STALL_SECONDS.labels(worker=wid)
         self._active = obs_metrics.INGEST_WORKER_ACTIVE_SECONDS.labels(worker=wid)
+        self._cpu = obs_metrics.INGEST_WORKER_CPU_SECONDS.labels(worker=wid)
+        #: The span context of the scan that made this worker, and its id.
+        self._ctx = {**obs_trace.context(), "worker": wid}
 
     def _put(self, item: object) -> bool:
         """Bounded put; gives up when the consumer cancelled.  Time spent
         blocked on a full queue is the worker's backpressure stall, booked
         per worker so ``--stats`` and Prometheus show which shard outruns
-        the device."""
+        the device (span ``put-stall``)."""
         if self._cancel.is_set():
             # Checked before the fast path: an aborting close() drains the
             # queues, and a cancelled worker must not slip items into the
@@ -193,8 +197,7 @@ class _IngestWorker(threading.Thread):
             return True
         except queue.Full:
             pass
-        t0 = time.perf_counter()
-        try:
+        with obs_trace.timed("put-stall", self._stall, cat="ingest"):
             while not self._cancel.is_set():
                 try:
                     self.queue.put(item, timeout=0.1)
@@ -202,31 +205,35 @@ class _IngestWorker(threading.Thread):
                 except queue.Full:
                     continue
             return False
-        finally:
-            self._stall.inc(time.perf_counter() - t0)
 
     def run(self) -> None:
         # Lifetime booking brackets the whole stream, the final put of the
         # sentinel (or the error) included: every stall lies inside the
         # active window, so busy fraction = (active - stall) / active
         # stays in [0, 1] for workers whose partitions drain early
-        # (obs/doctor.py reads both counters).
-        t_run = time.perf_counter()
+        # (obs/doctor.py reads both counters).  The thread's CPU seconds
+        # are read over the same window.
+        obs_trace.bind(self._ctx)
         try:
-            for batch in self._it:
-                if isinstance(batch, PackedRow):
-                    staged = batch.staged  # fused: staged by the sink
-                else:
-                    staged = (
-                        self._stage(batch) if self._stage is not None else None
-                    )
-                if not self._put((batch, staged)):
-                    return  # cancelled; finally closes the source stream
-            self._put(_SENTINEL)
-        except BaseException as e:
-            self._put(_Error(e))
+            with obs_trace.timed("worker", self._active, cat="ingest"):
+                c_run = time.thread_time()
+                try:
+                    for batch in self._it:
+                        if isinstance(batch, PackedRow):
+                            staged = batch.staged  # fused: staged by the sink
+                        else:
+                            staged = (
+                                self._stage(batch)
+                                if self._stage is not None else None
+                            )
+                        if not self._put((batch, staged)):
+                            return  # cancelled; finally closes the stream
+                    self._put(_SENTINEL)
+                except BaseException as e:
+                    self._put(_Error(e))
+                finally:
+                    self._cpu.inc(time.thread_time() - c_run)
         finally:
-            self._active.inc(time.perf_counter() - t_run)
             if self._cancel.is_set():
                 self.close_source()
 

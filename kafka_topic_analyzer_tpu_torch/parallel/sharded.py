@@ -71,6 +71,8 @@ from kafka_topic_analyzer_tpu_torch.backends.base import (
     READY,
     DispatchQueue,
     MetricBackend,
+    book_resident,
+    finalize_phase,
     instrument_steps,
 )
 from kafka_topic_analyzer_tpu_torch.backends.finalize import metrics_from_state
@@ -88,6 +90,7 @@ from kafka_topic_analyzer_tpu_torch.models.state import (
     HLLState,
     MessageMetricsState,
     merge_rows,
+    state_nbytes,
 )
 from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
 from kafka_topic_analyzer_tpu_torch.obs.registry import default_registry
@@ -321,6 +324,14 @@ class ShardedTorchBackend(MetricBackend):
                     bitmap_scratch(config.alive_bitmap_bits, dev, s)
                     if pair_lists else None
                 )
+        resident: "dict[str, int]" = {}
+        for dev, stack in self._stacks.items():
+            owners = state_nbytes(stack)
+            if self._scratch[dev] is not None:
+                owners["scratch"] = self._scratch[dev].nbytes
+            for owner, nbytes in owners.items():
+                resident[owner] = resident.get(owner, 0) + nbytes
+        book_resident(resident)
         self._shards = [_row_view(self._stacks[dev], r) for dev, r in self._where]
         # The pinned slot of one dispatch: K rounds of [L, S] chunks (L
         # local rows), each on a 16-byte stride (typed views need no copy),
@@ -668,14 +679,19 @@ class ShardedTorchBackend(MetricBackend):
         and the bitmap's local rows (OR, on the device), then across the
         processes (one all-reduce per leaf by its merge law, in leaf
         order, the bitmap last), and derive the metrics on the host: the
-        same metrics on every process."""
-        self._queue.drain()
-        small = [p for p in _leaves(next(iter(self._stacks.values())))
-                 if p != "alive.words"]
-        leaves = merge_rows(self._host_leaves(small))
-        if self._multiprocess:
-            leaves = {path: _all_reduce(arr, _REDUCE_OP[MERGE_LAW[path]])
-                      for path, arr in sorted(leaves.items())}
-        if self.config.count_alive_keys:
-            leaves["alive.words"] = self._alive_words()
-        return metrics_from_state(leaves, self.config, self.init_now_s)
+        same metrics on every process.  The phases are timed as the
+        single-device backend's: ``drain``, ``copy`` (the gather and
+        merges) and ``derive``."""
+        with finalize_phase("drain"):
+            self._queue.drain()
+        with finalize_phase("copy"):
+            small = [p for p in _leaves(next(iter(self._stacks.values())))
+                     if p != "alive.words"]
+            leaves = merge_rows(self._host_leaves(small))
+            if self._multiprocess:
+                leaves = {path: _all_reduce(arr, _REDUCE_OP[MERGE_LAW[path]])
+                          for path, arr in sorted(leaves.items())}
+            if self.config.count_alive_keys:
+                leaves["alive.words"] = self._alive_words()
+        with finalize_phase("derive"):
+            return metrics_from_state(leaves, self.config, self.init_now_s)

@@ -14,6 +14,8 @@ import queue
 import threading
 from typing import Iterator, TypeVar
 
+from kafka_topic_analyzer_tpu_torch.obs import trace as obs_trace
+
 T = TypeVar("T")
 
 _SENTINEL = object()
@@ -41,6 +43,8 @@ class PrefetchIterator:
         self._it = it
         self._cancel = threading.Event()
         self._source_closed = False
+        #: The span context (the scan) of the thread that made this one.
+        self._ctx = obs_trace.context()
         self._thread = threading.Thread(target=self._fill, daemon=True)
         self._thread.start()
 
@@ -67,6 +71,7 @@ class PrefetchIterator:
                 pass  # a dying source must not mask the scan's own error
 
     def _fill(self) -> None:
+        obs_trace.bind(self._ctx)
         try:
             for item in self._it:
                 if not self._put(item):

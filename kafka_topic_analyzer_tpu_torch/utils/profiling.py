@@ -14,10 +14,17 @@ the dispatch queue's throttle, finalize's device-to-host copy).  Nothing
 here synchronizes the device, so a stage time is not a device time; the
 device side lives in the ``--profile-dir`` trace.
 
+Each stage window also books the drive loop thread's CPU seconds inside
+it (``time.thread_time``, ``kta_stage_cpu_seconds_total``): for
+``dispatch``, wall minus CPU minus the dispatch throttle's wait is the
+time the thread waited for something other than the device (the GIL,
+the scheduler).
+
 With a span tracer attached (``--trace-json``, obs/trace.py) every stage
 window is also mirrored into the Chrome trace with the *same* measured
-duration, so the host trace's per-stage totals agree with ``--stats``
-exactly.
+duration, stamped from the tracer's clock, so the host trace's per-stage
+totals agree with ``--stats`` exactly.  With ``--profile-dir`` as well,
+`maybe_torch_trace` merges the host spans into the profiler's trace.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import time
 from typing import Iterator, Optional
 
 from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
+from kafka_topic_analyzer_tpu_torch.obs import trace as obs_trace
 
 #: Canonical drive-loop stage order: pipeline position, not insertion
 #: order (insertion order varies with which stage fires first — e.g. a
@@ -51,31 +59,36 @@ class ScanProfile:
 
     @contextlib.contextmanager
     def stage(self, name: str, items: int = 0, nbytes: int = 0) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            if self.tracer is not None:
-                # Same t0/dt as the counters below: the trace and --stats
-                # can never drift apart.
-                self.tracer.add_complete(name, t0, dt, cat="stage")
-            # Book the measurement into the live stage counters at every
-            # window exit (not once at scan end): the flight recorder
-            # samples these mid-scan for per-stage occupancy, and the
-            # --stats stage digest renders from the registry snapshot —
-            # one measurement, every surface (DESIGN.md §17).
-            obs_metrics.STAGE_SECONDS.labels(stage=name).inc(dt)
-            if items:
-                obs_metrics.STAGE_RECORDS.labels(stage=name).inc(items)
-            if nbytes:
-                obs_metrics.STAGE_BYTES.labels(stage=name).inc(nbytes)
+        # One measurement for the span and the counters, booked into the
+        # live stage counters at every window exit (not once at scan end):
+        # the flight recorder samples these mid-scan for per-stage
+        # occupancy, and the --stats stage digest renders from the
+        # registry snapshot — one measurement, every surface (DESIGN.md
+        # §17).  The trace and --stats can never drift apart.
+        with obs_trace.timed(
+            name, obs_metrics.STAGE_SECONDS.labels(stage=name), cat="stage",
+            tracer=self.tracer,
+        ):
+            c0 = time.thread_time()
+            try:
+                yield
+            finally:
+                obs_metrics.STAGE_CPU_SECONDS.labels(stage=name).inc(
+                    time.thread_time() - c0
+                )
+                if items:
+                    obs_metrics.STAGE_RECORDS.labels(stage=name).inc(items)
+                if nbytes:
+                    obs_metrics.STAGE_BYTES.labels(stage=name).inc(nbytes)
 
 
 #: File name of the Chrome trace `maybe_torch_trace` writes.
 TRACE_FILE = "torch_trace.json"
 #: Chrome-trace categories of device activity in a ``torch.profiler`` trace.
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+#: The ``record_function`` marker that places the span tracer's clock on
+#: the profiler's time base.
+CLOCK_MARKER = "kta.clock"
 
 
 @contextlib.contextmanager
@@ -88,7 +101,11 @@ def maybe_torch_trace(
     activity too when ``device`` is a CUDA device.  When the profiler
     recorded no device activity for a CUDA device (CUPTI could not trace
     on this machine), the trace is still written and one stderr line says
-    so: the scan does not fail, and nothing is hidden."""
+    so: the scan does not fail, and nothing is hidden.
+
+    With a span tracer active (``--trace-json``) its host spans are merged
+    into the written trace on the profiler's time base (`merge_host_spans`),
+    each host thread on a track of its own."""
     if not profile_dir:
         yield
         return
@@ -100,15 +117,57 @@ def maybe_torch_trace(
     if cuda:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
+    tracer = obs_trace.active()
     with profile(activities=activities) as prof:
+        mark = clock_mark(tracer) if tracer is not None else None
         yield
     path = os.path.join(profile_dir, TRACE_FILE)
     prof.export_chrome_trace(path)
+    if mark is not None:
+        merge_host_spans(path, tracer, mark)
     if cuda and not device_events(path):
         sys.stderr.write(
             f"profile: {path} holds no CUDA activity (the profiler could "
             "not trace the device here); CPU activity only\n"
         )
+
+
+def clock_mark(tracer) -> float:
+    """Record the `CLOCK_MARKER` in the running profiler and return the
+    tracer's reading at its middle (the mean of a reading before and one
+    after)."""
+    import torch
+
+    before = tracer.now()
+    with torch.profiler.record_function(CLOCK_MARKER):
+        pass
+    return (before + tracer.now()) / 2
+
+
+def merge_host_spans(trace_path: str, tracer, mark: float) -> None:
+    """Append ``tracer``'s events to the profiler's Chrome trace at
+    ``trace_path``, shifted so that ``mark`` (a reading of its clock, from
+    `clock_mark`) falls at the middle of the trace's `CLOCK_MARKER`.  Each
+    host thread gets a track of its own, named ``host spans: <thread>``."""
+    with open(trace_path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    marks = [e for e in events if e.get("name") == CLOCK_MARKER and e.get("ph") == "X"]
+    if not marks:
+        sys.stderr.write(
+            f"profile: {trace_path} lacks the clock marker; host spans not merged\n"
+        )
+        return
+    marker = marks[0]
+    shift_us = marker["ts"] + marker.get("dur", 0) / 2 - tracer.ts_us(mark)
+    events.extend(dict(ev, ts=ev["ts"] + shift_us) for ev in tracer.events())
+    events.extend(
+        {"name": "thread_name", "ph": "M", "pid": os.getpid(), "tid": tid,
+         "args": {"name": f"host spans: {name}"}}
+        for tid, name in sorted(tracer.threads.items())
+    )
+    with open(trace_path, "w") as f:
+        json.dump(doc, f)
 
 
 def device_events(trace_path: str) -> "list[dict]":

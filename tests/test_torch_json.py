@@ -19,6 +19,7 @@ import json
 import pytest
 
 from fake_broker import CorruptionInjector, FakeBroker
+from port_instruments import PORT_ONLY
 from kafka_topic_analyzer_tpu import cli as ref_cli
 from kafka_topic_analyzer_tpu.io import kafka_codec as ref_kc
 from kafka_topic_analyzer_tpu.obs.registry import default_registry as ref_registry
@@ -68,7 +69,8 @@ def assert_same_doc(port: dict, ref: dict) -> None:
             continue
         assert port[key] == ref[key], key
     assert port["flight"].keys() == ref["flight"].keys()
-    assert port["telemetry"].keys() == ref["telemetry"].keys()
+    # The reference's instruments, plus exactly the port's own.
+    assert sorted(port["telemetry"]) == sorted(set(ref["telemetry"]) | set(PORT_ONLY))
     for name, metric in ref["telemetry"].items():
         if any(t in name for t in TIMED) or metric.get("type") == "histogram":
             continue

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 from fake_broker import FakeBroker
+from port_instruments import PORT_ONLY
 from kafka_topic_analyzer_tpu import cli as ref_cli
 from kafka_topic_analyzer_tpu.obs.registry import default_registry as ref_registry
 from kafka_topic_analyzer_tpu_torch import cli
@@ -71,7 +72,8 @@ def _assert_same_multi_doc(port: dict, ref: dict) -> None:
         if key in ("duration_secs", "flight", "telemetry"):
             continue
         assert port[key] == ref[key], key
-    assert port["telemetry"].keys() == ref["telemetry"].keys()
+    # The reference's instruments, plus exactly the port's own.
+    assert sorted(port["telemetry"]) == sorted(set(ref["telemetry"]) | set(PORT_ONLY))
     for name, metric in ref["telemetry"].items():
         if any(t in name for t in TIMED_TELEMETRY) or metric["type"] == "histogram":
             continue

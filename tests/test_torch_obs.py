@@ -17,6 +17,7 @@ import urllib.error
 import urllib.request
 
 import pytest
+from port_instruments import PORT_ONLY
 
 from kafka_topic_analyzer_tpu.obs import metrics as ref_metrics
 from kafka_topic_analyzer_tpu.obs import registry as ref_registry
@@ -295,9 +296,12 @@ def _catalog(module) -> dict:
 
 
 def test_instrument_catalog_equals_the_reference():
+    """The reference's catalog, instrument for instrument, plus exactly
+    the port's own (`port_instruments.PORT_ONLY`)."""
     port, ref = _catalog(obs_metrics), _catalog(ref_metrics)
-    assert sorted(port) == sorted(ref)
-    assert port == ref
+    assert sorted(port) == sorted(set(ref) | set(PORT_ONLY))
+    assert {name: spec for name, spec in port.items() if name not in PORT_ONLY} == ref
+    assert {name: (port[name][0], port[name][2]) for name in PORT_ONLY} == PORT_ONLY
     assert len(port) > 100
 
 

@@ -27,6 +27,7 @@ import urllib.request
 from types import SimpleNamespace
 
 import pytest
+from port_instruments import drop_port_only
 
 import kafka_topic_analyzer_tpu.config as ref_config
 import kafka_topic_analyzer_tpu.obs.exporters as ref_exporters
@@ -308,7 +309,11 @@ def test_unknown_route_and_keepalive_framing_equal_the_reference():
                 conn.request("GET", path)
                 resp = conn.getresponse()
                 body = resp.read()
-                out.append((resp.status, resp.headers["Content-Length"],
+                # /metrics: the length of the reference's families (the
+                # port adds exactly its own, `port_instruments.PORT_ONLY`).
+                out.append((resp.status,
+                            resp.headers["Content-Length"] if path != "/metrics"
+                            else str(len(drop_port_only(body))),
                             body if path != "/metrics" else b""))
         finally:
             conn.close()

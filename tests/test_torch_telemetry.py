@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from fake_broker import CorruptionInjector, FakeBroker
+from port_instruments import PORT_ONLY
 from kafka_topic_analyzer_tpu import cli as ref_cli
 from kafka_topic_analyzer_tpu.io import kafka_codec as ref_cc
 from kafka_topic_analyzer_tpu.io import native as ref_native
@@ -110,11 +111,12 @@ def drop_timing(text: str) -> str:
 
 
 def counting(snapshot: dict) -> dict:
-    """Every counter and histogram that counts (no seconds): name and
-    labels → value, or → (count, bucket counts)."""
+    """Every counter and histogram that counts (no seconds) of the
+    reference's catalog: name and labels → value, or → (count, bucket
+    counts)."""
     out = {}
     for name, fam in snapshot.items():
-        if "seconds" in name or name in K1_ONLY:
+        if "seconds" in name or name in K1_ONLY or name in PORT_ONLY:
             continue
         for s in fam["samples"]:
             key = (name, tuple(sorted(s.get("labels", {}).items())))
@@ -159,8 +161,12 @@ def test_metrics_families_equal_the_reference():
     finally:
         for e in exporters:
             e.close()
-    assert sorted(port) == sorted(ref)
-    assert port == ref
+    # The reference's families, plus exactly the port's own instruments.
+    assert sorted(port) == sorted(set(ref) | set(PORT_ONLY))
+    assert {name: fam for name, fam in port.items() if name not in PORT_ONLY} == ref
+    for name, (kind, labels) in PORT_ONLY.items():
+        assert port[name][0] == kind
+        assert port[name][1] <= set(labels)
     assert port["kta_scan_records_total"] == ("counter", frozenset())
     assert port["kta_partition_lag"][1] == {"partition"}
 
