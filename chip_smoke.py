@@ -30,7 +30,14 @@ Phases, in order; any failure exits non-zero:
   ``torch.add``, the chain the fused merge replaces (``torch.add`` and the
   five launches of the v5 step's global sums), one ``index_add_`` of a
   prebuilt ``[B, 7]`` contribution tensor, and the two ways to get the
-  current stream's handle;
+  current stream's handle.  Then ``bitmap_apply_pairs`` against its plain
+  version at 2^32 bitmap slots with pair tables of 65,536 and of
+  262,144 entries (the demo audit's: random, clustered 32 pairs a word,
+  a partial prefix), on one space shard and the top of four, bit for
+  bit, and its three times at each size beside the plain version's, the
+  back-to-back time of the word accumulator it replaced (a yardstick the
+  port no longer has), and how long one call of each holds the host
+  while the device spins;
 - identity: the port's CLI at partitions=4, messages=200000, keys=50000
   with the 2^32-slot alive bitmap: the synthetic source in wire v5 and
   wire v4, each on ``cuda`` and on ``cpu``, and v5 with
@@ -50,7 +57,8 @@ Phases, in order; any failure exits non-zero:
   ``--source segfile`` (the fused path).  Both kernels' launch counters
   are zeroed just before each scan and read just after: the wire
   format's kernel must have launched once per dispatch of the backend
-  and the other kernel never.  The alive-key count of each scan must
+  and the other kernel never, and ``bitmap_apply_pairs`` once per
+  dispatch (each carries a pair list).  The alive-key count of each scan must
   equal a numpy replay of the spec's records, last writer wins per
   bitmap slot, in the scan's record order: the synthetic source
   interleaves the partitions, the segment files come one partition after
@@ -275,7 +283,8 @@ Prints the card's name and power limit (``nvidia-smi``), a ``walls`` line
 (each phase's wall seconds, and their sum), a ``kernels``
 JSON line (each kernel's back-to-back ``ms``, ``device_ms`` and
 ``host_us`` beside its plain version, its library call and its bound, and
-for ``counters_merge`` the chain's ``chain_ms``; ``launches`` counts the
+for ``counters_merge`` the chain's ``chain_ms``, for ``bitmap_apply_pairs``
+the accumulator's ``accumulator_ms``; ``launches`` counts the
 16M-record Kafka scan of the kernel's format, the slice's main path, and
 ``launches_by_path`` every full-size scan, the resumed and the N-worker
 scans, the follow services' initial and tail passes, the resumed follow,
@@ -375,6 +384,8 @@ KAFKA_WORKERS = ("1", "4", "auto")
 KAFKA_BROKERS = 4
 #: Records/s of each full-size scan of the scan phase, keyed by its label.
 SCAN_RATES: dict = {}
+#: ``bitmap_apply_pairs`` launches of each full-size scan, by label.
+PAIR_LAUNCHES: dict = {}
 #: The records a space shard of a ``--mesh 2,2`` scan folds per round
 #: (B/S; the kernel phase also checks B/4, a ``--mesh 1,4`` chunk).
 MESH_CHUNK = SCAN_BATCH // 2
@@ -807,6 +818,159 @@ def phase_update_kernel(torch, np, cu) -> dict:
     return row
 
 
+#: Cycles of the device spin that shows whether a call waits for the
+#: device (about 0.1 s at the H100's clocks).
+SPIN_CYCLES = 200_000_000
+#: Pair-table capacities over 2^32 bitmap slots: 65,536, and the demo
+#: audit's 262,144 (one 2^18-record row of distinct keys a dispatch).
+PAIRS_T = (1 << 16, 1 << 18)
+
+
+def pair_tables(torch, np, rng, t: int, base: int) -> dict:
+    """Pair tables of capacity ``t`` on the card (label → (slot, flag,
+    n_pairs)): distinct random slots over 2^32; clustered slots (every
+    bit of ``t / 32`` consecutive words from slot ``base``, 32 pairs a
+    word); a partial prefix with random slots in its padding."""
+    def distinct():
+        s = np.unique(rng.integers(0, 1 << 32, size=2 * t, dtype=np.uint64))
+        rng.shuffle(s)
+        return s[:t].astype(np.uint32)
+
+    def on_card(slot, n):
+        flag = rng.integers(0, 2, size=t).astype(np.uint8)
+        return (torch.from_numpy(slot.view(np.int32)).cuda(),
+                torch.from_numpy(flag).cuda(),
+                torch.tensor(n, dtype=torch.int32, device="cuda"))
+
+    clustered = np.uint32(base) + rng.permutation(t).astype(np.uint32)
+    return {"random": on_card(distinct(), t),
+            "clustered": on_card(clustered, t),
+            "partial": on_card(distinct(), t * 5 // 8)}
+
+
+def accumulator_apply(torch, words, scratch, slot, flag, n_pairs):
+    """The pair apply the kernel replaced (yardstick only): set and clear
+    masks built by ``index_add_`` into a bitmap-sized int32 accumulator,
+    read back by gather, re-zeroed, then ANDed/ORed into the gathered
+    words and scattered back."""
+    s = slot.to(torch.int64) & 0xFFFFFFFF
+    live = torch.arange(slot.shape[0], device=slot.device) < n_pairs
+    word = torch.where(live, s >> 5, 0)
+    one = torch.ones_like(s, dtype=torch.int32)
+    bit = torch.where(live, torch.bitwise_left_shift(one, (s & 31).to(torch.int32)), 0)
+    alive = flag.to(torch.bool)
+    for mask, is_clear in ((torch.where(alive, 0, bit), True),
+                           (torch.where(alive, bit, 0), False)):
+        scratch.index_add_(0, word, mask)
+        acc = scratch[word]
+        scratch[word] = 0
+        cur = words[word]
+        words[word] = cur & ~acc if is_clear else cur | acc
+
+
+def phase_pairs_kernel(torch, np, bm) -> dict:
+    """``bitmap_apply_pairs`` against its plain version at 2^32 slots and
+    T in `PAIRS_T` (one space shard and the top of four), then its times
+    at each T beside the plain version and the accumulator it replaced;
+    the row is the demo's T."""
+    rng = np.random.default_rng(20261018)
+    bits = ALIVE_BITS
+    for t_cap in PAIRS_T:
+        for shards in (1, 4):
+            w = bm.bitmap_num_words(bits, shards)
+            idx = shards - 1
+            words = torch.randint(-(1 << 31), 1 << 31, (w,), dtype=torch.int32,
+                                  device="cuda")
+            want = words.clone()
+            base = idx * w * 32 + (123_456_789 & ~31)
+            for label, (slot, flag, n) in pair_tables(torch, np, rng, t_cap,
+                                                      base).items():
+                before = bm.bitmap_apply_pairs.launches
+                bm.bitmap_apply_pairs(words, slot, flag, n, bits, space_index=idx,
+                                      space_shards=shards)
+                bm.bitmap_apply_pairs_plain(want, slot, flag, n, bits, idx, shards)
+                torch.cuda.synchronize()
+                same = torch.equal(words, want)
+                print(f"kernel: bitmap_apply_pairs 2^{bits} bits, shard {idx} of "
+                      f"{shards}, {label} T={t_cap} n_pairs={int(n)}: "
+                      f"bit-identical to the plain version {same}")
+                if not same or bm.bitmap_apply_pairs.launches != before + 1:
+                    fail(f"bitmap_apply_pairs disagrees with its plain version "
+                         f"({label}, T={t_cap}, shard {idx} of {shards}) or did "
+                         "not launch once")
+            del words, want
+
+    w = bm.bitmap_num_words(bits)
+    words = torch.randint(-(1 << 31), 1 << 31, (w,), dtype=torch.int32, device="cuda")
+    scratch = torch.zeros(w, dtype=torch.int32, device="cuda")
+    label = "bitmap_apply_pairs"
+    for t_cap in PAIRS_T:
+        slot, flag, n = pair_tables(torch, np, rng, t_cap, 0)["random"]
+        t = three_times([
+            (f"{label} T={t_cap} random",
+             lambda: bm.bitmap_apply_pairs(words, slot, flag, n, bits), 1),
+            (f"{label} plain T={t_cap} random",
+             lambda: bm.bitmap_apply_pairs_plain(words, slot, flag, n, bits), 14),
+        ], 500)
+        kernel = t[f"{label} T={t_cap} random"]
+        plain = t[f"{label} plain T={t_cap} random"]
+        # The accumulator's re-zero (``scratch[word] = 0``) copies a host
+        # scalar to the card and waits for it, so the host never gets
+        # ahead of the device there: back to back only, and how long one
+        # call holds the host behind a spin of the device.
+        accumulator = cuda_ms(
+            lambda: accumulator_apply(torch, words, scratch, slot, flag, n), 100)
+        held = {}
+        for name, fn in (
+                (label, lambda: bm.bitmap_apply_pairs(words, slot, flag, n, bits)),
+                ("accumulator",
+                 lambda: accumulator_apply(torch, words, scratch, slot, flag, n))):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SPIN_CYCLES)
+            t0 = time.perf_counter()
+            fn()
+            held[name] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        # Read once: each live pair's u32 slot and u8 flag, and the 4 B
+        # header.  Each 32 B sector of words that a pair touches is read
+        # and written.
+        host_slot = slot.cpu().numpy().view(np.uint32)
+        sectors = len(np.unique(host_slot >> 8))
+        nbytes = 5 * t_cap + 4 + 2 * 32 * sectors
+        bound_ms, bound_by = bound(nbytes, t_cap)
+        print(
+            f"kernel: {label} T={t_cap} over 2^{bits} slots: {kernel['ms']:.6f} ms "
+            f"back to back, device {kernel['device_ms']:.6f} ms = "
+            f"{bound_ms / kernel['device_ms']:.4f} of the bound {bound_ms:.9f} ms "
+            f"({nbytes} B: {sectors} sectors); plain {plain['ms']:.6f} ms; the "
+            f"accumulator it replaced {accumulator:.6f} ms back to back; host "
+            f"{kernel['host_us']:.3f} us/call; one call behind a {SPIN_CYCLES}-cycle "
+            f"spin holds the host {held[label] * 1e3:.3f} ms (kernel), "
+            f"{held['accumulator'] * 1e3:.3f} ms (accumulator)"
+        )
+    row = {
+        "name": "bitmap_apply_pairs",
+        "T": t_cap,
+        "route": "cuda",
+        "source": "kafka_topic_analyzer_tpu_torch/csrc/bitmap_pairs.cu",
+        "replaces": "none (the port's own: the pair scatter's word accumulator)",
+        "launches": 0,
+        "max_abs_err": 0,
+        "ms": kernel["ms"],
+        "plain_ms": plain["ms"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "device_ms": kernel["device_ms"],
+        "host_us": kernel["host_us"],
+        "accumulator_ms": accumulator,
+        "host_held_behind_spin_s": held,
+    }
+    del words, scratch
+    torch.cuda.empty_cache()
+    return row
+
+
 def run_cli(cli, argv):
     """The port's CLI on ``argv`` (``cli.run``, what ``main`` runs, with
     ``--quiet``): (stdout, the scan's result); fails on a non-zero
@@ -946,6 +1110,7 @@ def phase_scan(torch, np, cli, kernels, label, argv, kernel,
     timing lines, the scan's result)."""
     from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
     from kafka_topic_analyzer_tpu_torch.engine import run_scan
+    from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_apply_pairs
     from kafka_topic_analyzer_tpu_torch.report import render_report
 
     args = cli.build_parser().parse_args(
@@ -956,17 +1121,20 @@ def phase_scan(torch, np, cli, kernels, label, argv, kernel,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero(kernels)
+    bitmap_apply_pairs.launches = 0
     t0 = time.perf_counter()
     result = run_scan(args.topic, source, backend, args.batch_size)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
+    PAIR_LAUNCHES[label] = pairs = bitmap_apply_pairs.launches
     m = result.metrics
     records = source.total_records()
     words = backend.state.alive.words
     print(f"scan {label}: {records} records in {wall:.3f} s = "
           f"{records / wall:.1f} records/s; {backend.dispatches} dispatches "
-          f"(fused rows: {result.fused}), kernel launches {launches}; "
+          f"(fused rows: {result.fused}), kernel launches {launches}, "
+          f"bitmap_apply_pairs {pairs}; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; pinned "
           f"staging ring {backend.ring_nbytes} B per ingest stream")
     report = render_report(
@@ -987,6 +1155,11 @@ def phase_scan(torch, np, cli, kernels, label, argv, kernel,
     if not (n > 0 and n == backend.dispatches):
         fail(f"scan {label}: {n} {kernel} launches for {backend.dispatches} "
              "dispatches")
+    # At 2^32 slots every dispatch carries a pair list (its compacted
+    # table, or its row's own pairs).
+    if pairs != backend.dispatches:
+        fail(f"scan {label}: {pairs} bitmap_apply_pairs launches for "
+             f"{backend.dispatches} dispatches")
     if any(v for name, v in launches.items() if name != kernel):
         fail(f"scan {label}: launched a kernel of the other wire format: "
              f"{launches}")
@@ -2405,6 +2578,10 @@ def follow_run(cli, kernels, argv, broker, heads, per_window, label,
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc, result = cli.run(args)
         wall = time.perf_counter() - t0
+    if probe.errors:
+        print(f"follow {label}: the probe failed after {wall:.3f} s; report counts "
+              f"{probe.counts[-5:]}; the CLI's stderr ends:\n{err.getvalue()[-3000:]}",
+              file=sys.stderr)
     probe.join()
     fleet_doc = pollers.join() if pollers else None
     if rc != 0:
@@ -3663,15 +3840,15 @@ def phase_mesh(torch, np, cli, kernels, dump: str, reports: dict, rates: dict,
                  f"replay {want_alive}")
         rounds = check_mesh_launches(label, result, run["launches"], kernel, d * s)
         finalize = stage_seconds(result.telemetry).get("finalize", 0.0)
-        scratch = bitmap // s
+        accumulator = bitmap // s
         print(f"mesh {label}: {result.records} records in {run['wall']:.3f} s = "
               f"{run['rate']:.1f} records/s ((1, 1) at the same workers: "
               f"{single_rate if single_rate is not None else float('nan'):.1f}); "
               f"{result.ingest_workers} worker(s), K={result.superbatch_k}; {rounds} "
               f"rounds, {run['launches'][kernel]} {kernel} launches; peak "
               f"max_memory_allocated {peak} B ({resident} B resident before; {d} "
-              f"bitmaps of {bitmap} B = {d * bitmap} B, a pair scratch and the "
-              f"finalize OR's accumulator {scratch} B each); finalize {finalize:.3f} s; "
+              f"bitmaps of {bitmap} B = {d * bitmap} B, the finalize OR's "
+              f"accumulator {accumulator} B each); finalize {finalize:.3f} s; "
               f"alive keys {result.metrics.alive_keys} (the (1, 1) scan's line: "
               + next((l for l in reports[single].splitlines() if l.startswith("Alive")), "")
               + ")")
@@ -4504,6 +4681,7 @@ def main() -> int:
         from kafka_topic_analyzer_tpu_torch.io import native
         from kafka_topic_analyzer_tpu_torch.io.segfile import SegmentFileSource
         from kafka_topic_analyzer_tpu_torch.ops import counters_merge as cm
+        from kafka_topic_analyzer_tpu_torch.ops import bitmap as bm
         from kafka_topic_analyzer_tpu_torch.ops import counters_update as cu
     except ImportError as e:
         fail(f"the port package is not importable here: {e}")
@@ -4545,6 +4723,7 @@ def main() -> int:
     walls.mark("build")
     merge_row = phase_kernel(torch, np, cm)
     update_row = phase_update_kernel(torch, np, cu)
+    pairs_row = phase_pairs_kernel(torch, np, bm)
     walls.mark("kernel")
     phase_identity(cli, kernels)
     walls.mark("identity")
@@ -4754,7 +4933,9 @@ def main() -> int:
     for row in (merge_row, update_row):
         row["launches"] = launches[row["name"]]["kafka"]
         row["launches_by_path"] = launches[row["name"]]
-    print(json.dumps({"kernels": [merge_row, update_row]}))
+    pairs_row["launches"] = PAIR_LAUNCHES["kafka v5"]
+    pairs_row["launches_by_path"] = PAIR_LAUNCHES
+    print(json.dumps({"kernels": [merge_row, update_row, pairs_row]}))
     print(json.dumps({
         "ok": True,
         "device": {

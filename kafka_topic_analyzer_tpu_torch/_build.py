@@ -29,6 +29,7 @@ _PKG = Path(__file__).resolve().parent
 KERNEL_SOURCES = {
     "counters_merge": "csrc/counters_merge.cu",
     "counters_update": "csrc/counters_update.cu",
+    "bitmap_pairs": "csrc/bitmap_pairs.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

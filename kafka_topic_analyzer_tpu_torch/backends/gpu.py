@@ -32,8 +32,9 @@ asynchronous copy, so a pending superbatch holds device rows and host
 pair arrays, never a ring slot, and no slot can be rewritten while its
 row waits for the flush (the reference stacks K host rows into one
 transfer instead).  The pair table's capacity is the K-row one,
-``min(K·B, 2^bits)``, which also picks its form (masks or list) and
-whether the pair scatter needs its scratch.
+``min(K·B, 2^bits)``, which also picks its form (masks or list).  A
+pair list is applied in place by `ops.bitmap.bitmap_apply_pairs` (one
+atomic kernel launch on a card), which needs no buffer beside the bitmap.
 
 Nothing synchronizes until `finalize` (or a snapshot's `get_state`) but
 the two real waits — a ring slot whose copy is still in flight, and the
@@ -103,11 +104,9 @@ from kafka_topic_analyzer_tpu_torch.models.state import (
 )
 from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
 from kafka_topic_analyzer_tpu_torch.obs import trace as obs_trace
-from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_scratch
 from kafka_topic_analyzer_tpu_torch.packing import (
     FusedPackSink,
     SuperbatchStager,
-    alive_table_mode,
     batch_alive_pairs,
     pack_batch,
     pack_pair_table,
@@ -312,21 +311,7 @@ class TorchBackend(MetricBackend):
         self._pair_cap = (
             pair_table_capacity(config, b, k) if config.compact_alive else 0
         )
-        # Pair lists (per row, or a compacted table in its list form)
-        # scatter through a persistent word accumulator.
-        pair_lists = config.count_alive_keys and (
-            not config.compact_alive
-            or alive_table_mode(config, self._pair_cap) == 1
-        )
-        with self._on_stream():
-            self._scratch = (
-                bitmap_scratch(config.alive_bitmap_bits, self.device)
-                if pair_lists else None
-            )
-        resident = state_nbytes(self.state)
-        if self._scratch is not None:
-            resident["scratch"] = self._scratch.nbytes
-        book_resident(resident)
+        book_resident(state_nbytes(self.state))
         self._row_nbytes = packed_nbytes(config, b)
         # The pair table starts on a 16-byte boundary of the staging row.
         # Only at K = 1 does a slot carry one (its own batch's); at K > 1
@@ -516,15 +501,13 @@ class TorchBackend(MetricBackend):
         with self._on_stream():
             start = self._fold_start()
             analyzer_step(
-                self.state, unpack_device(batch.row, self.config), self.config,
-                scratch=self._scratch,
+                self.state, unpack_device(batch.row, self.config), self.config
             )
             if batch.pairs is not None:
                 apply_pair_table(
                     self.state,
                     unpack_pair_table_device(batch.pairs, self.config, self._pair_cap),
                     self.config,
-                    scratch=self._scratch,
                 )
             token = self._completion_token()
         self._queue.launched(token, 1, start)
@@ -574,7 +557,7 @@ class TorchBackend(MetricBackend):
             superbatch_fold(
                 self.state, [item.row for item in items],
                 lambda row: unpack_device(row, self.config), self.config,
-                pairs=pairs, scratch=self._scratch,
+                pairs=pairs,
             )
             token = self._completion_token()
         self._queue.launched(token, len(items), start)

@@ -43,13 +43,12 @@ def apply_pair_table(
     state: AnalyzerState,
     pairs: dict,
     config: AnalyzerConfig,
-    scratch: "torch.Tensor | None" = None,
     space_index: int = 0,
 ) -> AnalyzerState:
     """Apply one dispatch's compacted alive table
     (`packing.unpack_pair_table_device`): set/clear word masks merge
-    elementwise; the bounded pair list goes through the pair scatter
-    (``scratch``: see `ops.bitmap.bitmap_scratch`).  Under a space-sharded
+    elementwise; the bounded pair list goes through
+    `ops.bitmap.bitmap_apply_pairs`.  Under a space-sharded
     mesh every space shard applies its data row's one table to its own
     slot range (``space_index``)."""
     if state.alive is None:
@@ -66,7 +65,6 @@ def apply_pair_table(
             pairs["alive_flag"],
             pairs["n_pairs"],
             bits=config.alive_bitmap_bits,
-            scratch=scratch,
             space_index=space_index,
             space_shards=config.space_shards,
         )
@@ -79,7 +77,6 @@ def superbatch_fold(
     unpack,
     config: AnalyzerConfig,
     pairs: "dict | None" = None,
-    scratch: "torch.Tensor | None" = None,
     space_index: int = 0,
 ) -> AnalyzerState:
     """Fold a superbatch — K packed device rows — into the state, in
@@ -97,11 +94,9 @@ def superbatch_fold(
     leave, since every other fold is order-free.  ``space_index`` is a
     mesh shard's space index (see `analyzer_step`)."""
     for row in rows:
-        analyzer_step(state, unpack(row), config, scratch=scratch,
-                      space_index=space_index)
+        analyzer_step(state, unpack(row), config, space_index=space_index)
     if pairs is not None:
-        apply_pair_table(state, pairs, config, scratch=scratch,
-                         space_index=space_index)
+        apply_pair_table(state, pairs, config, space_index=space_index)
     return state
 
 
@@ -109,7 +104,6 @@ def _apply_alive(
     state: AnalyzerState,
     arrays: dict,
     config: AnalyzerConfig,
-    scratch: "torch.Tensor | None",
     space_index: int = 0,
     space_chunks: "list[dict] | None" = None,
 ) -> None:
@@ -130,7 +124,6 @@ def _apply_alive(
             chunk["alive_flag"],
             chunk["n_pairs"],
             bits=config.alive_bitmap_bits,
-            scratch=scratch,
             space_index=space_index,
             space_shards=config.space_shards,
         )
@@ -140,7 +133,6 @@ def analyzer_step_v5(
     state: AnalyzerState,
     arrays: dict,
     config: AnalyzerConfig,
-    scratch: "torch.Tensor | None" = None,
     space_index: int = 0,
     space_chunks: "list[dict] | None" = None,
 ) -> AnalyzerState:
@@ -158,7 +150,7 @@ def analyzer_step_v5(
         m.earliest_s, m.latest_s, m.smallest, m.largest,
         arrays["ts_min"], arrays["ts_max"], arrays["sz_min"], arrays["sz_max"],
     )
-    _apply_alive(state, arrays, config, scratch, space_index, space_chunks)
+    _apply_alive(state, arrays, config, space_index, space_chunks)
 
     if state.hll is not None:
         regs = state.hll.regs
@@ -181,7 +173,6 @@ def analyzer_step(
     state: AnalyzerState,
     arrays: dict,
     config: AnalyzerConfig,
-    scratch: "torch.Tensor | None" = None,
     space_index: int = 0,
     space_chunks: "list[dict] | None" = None,
 ) -> AnalyzerState:
@@ -190,14 +181,10 @@ def analyzer_step(
     wire-v4 rows scatter their record columns here.  The v4 counter
     update always runs through `counters_update` — the CUDA kernel on a
     card, its plain version on the host — and adds the global sums in the
-    same call.  ``scratch`` is the pair
-    scatter's accumulator (`ops.bitmap.bitmap_scratch`) for per-row
-    alive pairs; under a mesh ``space_index`` and ``space_chunks`` are
+    same call.  Under a mesh ``space_index`` and ``space_chunks`` are
     `_apply_alive`'s."""
     if "counts" in arrays:
-        return analyzer_step_v5(
-            state, arrays, config, scratch, space_index, space_chunks
-        )
+        return analyzer_step_v5(state, arrays, config, space_index, space_chunks)
     valid = arrays["valid"]
     key_null = arrays["key_null"]
     value_null = arrays["value_null"]
@@ -215,7 +202,7 @@ def analyzer_step(
         m.earliest_s, m.latest_s, m.smallest, m.largest,
         arrays["ts_min"], arrays["ts_max"], arrays["sz_min"], arrays["sz_max"],
     )
-    _apply_alive(state, arrays, config, scratch, space_index, space_chunks)
+    _apply_alive(state, arrays, config, space_index, space_chunks)
 
     if state.hll is not None:
         regs = state.hll.regs

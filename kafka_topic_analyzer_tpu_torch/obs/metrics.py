@@ -465,8 +465,8 @@ FINALIZE_PHASE_SECONDS = _REG.counter(
 DEVICE_RESIDENT_BYTES = _REG.counter(
     "kta_device_resident_bytes_total",
     "Bytes each backend keeps on its device for its life, added at its "
-    "construction, by owner: metrics, alive, hll, quantiles (the "
-    "state's tensors) and scratch (the bitmap's word accumulator)",
+    "construction, by owner: metrics, alive, hll and quantiles (the "
+    "state's tensors)",
     labelnames=("owner",))
 
 # -- follow-mode service (serve/follow.py + io/kafka_wire.py) -----------------

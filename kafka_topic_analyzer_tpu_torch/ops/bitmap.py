@@ -8,14 +8,17 @@ already resolved last-writer-wins per slot (packing.pack_pair_table), so
 the device only applies (slot, alive) pairs or set/clear word masks.
 
 Words are ``int32[W]`` bit patterns (`_torch_support`): bit 31 of a word is
-``INT32_MIN``, and every mask below is built, ORed, ANDed and negated
-bitwise, so the two's-complement reading never enters the arithmetic.
-The one add — summing the bits of one word's pairs — adds *distinct* bits
-(slots are unique), and a sum of distinct bits equals their OR in two's
-complement too: no partial sum leaves the int32 range.
+``INT32_MIN``.  Masks are built, ORed, ANDed and negated bitwise; the one
+add — the plain pair apply's per-word sum — adds or takes away *distinct*
+bits of one word, which in two's complement (wrapping modulo 2^32) equals
+setting or clearing them.
 
-Updates are in place: the state owns its words (the reference's step is
-pure; its buffers are donated instead).
+The pair form goes through the hand-written CUDA kernel
+(``csrc/bitmap_pairs.cu``: one atomic OR or AND-NOT a pair, straight on the
+words) on a card, and through `bitmap_apply_pairs_plain` only for CPU
+tensors; neither holds a bitmap-sized temporary.  Updates are in place:
+the state owns its words (the reference's step is pure; its buffers are
+donated instead).
 
 Under a space-sharded mesh (``space_shards`` S > 1) each space shard owns
 the contiguous slot range ``[idx·W·32, (idx+1)·W·32)`` of the bitmap,
@@ -26,9 +29,24 @@ full-bitmap masks.
 
 from __future__ import annotations
 
+import ctypes
+import struct
+import threading
+
 import torch
 
+from kafka_topic_analyzer_tpu_torch import _build
 from kafka_topic_analyzer_tpu_torch._torch_support import bit_i32, u32_low_bits
+
+_I32 = torch.int32
+_U8 = torch.uint8
+#: The C entry's argument record (``KtaPairsArgs`` in the source): words,
+#: slot, flag, n_pairs, capacity, the shard's first slot and its slot
+#: count, stream, device.
+_ARGS = struct.Struct("<QQQQqQQQq")
+#: ``kta_bitmap_apply_pairs``'s return code for tensors off the current
+#: device.
+_WRONG_DEVICE = -1
 
 
 def bitmap_num_words(bits: int, space_shards: int = 1) -> int:
@@ -41,15 +59,123 @@ def bitmap_num_words(bits: int, space_shards: int = 1) -> int:
     return total_words // space_shards
 
 
-def bitmap_scratch(bits: int, device, space_shards: int = 1) -> torch.Tensor:
-    """The all-zero ``int32[W]`` word accumulator `bitmap_apply_pairs`
-    uses (``W``: one space shard's words).  Allocate once per state and
-    pass to every apply: each apply re-zeroes only the words it touched,
-    so a 2^32-slot bitmap does not pay a 512 MiB allocation and fill per
-    dispatch."""
-    return torch.zeros(
-        bitmap_num_words(bits, space_shards), dtype=torch.int32, device=device
-    )
+def bitmap_apply_pairs_plain(
+    words: torch.Tensor,       # int32[W] packed bits
+    slot: torch.Tensor,        # int32[T] u32 bit patterns; prefix n_pairs live
+    alive_flag: torch.Tensor,  # uint8[T] 1 = the slot's last record had a value
+    n_pairs: torch.Tensor,     # int32 scalar — live prefix length
+    bits: int,
+    space_index: int = 0,
+    space_shards: int = 1,
+) -> torch.Tensor:
+    """The plain PyTorch version, in place: ``words = (words & ~clear) |
+    set`` over the touched words, with T-sized temporaries only.
+
+    Each pair reads its word once (``cur``) and adds the change of its own
+    bit: ``bit & ~cur`` to set it, ``-(bit & cur)`` to clear it.  Each live
+    slot appears once, so the changes that land in one word are of distinct
+    bits and their sum, added by one ``index_add_``, sets and clears exactly
+    those bits (bit 31, ``INT32_MIN``, wraps in two's complement).  Padding
+    entries and pairs outside space shard ``space_index``'s slot range add
+    0 to word 0."""
+    w = bitmap_num_words(bits, space_shards)
+    s = u32_low_bits(slot) - w * 32 * space_index
+    live = torch.arange(slot.shape[0], device=slot.device) < n_pairs
+    live = live & (s >= 0) & (s < w * 32)
+    word = torch.where(live, s >> 5, 0)
+    bit = torch.where(live, bit_i32(s & 31), 0)
+    cur = words[word]
+    delta = torch.where(alive_flag.to(torch.bool), bit & ~cur, -(bit & cur))
+    return words.index_add_(0, word, delta)
+
+
+#: ``(kta_bitmap_apply_pairs, kta_cuda_error_string, raw stream getter)``,
+#: bound on first launch.
+_bound = None
+#: Serializes the first binding: the fleet's concurrent topic scans can
+#: reach their first launch together.
+_bind_lock = threading.Lock()
+
+
+def _bind():
+    """Load the kernel's library (building it if missing) and set the C
+    signatures, once per process."""
+    global _bound
+    with _bind_lock:
+        if _bound is None:
+            _bound = _load()
+    return _bound
+
+
+def _load():
+    lib = _build.load("bitmap_pairs")
+    fn = lib.kta_bitmap_apply_pairs
+    # One argument: the packed record, passed as a pointer to its bytes.
+    fn.argtypes = [ctypes.c_char_p]
+    fn.restype = ctypes.c_int
+    lib.kta_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.kta_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.kta_cuda_error_string, torch._C._cuda_getCurrentRawStream
+
+
+def _check(words, slot, alive_flag, n_pairs, bits: int, space_index: int,
+           space_shards: int) -> torch.device:
+    """Raise what the kernel does not take; return the tensors' device.  It
+    runs on every call, so it reads each attribute once."""
+    try:
+        if not (words.dtype is _I32 and slot.dtype is _I32
+                and alive_flag.dtype is _U8 and n_pairs.dtype is _I32):
+            raise TypeError(
+                "bitmap_apply_pairs needs int32 words, int32 slots, uint8 "
+                f"flags and an int32 n_pairs, got {words.dtype}, {slot.dtype}, "
+                f"{alive_flag.dtype} and {n_pairs.dtype}"
+            )
+        if not 0 <= space_index < space_shards:
+            raise ValueError(
+                f"bitmap_apply_pairs: space_index {space_index} outside "
+                f"{space_shards} space shards"
+            )
+        w = bitmap_num_words(bits, space_shards)
+        if words.shape != (w,):
+            raise ValueError(
+                f"bitmap_apply_pairs needs [{w}] words for 2^{bits} slots in "
+                f"{space_shards} space shard(s), got {tuple(words.shape)}"
+            )
+        if slot.dim() != 1 or alive_flag.shape != slot.shape:
+            raise ValueError(
+                "bitmap_apply_pairs needs 1-d slots and flags of one length, "
+                f"got {tuple(slot.shape)} and {tuple(alive_flag.shape)}"
+            )
+        if n_pairs.numel() != 1:
+            raise ValueError(
+                "bitmap_apply_pairs needs n_pairs as one value, got "
+                f"{tuple(n_pairs.shape)}"
+            )
+        dev = words.device
+        if not (slot.device == dev and alive_flag.device == dev
+                and n_pairs.device == dev):
+            raise ValueError(
+                f"bitmap_apply_pairs device mismatch: words on {dev}, slots on "
+                f"{slot.device}, flags on {alive_flag.device}, n_pairs on "
+                f"{n_pairs.device}"
+            )
+        if not (words.is_contiguous() and slot.is_contiguous()
+                and alive_flag.is_contiguous()):
+            raise ValueError("bitmap_apply_pairs needs contiguous tensors")
+        if (words.data_ptr() | slot.data_ptr() | n_pairs.data_ptr()) & 3:
+            raise ValueError(
+                "bitmap_apply_pairs needs 4-byte aligned words, slots and "
+                "n_pairs"
+            )
+        if not (words.is_cuda or words.is_cpu):
+            raise ValueError(f"bitmap_apply_pairs runs on cuda or cpu, not {dev}")
+    except AttributeError:  # an argument that is not a tensor
+        got = [type(a).__name__ for a in (words, slot, alive_flag, n_pairs)
+               if not isinstance(a, torch.Tensor)]
+        raise TypeError(
+            f"bitmap_apply_pairs takes tensors, got {', '.join(got)}"
+        ) from None
+    return dev
 
 
 def bitmap_apply_pairs(
@@ -58,43 +184,47 @@ def bitmap_apply_pairs(
     alive_flag: torch.Tensor,  # uint8[T] 1 = the slot's last record had a value
     n_pairs: torch.Tensor,     # int32 scalar — live prefix length
     bits: int,
-    scratch: "torch.Tensor | None" = None,
     space_index: int = 0,
     space_shards: int = 1,
 ) -> torch.Tensor:
-    """Apply host-deduped (slot, aliveness) pairs in place:
-    ``words = (words & ~clear) | set`` over the touched words only.
+    """Apply host-deduped (slot, aliveness) pairs in place: ``words =
+    (words & ~clear) | set``; returns ``words``.  ``words`` is space shard
+    ``space_index``'s slice: pairs outside its slot range change nothing.
 
-    Each live slot appears once, so the bits landing in one word are
-    distinct and an integer ``index_add_`` builds that word's mask.  The
-    masks accumulate in ``scratch`` (see `bitmap_scratch`), are applied by
-    gather/scatter at the touched words, and are zeroed again there.
-    Padding entries add no bit and point at word 0: they read word 0's
-    finished mask like any live entry there, so every write to one word
-    carries the same value and the scatter is order-free — with no
-    data-dependent shape, hence no device→host sync.  ``words`` is space
-    shard ``space_index``'s slice: pairs outside its slot range add no
-    bit."""
-    w = bitmap_num_words(bits, space_shards)
-    if scratch is None:
-        scratch = bitmap_scratch(bits, words.device, space_shards)
-    base = w * 32 * space_index
-    s = u32_low_bits(slot) - base
-    live = torch.arange(slot.shape[0], device=slot.device) < n_pairs
-    live = live & (s >= 0) & (s < w * 32)
-    word = torch.where(live, s >> 5, 0)
-    bit = torch.where(live, bit_i32(s & 31), 0)
-    alive = alive_flag.to(torch.bool)
-    # Clear-then-set equals the reference's (words & ~clear) | set: a slot
-    # is either cleared or set, never both.
-    for mask, is_clear in ((torch.where(alive, 0, bit), True),
-                           (torch.where(alive, bit, 0), False)):
-        scratch.index_add_(0, word, mask)
-        acc = scratch[word]
-        scratch[word] = 0
-        cur = words[word]
-        words[word] = cur & ~acc if is_clear else cur | acc
+    CUDA tensors launch the kernel on the current stream (and add one to
+    ``bitmap_apply_pairs.launches``); it reads ``n_pairs`` on the device,
+    so nothing waits for the host.  CPU tensors take
+    `bitmap_apply_pairs_plain`.  Anything else raises."""
+    dev = _check(words, slot, alive_flag, n_pairs, bits, space_index,
+                 space_shards)
+    if dev.type == "cpu":
+        return bitmap_apply_pairs_plain(
+            words, slot, alive_flag, n_pairs, bits, space_index, space_shards
+        )
+    launch, error_string, raw_stream = _bound or _bind()
+    span = words.shape[0] * 32
+    index = dev.index
+    err = launch(_ARGS.pack(
+        words.data_ptr(), slot.data_ptr(), alive_flag.data_ptr(),
+        n_pairs.data_ptr(), slot.shape[0], span * space_index, span,
+        raw_stream(index), index,
+    ))
+    if err != 0:
+        if err == _WRONG_DEVICE:
+            raise ValueError(
+                f"bitmap_apply_pairs launches on the current device "
+                f"cuda:{torch.cuda.current_device()}, not {dev}"
+            )
+        raise RuntimeError(
+            "bitmap_apply_pairs kernel launch failed: "
+            + error_string(err).decode()
+        )
+    bitmap_apply_pairs.launches += 1
     return words
+
+
+#: Kernel launches since import (or since a caller reset it to 0).
+bitmap_apply_pairs.launches = 0
 
 
 def bitmap_apply_masks(

@@ -94,11 +94,10 @@ from kafka_topic_analyzer_tpu_torch.models.state import (
 )
 from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
 from kafka_topic_analyzer_tpu_torch.obs.registry import default_registry
-from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_num_words, bitmap_scratch
+from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_num_words
 from kafka_topic_analyzer_tpu_torch.packing import (
     FusedPackSink,
     SuperbatchStager,
-    alive_table_mode,
     batch_alive_pairs,
     pack_chunks,
     pack_pair_table,
@@ -311,25 +310,14 @@ class ShardedTorchBackend(MetricBackend):
         self._pair_cap = (
             pair_table_capacity(config, config.batch_size, k) if self._compact else 0
         )
-        pair_lists = config.count_alive_keys and (
-            not self._compact or alive_table_mode(config, self._pair_cap) == 1
-        )
         self._stacks: "dict[torch.device, AnalyzerState]" = {}
-        self._scratch: "dict[torch.device, torch.Tensor | None]" = {}
         for dev, rows in counts.items():
             with _on(dev):
                 self_check_unpack(dev)
                 self._stacks[dev] = _stacked_init(config, rows, dev)
-                self._scratch[dev] = (
-                    bitmap_scratch(config.alive_bitmap_bits, dev, s)
-                    if pair_lists else None
-                )
         resident: "dict[str, int]" = {}
-        for dev, stack in self._stacks.items():
-            owners = state_nbytes(stack)
-            if self._scratch[dev] is not None:
-                owners["scratch"] = self._scratch[dev].nbytes
-            for owner, nbytes in owners.items():
+        for stack in self._stacks.values():
+            for owner, nbytes in state_nbytes(stack).items():
                 resident[owner] = resident.get(owner, 0) + nbytes
         book_resident(resident)
         self._shards = [_row_view(self._stacks[dev], r) for dev, r in self._where]
@@ -490,7 +478,7 @@ class ShardedTorchBackend(MetricBackend):
                     with _on(dev):
                         analyzer_step(
                             self._shards[j * s + c], chunk(dev, c), ccfg,
-                            scratch=self._scratch[dev], space_index=c,
+                            space_index=c,
                             space_chunks=(
                                 [chunk(dev, o) for o in range(s)] if ordered else None
                             ),
@@ -507,7 +495,7 @@ class ShardedTorchBackend(MetricBackend):
                                 copies[dev][off : off + self._table_nbytes],
                                 cfg, self._pair_cap,
                             ),
-                            ccfg, scratch=self._scratch[dev], space_index=c,
+                            ccfg, space_index=c,
                         )
 
     def _token(self):

@@ -96,9 +96,7 @@ def timed_step_loop(
         apply_pair_table,
     )
     from kafka_topic_analyzer_tpu_torch.models.state import AnalyzerState
-    from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_scratch
     from kafka_topic_analyzer_tpu_torch.packing import (
-        alive_table_mode,
         pack_pair_table,
         pair_table_capacity,
         unpack_device,
@@ -124,19 +122,11 @@ def timed_step_loop(
         cap = pair_table_capacity(config, config.batch_size, 1)
         table = torch.from_numpy(pack_pair_table([], config, cap)[0]).to(dev)
         pairs = unpack_pair_table_device(table, config, cap)
-    # Pair lists (per row, or a table in its list form) scatter through a
-    # word accumulator, as in the backend.
-    scratch = None
-    if config.count_alive_keys and (
-        not config.compact_alive or alive_table_mode(config, cap) == 1
-    ):
-        scratch = bitmap_scratch(config.alive_bitmap_bits, dev)
-
     def run(i: int) -> None:
         analyzer_step(state, unpack_device(put(feed[i % len(feed)]), config),
-                      config, scratch=scratch)
+                      config)
         if pairs is not None:
-            apply_pair_table(state, pairs, config, scratch=scratch)
+            apply_pair_table(state, pairs, config)
 
     _synchronize(dev)
     t0 = time.perf_counter()

@@ -37,7 +37,7 @@ from kafka_topic_analyzer_tpu_torch.models.state import (
     state_from_numpy,
     state_to_numpy,
 )
-from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_apply_pairs, bitmap_scratch
+from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_apply_pairs
 from kafka_topic_analyzer_tpu_torch.records import RecordBatch
 
 CASES = {
@@ -113,17 +113,11 @@ def test_v5_step_matches_reference_from_a_carried_state(case):
     state = state_from_numpy(jax_leaves(ref_state), device="cpu")
     assert_same_leaves(state, ref_state)
     assert cfg.compact_alive == ref_cfg.compact_alive
-    scratch = (
-        bitmap_scratch(cfg.alive_bitmap_bits, "cpu")
-        if not cfg.compact_alive or packing.alive_table_mode(cfg, cap) == 1
-        else None
-    )
     for batch in batches[1:] + [RefBatch.empty(0)]:
         port_batch = RecordBatch(**batch.as_dict())
         row = packing.pack_batch(port_batch, cfg)
         port_analyzer_step(
-            state, packing.unpack_device(torch.from_numpy(row), cfg), cfg,
-            scratch=scratch,
+            state, packing.unpack_device(torch.from_numpy(row), cfg), cfg
         )
         if cfg.compact_alive:
             pairs, _, _ = packing.pack_pair_table(
@@ -132,12 +126,10 @@ def test_v5_step_matches_reference_from_a_carried_state(case):
             apply_pair_table(
                 state,
                 packing.unpack_pair_table_device(torch.from_numpy(pairs), cfg, cap),
-                cfg, scratch=scratch,
+                cfg,
             )
         ref_state = ref_step(ref_state, batch)
         assert_same_leaves(state, ref_state)
-    if scratch is not None:
-        assert not scratch.any()  # every apply re-zeroed what it touched
 
 
 def test_state_round_trips_through_numpy_leaves():
@@ -160,7 +152,6 @@ def test_pair_apply_sets_and_clears_bits_31_and_0_of_one_word():
     bits = 8
     ref_words = jnp.zeros(8, dtype=jnp.uint32)
     words = torch.zeros(8, dtype=torch.int32)
-    scratch = bitmap_scratch(bits, "cpu")
     rounds = [
         ([31, 0, 63, 32, 200], [1, 1, 1, 1, 1], 4),  # last pair is padding
         ([31, 63, 5], [0, 1, 1], 3),
@@ -176,7 +167,7 @@ def test_pair_apply_sets_and_clears_bits_31_and_0_of_one_word():
         )
         bitmap_apply_pairs(
             words, torch.from_numpy(slot.view(np.int32)), torch.from_numpy(flag),
-            torch.tensor(n, dtype=torch.int32), bits, scratch=scratch,
+            torch.tensor(n, dtype=torch.int32), bits,
         )
         np.testing.assert_array_equal(
             words.numpy().view(np.uint32), np.asarray(ref_words)

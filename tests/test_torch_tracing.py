@@ -251,18 +251,21 @@ CONFIGS = {
 
 @pytest.mark.parametrize("features", list(CONFIGS.values()), ids=list(CONFIGS))
 def test_resident_bytes_are_the_states_tensors_and_the_scratch(features):
+    """The resident bytes are the state's tensors alone: the pair lists
+    (compacted or per row) apply in place, with no word accumulator (no
+    ``scratch`` owner) beside the bitmap."""
     config = AnalyzerConfig(num_partitions=3, batch_size=512, alive_bitmap_bits=18,
                             hll_p=10, **features)
     backend = TorchBackend(config, device="cpu")
-    scratch = backend._scratch.nbytes if backend._scratch is not None else 0
     booked = samples(default_registry().snapshot(), "kta_device_resident_bytes_total")
-    assert sum(booked.values()) == state_bytes(backend.state) + scratch
+    assert sum(booked.values()) == state_bytes(backend.state)
     owners = {"metrics"} | {k for k in ("alive", "hll", "quantiles")
                             if getattr(backend.state, k) is not None}
-    assert set(booked) == owners | ({"scratch"} if scratch else set())
+    assert set(booked) == owners
+    assert "scratch" not in booked
     assert booked["metrics"] == 3 * 7 * 8 + 4 * 3 * 8 + 2 * 8
-    if features.get("alive_compaction") == "off":
-        assert booked["scratch"] == booked["alive"] == (1 << 18) // 8
+    if config.count_alive_keys:
+        assert booked["alive"] == (1 << 18) // 8
 
 
 def test_mesh_resident_bytes_sum_the_stacks():
@@ -270,10 +273,10 @@ def test_mesh_resident_bytes_sum_the_stacks():
                             alive_bitmap_bits=16, enable_hll=True, hll_p=8,
                             mesh_shape=(2, 1))
     backend = ShardedTorchBackend(config, device="cpu")
-    want = sum(state_bytes(s) for s in backend._stacks.values()) + sum(
-        s.nbytes for s in backend._scratch.values() if s is not None)
+    want = sum(state_bytes(s) for s in backend._stacks.values())
     booked = samples(default_registry().snapshot(), "kta_device_resident_bytes_total")
     assert sum(booked.values()) == want
+    assert "scratch" not in booked
 
 
 class TimingEvent:
