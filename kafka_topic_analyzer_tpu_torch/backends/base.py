@@ -14,7 +14,9 @@ from __future__ import annotations
 import abc
 import collections
 import functools
+import threading
 import time
+import weakref
 
 from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
 from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
@@ -235,11 +237,38 @@ class MetricBackend(abc.ABC):
         ...
 
 
-def book_resident(owners: "dict[str, int]") -> None:
+# Reentrant: a backend's release runs wherever it is collected, which may
+# be inside `book_resident`'s own locked block on the same thread.
+_resident_lock = threading.RLock()
+_resident_live = 0
+
+
+def book_resident(backend: object, owners: "dict[str, int]") -> None:
     """Add a new backend's device-resident bytes by owner
-    (``kta_device_resident_bytes_total``)."""
+    (``kta_device_resident_bytes_total``), and hold them in the process's
+    live sum until ``backend`` is released (collected), raising
+    ``kta_device_resident_bytes_max`` to the sum."""
+    global _resident_live
     for owner, nbytes in owners.items():
         obs_metrics.DEVICE_RESIDENT_BYTES.labels(owner=owner).inc(nbytes)
+    total = sum(owners.values())
+    with _resident_lock:
+        _resident_live += total
+        if _resident_live > obs_metrics.DEVICE_RESIDENT_MAX.value:
+            obs_metrics.DEVICE_RESIDENT_MAX.set(_resident_live)
+    # Nothing to release at the interpreter's exit.
+    weakref.finalize(backend, _release_resident, total).atexit = False
+
+
+def _release_resident(nbytes: int) -> None:
+    global _resident_live
+    with _resident_lock:
+        _resident_live -= nbytes
+
+
+def resident_bytes_live() -> int:
+    """The device-resident bytes of the process's live backends."""
+    return _resident_live
 
 
 def finalize_phase(phase: str) -> "obs_trace.timed":

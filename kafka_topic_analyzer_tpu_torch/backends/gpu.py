@@ -311,7 +311,7 @@ class TorchBackend(MetricBackend):
         self._pair_cap = (
             pair_table_capacity(config, b, k) if config.compact_alive else 0
         )
-        book_resident(state_nbytes(self.state))
+        book_resident(self, state_nbytes(self.state))
         self._row_nbytes = packed_nbytes(config, b)
         # The pair table starts on a 16-byte boundary of the staging row.
         # Only at K = 1 does a slot carry one (its own batch's); at K > 1

@@ -47,6 +47,7 @@ from kafka_topic_analyzer_tpu_torch.io.retry import Backoff
 from kafka_topic_analyzer_tpu_torch.obs import events as obs_events
 from kafka_topic_analyzer_tpu_torch.obs import health as obs_health
 from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
+from kafka_topic_analyzer_tpu_torch.obs import trace as obs_trace
 from kafka_topic_analyzer_tpu_torch.serve import state as serve_state
 from kafka_topic_analyzer_tpu_torch.utils.progress import Spinner
 
@@ -142,6 +143,10 @@ class _TopicScan:
         #: report does not overwrite the topic's real parallelism with
         #: the fallback's.
         self.last_grant: "Optional[Grant]" = None
+        #: When the topic was last offered to admission without a pass
+        #: since (a reading of `obs.trace.now`): its pass books the wait
+        #: (span ``fleet-admit``).
+        self.waiting_since: "Optional[float]" = None
 
 
 class FleetService:
@@ -228,6 +233,9 @@ class FleetService:
         #: from "mid-pass on a slow broker").
         self.paused = False
         self.polls = 0
+        #: The span context the fleet's threads bind: the fleet's own
+        #: ``scan`` number (`_start_banner`).
+        self._trace_ctx: dict = {}
         self._t0 = clock()
         self._last_ckpt = clock()
         if follow is not None:
@@ -322,7 +330,34 @@ class FleetService:
         serve/follow.FollowService._run_pass).  Returns True when the
         pass completed; False marks the topic failed — the exception is
         absorbed HERE, at the topic boundary, so a poisoned topic can
-        never take the fleet down."""
+        never take the fleet down.
+
+        On the thread that runs it, the pass books the topic's wait for
+        its grant (span ``fleet-admit``) and then its own wall (span
+        ``fleet-pass``, enclosing the scan's spans), both with the
+        fleet's ``scan`` number and the topic."""
+        topic = scan.seed.name
+        obs_trace.bind(self._trace_ctx)
+        if scan.waiting_since is not None:
+            obs_trace.since(
+                "fleet-admit", scan.waiting_since,
+                obs_metrics.FLEET_ADMISSION_WAIT_SECONDS, cat="fleet",
+                topic=topic,
+            )
+            scan.waiting_since = None
+        with obs_trace.timed(
+            "fleet-pass", obs_metrics.FLEET_PASS_SECONDS, cat="fleet",
+            topic=topic, workers=grant.workers,
+            dispatch_depth=grant.dispatch_depth,
+        ):
+            try:
+                return self._pass(scan, grant, final)
+            finally:
+                # run_scan numbered the pass; the span closes under the
+                # fleet's number.
+                obs_trace.bind(self._trace_ctx)
+
+    def _pass(self, scan: _TopicScan, grant: Grant, final: bool) -> bool:
         topic = scan.seed.name
         scan.status.status = "scanning"
         scan.status.workers = grant.workers
@@ -562,6 +597,8 @@ class FleetService:
         )
 
     def _start_banner(self) -> None:
+        obs_trace.begin_scan()
+        self._trace_ctx = obs_trace.context()
         serve_state.set_active(self.state)
         if self.health is not None:
             obs_health.set_active(self.health)
@@ -593,6 +630,11 @@ class FleetService:
         ``max_concurrent`` concurrent scans, sharing the worker budget
         within each wave."""
         self._start_banner()
+        # Every topic waits for its grant from the fleet's start: the plan
+        # defers a later wave's topics as the budget defers a wave's.
+        offered = obs_trace.now()
+        for scan in self.scans.values():
+            scan.waiting_since = offered
         waves = self.scheduler.plan_waves(
             [s.seed for s in self.scans.values()]
         )
@@ -780,6 +822,12 @@ class FleetService:
                         not_ours.add(s.name)
                 ready = gated
             ready_names = {s.name for s in ready}
+            offered = obs_trace.now()
+            for t, scan in self.scans.items():
+                if t not in ready_names:
+                    scan.waiting_since = None
+                elif scan.waiting_since is None:
+                    scan.waiting_since = offered
             self.scheduler.admit(ready)
             # "Skipped because empty" means exactly that: topics that
             # polled at the head with no work.  Failed topics are not

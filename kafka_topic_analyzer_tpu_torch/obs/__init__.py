@@ -112,19 +112,6 @@ def telemetry_session(
     engine = None
     pusher = None
     try:
-        if metrics_port is not None:
-            from kafka_topic_analyzer_tpu_torch.obs.exporters import (
-                PrometheusExporter,
-            )
-
-            exporter = PrometheusExporter(metrics_port)
-            if metrics_port == 0:
-                # The ephemeral port is useless unless announced; stderr,
-                # like the spinner, so --json stdout stays clean.
-                sys.stderr.write(
-                    "serving metrics on "
-                    f"http://{exporter.host}:{exporter.port}/metrics\n"
-                )
         if events_jsonl:
             sink = _events.JsonlEventLog(events_jsonl)
             _events.add_sink(sink)
@@ -159,6 +146,22 @@ def telemetry_session(
 
             pusher = _push.SsePublisher().start()
             _push.set_active(pusher)
+        # The endpoint opens last: a client that connects the moment the
+        # port accepts finds every route it serves (``/events``,
+        # ``/healthz``) already there.
+        if metrics_port is not None:
+            from kafka_topic_analyzer_tpu_torch.obs.exporters import (
+                PrometheusExporter,
+            )
+
+            exporter = PrometheusExporter(metrics_port)
+            if metrics_port == 0:
+                # The ephemeral port is useless unless announced; stderr,
+                # like the spinner, so --json stdout stays clean.
+                sys.stderr.write(
+                    "serving metrics on "
+                    f"http://{exporter.host}:{exporter.port}/metrics\n"
+                )
         yield tracer
     finally:
         if pusher is not None:

@@ -468,6 +468,12 @@ DEVICE_RESIDENT_BYTES = _REG.counter(
     "construction, by owner: metrics, alive, hll and quantiles (the "
     "state's tensors)",
     labelnames=("owner",))
+DEVICE_RESIDENT_MAX = _REG.gauge(
+    "kta_device_resident_bytes_max",
+    "The most device-resident bytes (kta_device_resident_bytes_total's) "
+    "held at once by the process's live backends: the live sum rises at "
+    "a backend's construction and falls at its release, and this keeps "
+    "its high-water mark (a fleet's backends stay live together)")
 
 # -- follow-mode service (serve/follow.py + io/kafka_wire.py) -----------------
 
@@ -580,6 +586,16 @@ FLEET_FAILOVERS = _REG.counter(
     "whose previous holder was a DIFFERENT instance (expired or "
     "released) — the crash-failover trace (fleet/lease.py; DESIGN §23)",
     labelnames=("instance",))
+
+FLEET_ADMISSION_WAIT_SECONDS = _REG.counter(
+    "kta_fleet_admission_wait_seconds_total",
+    "Seconds the fleet's topics waited for a grant, each from its offer "
+    "to admission (a batch fleet's start; the first follow poll that "
+    "found it lagging) to the start of its pass (span fleet-admit)")
+FLEET_PASS_SECONDS = _REG.counter(
+    "kta_fleet_pass_seconds_total",
+    "Wall seconds of the fleet's topic passes, each from its backend's "
+    "construction or re-grant to its report (span fleet-pass)")
 
 # -- topic ownership leases (fleet/lease.py) ----------------------------------
 

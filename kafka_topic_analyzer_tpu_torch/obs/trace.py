@@ -243,6 +243,31 @@ class timed:
         return False
 
 
+def now() -> float:
+    """A reading of the clock `timed` reads: the active tracer's, else
+    the ``perf_counter``."""
+    tr = _active
+    return tr.now() if tr is not None else time.perf_counter()
+
+
+def since(name: str, start_s: float, counter=None, cat: str = "span",
+          **args) -> float:
+    """Record on the calling thread a span from ``start_s`` (a reading of
+    `now`) to now, as `timed` would have, and book its duration on
+    ``counter``: a wait that began before the thread that ends it took
+    over.  Returns the duration."""
+    tr = _active
+    if tr is None:
+        dur = max(0.0, time.perf_counter() - start_s)
+    else:
+        span = tr.begin()
+        dur = max(0.0, tr.now() - start_s)
+        tr.end(span, name, start_s, dur, cat, args or None)
+    if counter is not None:
+        counter.inc(dur)
+    return dur
+
+
 def maybe_span(name: str, cat: str = "span") -> timed:
     """Span on the active tracer, or a bare timing when tracing is off —
     what library modules (io/kafka_wire.py) wrap their fetch/decode work

@@ -319,7 +319,7 @@ class ShardedTorchBackend(MetricBackend):
         for stack in self._stacks.values():
             for owner, nbytes in state_nbytes(stack).items():
                 resident[owner] = resident.get(owner, 0) + nbytes
-        book_resident(resident)
+        book_resident(self, resident)
         self._shards = [_row_view(self._stacks[dev], r) for dev, r in self._where]
         # The pinned slot of one dispatch: K rounds of [L, S] chunks (L
         # local rows), each on a 16-byte stride (typed views need no copy),

@@ -1,7 +1,8 @@
 """The instruments the port books that the reference's catalog lacks: what
 the port measures inside its own layers (worker and drive-loop CPU, the
-fetch rounds' wait, finalize's phases, the device-resident bytes, each
-fold's device span).  Name → (kind, label names)."""
+fetch rounds' wait, finalize's phases, the device-resident bytes and
+their high-water mark, each fold's device span, the fleet's admission
+waits and passes).  Name → (kind, label names)."""
 
 PORT_ONLY = {
     "kta_stage_cpu_seconds_total": ("counter", ("stage",)),
@@ -10,6 +11,9 @@ PORT_ONLY = {
     "kta_fold_device_seconds_total": ("counter", ()),
     "kta_finalize_phase_seconds_total": ("counter", ("phase",)),
     "kta_device_resident_bytes_total": ("counter", ("owner",)),
+    "kta_device_resident_bytes_max": ("gauge", ()),
+    "kta_fleet_admission_wait_seconds_total": ("counter", ()),
+    "kta_fleet_pass_seconds_total": ("counter", ()),
 }
 
 

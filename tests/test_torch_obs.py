@@ -434,6 +434,33 @@ def test_telemetry_session_write_failure_does_not_mask(tmp_path):
     assert events._sinks == []
 
 
+def test_telemetry_session_serves_its_routes_from_the_first_connection(monkeypatch):
+    """A dashboard that connects the moment the port accepts (retrying its
+    connect until then) finds ``/events`` and ``/healthz`` there: the
+    endpoint opens after the session's SSE publisher and alert engine."""
+    from kafka_topic_analyzer_tpu_torch.obs import exporters, telemetry_session
+
+    answers = []
+    real = exporters.PrometheusExporter
+
+    def first_connection(port):
+        exporter = real(port)
+        for path in ("/events", "/healthz"):
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{exporter.port}{path}", timeout=5) as resp:
+                    answers.append((path, resp.status))
+            except urllib.error.HTTPError as e:
+                answers.append((path, e.code))
+        return exporter
+
+    monkeypatch.setattr(exporters, "PrometheusExporter", first_connection)
+    with telemetry_session(metrics_port=0, sse=True):
+        pass
+    # 503 is the engine's answer before its first evaluation.
+    assert answers == [("/events", 200), ("/healthz", 503)]
+
+
 # ---------------------------------------------------------------------------
 # flight recorder
 
