@@ -3195,7 +3195,7 @@ def phase_fleet(np, torch, cli, kernels) -> dict:
         v5 = None
         for arm in ("streams", "default stream"):
             if arm == "default stream":
-                cli.make_backend = lambda *a, stream=None, **k: real_make_backend(*a, **k)
+                cli.make_backend = lambda *a, pooled_stream=False, **k: real_make_backend(*a, **k)
             try:
                 torch.cuda.synchronize()
                 torch.cuda.empty_cache()

@@ -192,6 +192,12 @@ class MetricBackend(abc.ABC):
         (follow mode re-enters the scan on one backend).  Nothing to do
         where nothing is staged."""
 
+    def close(self) -> None:
+        """Free the backend's device state now, not at its collection: a
+        batch fleet's topic pass has ended, and the backend folds nothing
+        more.  Idempotent.  Nothing to free where the state lives on the
+        host."""
+
     def update_superbatch(self, staged: list) -> None:
         """Fold up to `superbatch_k` staged batches in one dispatch, in
         list order; only a backend with ``superbatch_k`` > 1 has one."""
@@ -243,11 +249,15 @@ _resident_lock = threading.RLock()
 _resident_live = 0
 
 
-def book_resident(backend: object, owners: "dict[str, int]") -> None:
+def book_resident(
+    backend: object, owners: "dict[str, int]"
+) -> "weakref.finalize":
     """Add a new backend's device-resident bytes by owner
     (``kta_device_resident_bytes_total``), and hold them in the process's
-    live sum until ``backend`` is released (collected), raising
-    ``kta_device_resident_bytes_max`` to the sum."""
+    live sum until ``backend`` is released, raising
+    ``kta_device_resident_bytes_max`` to the sum.  The release is the
+    returned finalizer: the backend's `close` calls it, else its
+    collection does (it runs once)."""
     global _resident_live
     for owner, nbytes in owners.items():
         obs_metrics.DEVICE_RESIDENT_BYTES.labels(owner=owner).inc(nbytes)
@@ -256,8 +266,10 @@ def book_resident(backend: object, owners: "dict[str, int]") -> None:
         _resident_live += total
         if _resident_live > obs_metrics.DEVICE_RESIDENT_MAX.value:
             obs_metrics.DEVICE_RESIDENT_MAX.set(_resident_live)
+    release = weakref.finalize(backend, _release_resident, total)
     # Nothing to release at the interpreter's exit.
-    weakref.finalize(backend, _release_resident, total).atexit = False
+    release.atexit = False
+    return release
 
 
 def _release_resident(nbytes: int) -> None:
@@ -310,7 +322,7 @@ def make_backend(
     use_native: bool = False,
     native_requested: "bool | None" = None,
     dispatch=None,
-    stream=None,
+    pooled_stream: bool = False,
 ) -> MetricBackend:
     """Factory for ``--backend {cpu,tpu,gpu}``: ``cpu`` is the numpy exact
     oracle, which never touches torch's device layer (``device`` is not
@@ -318,9 +330,10 @@ def make_backend(
     backend on ``device`` (CUDA unless the caller asks for the CPU), which
     raises when CUDA is asked for and absent.  ``dispatch`` (a
     `config.DispatchConfig`) sizes the torch backend's superbatch and
-    in-flight bound; the oracle dispatches nothing.  ``stream`` is the
-    CUDA stream of the torch backend's device work (the fleet gives each
-    topic one; default: the current stream)."""
+    in-flight bound; the oracle dispatches nothing.  ``pooled_stream``
+    runs the torch backend's device work on a CUDA stream leased from the
+    process's pool (`gpu.STREAM_POOL`; the fleet's topics) and given back
+    at its `close`; default: the current stream."""
     if name == "cpu":
         from kafka_topic_analyzer_tpu_torch.backends.cpu import CpuExactBackend
 
@@ -331,7 +344,7 @@ def make_backend(
         return TorchBackend(
             config, device=device, use_native=use_native,
             native_requested=native_requested, dispatch=dispatch,
-            stream=stream,
+            pooled_stream=pooled_stream,
         )
     raise ValueError(
         f"unknown backend {name!r} (expected 'cpu', 'gpu' or 'tpu')"

@@ -50,12 +50,14 @@ Everything the backend enqueues runs on the one stream it holds
 self-check and state init, every copy and its event, the folds with both
 counter kernels, the snapshot and finalize copies to the host.  By
 default that is the creating thread's current stream (the solo scan's
-legacy default stream); the fleet passes a ``torch.cuda.Stream`` of its
-own to each topic's backend (``stream=``), so the scans of concurrent
-topics are ordered only within themselves.  Every device tensor a
-backend makes is allocated on its stream and used only there, so the
-caching allocator never hands a block still in use on one stream to
-another.
+legacy default stream); each of the fleet's topic backends leases a
+stream of its own from the process's `StreamPool` (``pooled_stream``),
+so the scans of concurrent topics are ordered only within themselves.
+Every device tensor a backend makes is allocated on its stream and used
+only there, so the caching allocator never hands a block still in use on
+one stream to another.  `close` frees the state at once (a batch fleet's
+topic pass has ended) and gives a pooled stream back with the blocks the
+allocator cached on it, for the next topic's state.
 
 Pinned staging slots form rings of ``ring_slots(prefetch_depth)``, one
 ring per ingest stream: each thread that calls `prepare` has its own
@@ -76,6 +78,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 
 import numpy as np
 import torch
@@ -121,6 +124,39 @@ from kafka_topic_analyzer_tpu_torch.packing import (
 from kafka_topic_analyzer_tpu_torch.records import RecordBatch
 from kafka_topic_analyzer_tpu_torch.results import TopicMetrics
 from kafka_topic_analyzer_tpu_torch.utils.timefmt import utc_now_seconds
+
+
+class StreamPool:
+    """CUDA streams lent to backends, a list of free ones a device.  A
+    backend leases one at its construction and gives it back at its
+    `TorchBackend.close` (or its collection), and the last stream given
+    back is the next one leased.  The caching allocator hands a freed
+    block only to an allocation on the stream that made it, so the next
+    backend on a stream builds its state in the memory the last one
+    freed there, and the card memory reserved stays what the backends
+    live at once need.  Two live backends never hold one stream; the
+    pool holds as many streams as were ever leased at once."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._free: "dict[torch.device, list[torch.cuda.Stream]]" = {}
+
+    def lease(self, device: torch.device) -> "torch.cuda.Stream":
+        with self._lock:
+            free = self._free.get(device)
+            if free:
+                return free.pop()
+        return torch.cuda.Stream(device)
+
+    def give_back(self, stream: "torch.cuda.Stream") -> None:
+        with self._lock:
+            self._free.setdefault(stream.device, []).append(stream)
+
+
+#: The process's pool: every fleet audit in a process draws on it, so the
+#: blocks cached on its streams serve each audit after the first.
+STREAM_POOL = StreamPool()
+
 
 def ring_slots(prefetch_depth: int) -> int:
     """Pinned staging slots for a prefetch depth: the item being folded,
@@ -265,13 +301,13 @@ class TorchBackend(MetricBackend):
         prefetch_depth: int = 2,
         native_requested: "bool | None" = None,
         dispatch: "DispatchConfig | None" = None,
-        stream: "torch.cuda.Stream | None" = None,
+        pooled_stream: bool = False,
     ):
         """``dispatch`` sizes the superbatch and the in-flight bound
         (``--superbatch``, ``--dispatch-depth``; default K = 1, depth 2).
-        ``stream`` is the CUDA stream all of the backend's device work
-        runs on (default: the creating thread's current stream); it must
-        belong to ``device``."""
+        All of the backend's device work runs on one CUDA stream: the
+        creating thread's current stream, or with ``pooled_stream`` one
+        leased from `STREAM_POOL` until `close` (a card backend only)."""
         super().__init__(config)
         self.device = resolve_device(device)
         #: Pack through the native shim when it loads (``--native``).
@@ -282,20 +318,22 @@ class TorchBackend(MetricBackend):
         self.native_requested = (
             use_native if native_requested is None else native_requested
         )
+        #: What `close` runs once: the resident bytes' release, a pooled
+        #: stream's return (each also runs at the backend's collection).
+        self._releases: "list[weakref.finalize]" = []
         if self.device.type != "cuda":
-            if stream is not None:
+            if pooled_stream:
                 raise ValueError(
-                    f"a CUDA stream was given for a backend on {self.device}"
+                    f"a CUDA stream was asked for a backend on {self.device}"
                 )
             self.stream = None
-        elif stream is None:
-            self.stream = torch.cuda.current_stream(self.device)
-        elif stream.device != self.device:
-            raise ValueError(
-                f"the backend's stream is on {stream.device}, not {self.device}"
+        elif pooled_stream:
+            self.stream = STREAM_POOL.lease(self.device)
+            self._releases.append(
+                weakref.finalize(self, STREAM_POOL.give_back, self.stream)
             )
         else:
-            self.stream = stream
+            self.stream = torch.cuda.current_stream(self.device)
         self.init_now_s = utc_now_seconds() if init_now_s is None else init_now_s
         with self._on_stream():
             self_check_unpack(self.device)
@@ -311,7 +349,7 @@ class TorchBackend(MetricBackend):
         self._pair_cap = (
             pair_table_capacity(config, b, k) if config.compact_alive else 0
         )
-        book_resident(self, state_nbytes(self.state))
+        self._releases.append(book_resident(self, state_nbytes(self.state)))
         self._row_nbytes = packed_nbytes(config, b)
         # The pair table starts on a 16-byte boundary of the staging row.
         # Only at K = 1 does a slot carry one (its own batch's); at K > 1
@@ -403,6 +441,7 @@ class TorchBackend(MetricBackend):
         queued to the main thread, and the fold after the item is
         dequeued, so the stream's order keeps every copy ahead of its
         fold, whichever worker sent it (span ``send``)."""
+        self._live_state()
         with obs_trace.timed("send", cat="ingest"), self._on_stream():
             dev = torch.empty(self._nbytes, dtype=torch.uint8, device=self.device)
             dev.copy_(ring.hosts[slot], non_blocking=True)
@@ -492,6 +531,7 @@ class TorchBackend(MetricBackend):
         if self.superbatch_k > 1:
             self.update_superbatch([batch])
             return
+        state = self._live_state()
         if isinstance(batch, RecordBatch):
             batch = self.prepare(batch)
         obs_metrics.WIRE_BYTES.inc(int(batch.row.numel()))
@@ -501,11 +541,11 @@ class TorchBackend(MetricBackend):
         with self._on_stream():
             start = self._fold_start()
             analyzer_step(
-                self.state, unpack_device(batch.row, self.config), self.config
+                state, unpack_device(batch.row, self.config), self.config
             )
             if batch.pairs is not None:
                 apply_pair_table(
-                    self.state,
+                    state,
                     unpack_pair_table_device(batch.pairs, self.config, self._pair_cap),
                     self.config,
                 )
@@ -529,6 +569,7 @@ class TorchBackend(MetricBackend):
         k = self.superbatch_k
         if not staged or len(staged) > k:
             raise ValueError(f"superbatch of {len(staged)} batches (K={k})")
+        state = self._live_state()
         self._queue.throttle()  # before staging: bounds the stager's ring
         slot = self._stager.next_slot()
         items = [
@@ -555,7 +596,7 @@ class TorchBackend(MetricBackend):
                     self._stager.record(slot, self._completion_token())
                 pairs = unpack_pair_table_device(dev, self.config, self._pair_cap)
             superbatch_fold(
-                self.state, [item.row for item in items],
+                state, [item.row for item in items],
                 lambda row: unpack_device(row, self.config), self.config,
                 pairs=pairs,
             )
@@ -568,28 +609,58 @@ class TorchBackend(MetricBackend):
     def drain_dispatch(self) -> None:
         self._queue.drain()
 
+    def close(self) -> None:
+        """Free the device state now: retire the in-flight folds, drop the
+        state, the staging rings and the superbatch stager, take the
+        state's bytes off the process's live sum and give a pooled stream
+        back, with the blocks freed on it, to the next backend that leases
+        it.  A second call does nothing; a fold, a snapshot or a finalize
+        after it raises."""
+        if self.state is None:
+            return
+        try:
+            self._queue.drain()
+        finally:
+            self.state = None
+            self._stager = None
+            with self._ring_lock:
+                self._free_rings, self._leased_rings = [], []
+            for release in self._releases:
+                release()
+
+    def _live_state(self) -> AnalyzerState:
+        """The state, or a clear error once `close` has freed it."""
+        if self.state is None:
+            raise RuntimeError(
+                "the backend is closed: its device state was freed"
+            )
+        return self.state
+
     def get_state(self) -> "dict[str, np.ndarray]":
         """Retire the in-flight folds and copy the state to the host, on
         the backend's stream: the copy is ordered after every fold already
         enqueued there, whichever thread asks, and returns once it is
         done."""
+        state = self._live_state()
         self._queue.drain()
         with self._on_stream():
-            return state_to_numpy(self.state)
+            return state_to_numpy(state)
 
     def set_state(self, leaves: "dict[str, np.ndarray]") -> None:
         """Copy a snapshot's leaves into the state's own tensors, on the
         backend's stream (ahead of every fold enqueued after it)."""
+        state = self._live_state()
         with self._on_stream():
-            copy_from_numpy_(self.state, leaves)
+            copy_from_numpy_(state, leaves)
 
     def finalize(self) -> TopicMetrics:
         """Retire the in-flight folds, copy the state to the host (waiting
         for the device) and derive the metrics there: `get_state`'s work
         and the derivation, each phase timed (`base.finalize_phase`)."""
+        state = self._live_state()
         with finalize_phase("drain"):
             self._queue.drain()
         with finalize_phase("copy"), self._on_stream():
-            leaves = state_to_numpy(self.state)
+            leaves = state_to_numpy(state)
         with finalize_phase("derive"):
             return metrics_from_state(leaves, self.config, self.init_now_s)

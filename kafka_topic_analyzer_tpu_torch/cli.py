@@ -1469,18 +1469,13 @@ def run_fleet(args, topics: "list[str] | None" = None):
             topic_dispatch = DispatchConfig(
                 superbatch=dispatch.superbatch, depth=grant.dispatch_depth
             )
-        stream = None
-        if on_card:
-            import torch
-
-            # A stream of the topic's own: the folds of concurrent topics
-            # are ordered only within their topic.
-            stream = torch.cuda.Stream()
+        # A stream of the topic's own, leased from the process's pool: the
+        # folds of concurrent topics are ordered only within their topic.
         return make_backend(
             args.backend, analyzer_config(args, num_partitions),
             device=args.device, use_native=use_native,
             native_requested=args.native != "off", dispatch=topic_dispatch,
-            stream=stream,
+            pooled_stream=on_card,
         )
 
     lease_mgr = None

@@ -5,8 +5,13 @@ Each admitted topic runs the pass chain a solo scan of that topic would:
 ``engine.run_scan`` over ``[cursor, head)`` windows on the topic's own
 backend, so its metrics equal a solo scan's stopped at the same offsets.
 On the card each topic's backend holds a CUDA stream of its own (the
-CLI's ``backend_factory``), so the folds of concurrent topics are ordered
-only within their topic.  What the fleet adds is around the passes:
+CLI's ``backend_factory`` leases it from the process's pool), so the
+folds of concurrent topics are ordered only within their topic.  A batch
+fleet passes each topic once and closes its backend when the pass ends,
+so only the admitted topics' device state is ever live, and the next
+topic's state takes the memory (and the stream) the last one freed; a
+fleet follow keeps each backend for the next pass.  What the fleet adds
+is around the passes:
 
 - admission: `fleet.scheduler.FleetScheduler` decides which topics hold
   ingest-worker and dispatch budget; a pass runs with the worker count it
@@ -335,7 +340,8 @@ class FleetService:
         On the thread that runs it, the pass books the topic's wait for
         its grant (span ``fleet-admit``) and then its own wall (span
         ``fleet-pass``, enclosing the scan's spans), both with the
-        fleet's ``scan`` number and the topic."""
+        fleet's ``scan`` number and the topic.  A batch fleet's pass then
+        releases the topic's backend, however the pass ended."""
         topic = scan.seed.name
         obs_trace.bind(self._trace_ctx)
         if scan.waiting_since is not None:
@@ -345,17 +351,40 @@ class FleetService:
                 topic=topic,
             )
             scan.waiting_since = None
-        with obs_trace.timed(
-            "fleet-pass", obs_metrics.FLEET_PASS_SECONDS, cat="fleet",
-            topic=topic, workers=grant.workers,
-            dispatch_depth=grant.dispatch_depth,
-        ):
-            try:
-                return self._pass(scan, grant, final)
-            finally:
-                # run_scan numbered the pass; the span closes under the
-                # fleet's number.
-                obs_trace.bind(self._trace_ctx)
+        try:
+            with obs_trace.timed(
+                "fleet-pass", obs_metrics.FLEET_PASS_SECONDS, cat="fleet",
+                topic=topic, workers=grant.workers,
+                dispatch_depth=grant.dispatch_depth,
+            ):
+                try:
+                    return self._pass(scan, grant, final)
+                finally:
+                    # run_scan numbered the pass; the span closes under
+                    # the fleet's number.
+                    obs_trace.bind(self._trace_ctx)
+        finally:
+            if self.follow is None:
+                self._release_backend(scan)
+
+    def _release_backend(self, scan: _TopicScan) -> None:
+        """Close and drop a batch fleet topic's backend: the fleet never
+        passes the topic again, and its device state would otherwise stay
+        on the card until the whole fleet ends.  The close frees it now,
+        before the next admission, and a close that returns books
+        ``kta_fleet_backends_released_total``."""
+        backend, scan.backend = scan.backend, None
+        if backend is None:
+            return
+        try:
+            backend.close()
+        except Exception:  # noqa: BLE001 — the pass's result stands
+            log.exception(
+                "fleet: closing the backend of topic %r failed",
+                scan.seed.name,
+            )
+            return
+        obs_metrics.FLEET_BACKENDS_RELEASED.inc()
 
     def _pass(self, scan: _TopicScan, grant: Grant, final: bool) -> bool:
         topic = scan.seed.name

@@ -473,7 +473,8 @@ DEVICE_RESIDENT_MAX = _REG.gauge(
     "The most device-resident bytes (kta_device_resident_bytes_total's) "
     "held at once by the process's live backends: the live sum rises at "
     "a backend's construction and falls at its release, and this keeps "
-    "its high-water mark (a fleet's backends stay live together)")
+    "its high-water mark (a batch fleet's admitted topics' backends are "
+    "live together)")
 
 # -- follow-mode service (serve/follow.py + io/kafka_wire.py) -----------------
 
@@ -596,6 +597,12 @@ FLEET_PASS_SECONDS = _REG.counter(
     "kta_fleet_pass_seconds_total",
     "Wall seconds of the fleet's topic passes, each from its backend's "
     "construction or re-grant to its report (span fleet-pass)")
+FLEET_BACKENDS_RELEASED = _REG.counter(
+    "kta_fleet_backends_released_total",
+    "Topic backends a batch fleet closed when their pass ended, freeing "
+    "their device state before the next admission: the topics that "
+    "passed, less any whose close raised (a fleet follow keeps its "
+    "backends, and books none)")
 
 # -- topic ownership leases (fleet/lease.py) ----------------------------------
 

@@ -522,6 +522,12 @@ def render_telemetry_stats(
             f"{dispatch.batches:,} batches folded, "
             f"{dispatch.mean_latency_ms:.1f} ms mean dispatch latency"
         )
+    released = t("kta_fleet_backends_released_total")
+    if released:
+        lines.append(
+            f"  fleet: {released:,.0f} topic backend(s) released at the "
+            f"end of their pass"
+        )
     # Follow-service digest: polls/passes at the head plus the two
     # never-silent failure counters (only for --follow runs).
     follow = FollowStats.from_telemetry(snapshot)

@@ -2,7 +2,7 @@
 the port measures inside its own layers (worker and drive-loop CPU, the
 fetch rounds' wait, finalize's phases, the device-resident bytes and
 their high-water mark, each fold's device span, the fleet's admission
-waits and passes).  Name → (kind, label names)."""
+waits, passes and released backends).  Name → (kind, label names)."""
 
 PORT_ONLY = {
     "kta_stage_cpu_seconds_total": ("counter", ("stage",)),
@@ -14,6 +14,7 @@ PORT_ONLY = {
     "kta_device_resident_bytes_max": ("gauge", ()),
     "kta_fleet_admission_wait_seconds_total": ("counter", ()),
     "kta_fleet_pass_seconds_total": ("counter", ()),
+    "kta_fleet_backends_released_total": ("counter", ()),
 }
 
 

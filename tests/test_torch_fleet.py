@@ -771,7 +771,7 @@ def test_set_dispatch_depth_clamps_at_the_constructed_depth():
 def test_backend_refuses_a_stream_off_its_device():
     with pytest.raises(ValueError, match="CUDA stream"):
         TorchBackend(AnalyzerConfig(num_partitions=1, **CFG), device="cpu",
-                     stream=object())
+                     pooled_stream=True)
 
 
 # ---------------------------------------------------------------------------
@@ -780,9 +780,10 @@ def test_backend_refuses_a_stream_off_its_device():
 
 @pytest.mark.cuda
 def test_two_backends_on_two_streams_in_two_threads_equal_a_serial_run():
-    """Two topics' scans at once, each backend on a stream of its own and
-    driven from its own thread (the fleet's shape), against the same two
-    scans one after the other on the default stream."""
+    """Two topics' scans at once, each backend on a stream leased from the
+    process's pool and driven from its own thread (the fleet's shape),
+    against the same two scans one after the other on the default
+    stream."""
     import torch
 
     if not torch.cuda.is_available():
@@ -797,20 +798,33 @@ def test_two_backends_on_two_streams_in_two_threads_equal_a_serial_run():
     specs = [SyntheticSpec(num_partitions=4, messages_per_partition=60_000,
                            keys_per_partition=5_000, seed=s) for s in (1, 2)]
 
-    def scan(i, stream=None):
+    def scan(i, pooled=False, built=None):
         backend = TorchBackend(AnalyzerConfig(num_partitions=4, **cfgs[i]),
-                               init_now_s=10**10, device="cuda", stream=stream)
-        return _doc(run_scan(f"t{i}", SyntheticSource(specs[i]), backend, 4096,
-                             ingest_workers=2))
+                               init_now_s=10**10, device="cuda",
+                               pooled_stream=pooled)
+        if built is not None:
+            built(i, backend)
+        doc = _doc(run_scan(f"t{i}", SyntheticSource(specs[i]), backend, 4096,
+                            ingest_workers=2))
+        backend.close()
+        return doc
 
     serial = [scan(0), scan(1)]
-    out = [None, None]
+    out, streams = [None, None], [None, None]
+    barrier = threading.Barrier(2)
+
+    def built(i, backend):
+        # Both backends hold their leases before either scans: two at once.
+        streams[i] = backend.stream
+        barrier.wait(timeout=120)
+
     threads = [threading.Thread(target=lambda i=i: out.__setitem__(
-        i, scan(i, torch.cuda.Stream()))) for i in (0, 1)]
+        i, scan(i, pooled=True, built=built))) for i in (0, 1)]
     for th in threads:
         th.start()
     for th in threads:
         th.join()
+    assert streams[0] is not streams[1]
     assert out == serial
 
 

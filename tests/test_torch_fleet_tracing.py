@@ -2,7 +2,8 @@
 for its grant (span ``fleet-admit``, ``kta_fleet_admission_wait_seconds_
 total``), each topic pass (span ``fleet-pass``, ``kta_fleet_pass_seconds_
 total``) and the high-water mark of the device bytes its live backends
-hold at once (``kta_device_resident_bytes_max``).
+hold at once (``kta_device_resident_bytes_max``): a batch fleet closes
+each topic's backend when its pass ends, so only the admitted topics'.
 
 The fleet audits the benchmark's TPC-C change-data-capture topics (nine
 one-partition topics, `benchmark.gen.tpcc_cdc`) from its loopback cluster
@@ -22,6 +23,7 @@ import pytest
 from benchmark.gen.cluster import ClusterBroker
 from benchmark.gen.tpcc_cdc import TpccCdc
 from kafka_topic_analyzer_tpu_torch import cli
+from kafka_topic_analyzer_tpu_torch.backends import gpu
 from kafka_topic_analyzer_tpu_torch.backends.base import resident_bytes_live
 from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
 from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
@@ -108,22 +110,45 @@ def test_fleet_counters_equal_their_spans(cluster, tmp_path):
     assert value(snap, "kta_fleet_admission_wait_seconds_total") > 0
 
 
-def test_resident_max_is_the_live_backends_sum_and_falls_back(cluster, tmp_path):
+def test_resident_max_is_the_live_backends_sum_and_falls_back(cluster, tmp_path, monkeypatch):
     config, db, broker = cluster
     gc.collect()
     before = resident_bytes_live()
+    # Count the topics' backends live at once, from their booking to their
+    # close, under one lock with both.
+    lock, live, most = threading.Lock(), [0], [0]
+    real_book, real_close = gpu.book_resident, TorchBackend.close
+
+    def book(backend, owners):
+        with lock:
+            live[0] += 1
+            most[0] = max(most[0], live[0])
+            return real_book(backend, owners)
+
+    def close(backend):
+        with lock:
+            live[0] -= backend.state is not None
+            real_close(backend)
+
+    monkeypatch.setattr(gpu, "book_resident", book)
+    monkeypatch.setattr(TorchBackend, "close", close)
     snap, _ = traced_fleet(config, broker, tmp_path)
-    booked = sum(s["value"] for s in snap["kta_device_resident_bytes_total"]["samples"])
-    # Every topic's backend lives until the fleet ends: all held at once.
-    assert booked > 0
-    assert value(snap, "kta_device_resident_bytes_max") == before + booked
-    gc.collect()
+    # Each pass closed its backend: the bytes are off the live sum at once.
+    assert live[0] == 0
     assert resident_bytes_live() == before
+    booked = sum(s["value"] for s in snap["kta_device_resident_bytes_total"]["samples"])
+    topics = len(db.topics)
+    # One-partition topics of one configuration: the same bytes each.
+    assert booked > 0 and booked % topics == 0
+    # The dispatch budget (2) admits fewer topics at once than the fleet has.
+    assert 1 <= most[0] <= 2 < topics
+    mark = value(snap, "kta_device_resident_bytes_max")
+    assert mark == before + most[0] * booked // topics < before + booked
     # One backend after the fleet adds its own bytes; the mark stays.
     one = TorchBackend(AnalyzerConfig(num_partitions=1, batch_size=1024, count_alive_keys=True,
                                       alive_bitmap_bits=20), device="cpu")
     assert resident_bytes_live() == before + (1 << 20) // 8 + 104
-    assert value(default_registry().snapshot(), "kta_device_resident_bytes_max") == before + booked
+    assert value(default_registry().snapshot(), "kta_device_resident_bytes_max") == mark
     del one
     gc.collect()
     assert resident_bytes_live() == before
