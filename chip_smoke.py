@@ -216,11 +216,11 @@ Phases, in order; any failure exits non-zero:
   topics and the fleet scan 8, each equal to numpy's exact lines and to a
   solo scan of the topic at 7 workers, the status table (verdicts aside)
   to the one rebuilt from the solo scans; timed in turns with every
-  backend on a stream of its own and on the legacy default stream; the
-  peak of ``torch.cuda.max_memory_allocated``, the doctor's per-topic
+  backend on a pooled stream of its own and on the legacy default stream;
+  the peak of ``torch.cuda.max_memory_allocated``, the doctor's per-topic
   verdicts, and from a ``--profile-dir`` run the streams that ran the
-  kernel, the device busy share and the time two or more streams were
-  busy at once.  Then the v4 fleet at 8 windows (``counters_update``); a
+  kernel (one per topic admitted at once, 4), the device busy share and
+  the time two or more streams were busy at once.  Then the v4 fleet at 8 windows (``counters_update``); a
   fleet follow (head at 16 windows, moved twice by 2, the rollup and
   ``/report.json?topic=orders.3`` scraped); the same with
   ``--snapshot-dir``, SIGTERM after the first advance (one checkpoint per
@@ -314,6 +314,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from benchmark.roofline import counters_merge_bytes
 
 #: Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the
 #: non-tensor-core fp32 rate as the rate of a CUDA-core integer add.
@@ -624,9 +626,8 @@ def phase_kernel(torch, np, cm) -> dict:
     kernel, plain = t[f"{label} P={p}"], t[f"{label} plain P={p}"]
     library = t[f"torch.add P={p}"]
     chain_t = t[f"chain: torch.add + 5 sum launches P={p}"]
-    # Two tables read, one written, two scalars read and written.  One add
-    # per cell, and the sums' three adds per row.
-    nbytes = 3 * 8 * 7 * p + 2 * 2 * 8
+    # One add per cell, and the sums' three adds per row.
+    nbytes = counters_merge_bytes(p)
     ops = 7 * p + 3 * p
     bound_ms, bound_by = bound(nbytes, ops)
     row = {
@@ -3006,10 +3007,13 @@ FLEET_SMALL = (
          vmin=10, vmax=40, salt=9, internal=True),
 )
 FLEET_PER_WINDOW = FLEET_SPEC["partitions"] * FLEET_SPEC["R"]
+#: Topics a fleet run folds at once: each on its own CUDA stream, leased
+#: from the process's pool and handed to the next topic when it ends.
+FLEET_AT_ONCE = 4
 #: Every fleet run's flags.  ``--dispatch-depth 8``: the global dispatch
 #: budget of the fleet, 2 per admitted topic (a solo scan's default);
 #: at the default 2 only 2 topics would be admitted at once.
-FLEET_CORE = ["--fleet-concurrency", "4", "--dispatch-depth", "8", "-c",
+FLEET_CORE = ["--fleet-concurrency", str(FLEET_AT_ONCE), "--dispatch-depth", "8", "-c",
               "--distinct-keys-per-partition", "--quantiles-per-partition", "--pallas",
               "--batch-size", str(SCAN_BATCH), "--native", "on", "--backend", "gpu"]
 FLEET_FLAGS = ["-t", "orders.*", "--fleet", "--fleet-exclude", "*.dlq",
@@ -3239,9 +3243,9 @@ def phase_fleet(np, torch, cli, kernels) -> dict:
               f"records/s ({mean['streams'] / mean['default stream']:.3f} x); peak "
               f"allocated B {json.dumps(peaks)}")
         print(f"fleet v5: peak torch.cuda.max_memory_allocated {peak} B = "
-              f"{peak / (4 * 512 * 2**20):.3f} x 4 x 512 MiB (every topic's backend "
-              "stays resident for the fleet's life: 8 bitmaps and 8 pair-scatter "
-              "accumulators of 512 MiB)")
+              f"{peak / (FLEET_AT_ONCE * 512 * 2**20):.3f} x {FLEET_AT_ONCE} x 512 "
+              "MiB (a topic's backend is freed when its pass ends: at most "
+              f"{FLEET_AT_ONCE} 512 MiB bitmaps live at once)")
         print(f"fleet v5: per-topic doctor verdicts {json.dumps(verdicts)}")
 
         # 8 solo scans at the same workers, and their documents.
@@ -3300,9 +3304,9 @@ def phase_fleet(np, torch, cli, kernels) -> dict:
             print(f"fleet v5 profiled: {merges} counters_merge_kernel launches in the "
                   f"trace ({n} by the counter) on {ov['streams']} streams; "
                   f"{run['wall']:.3f} s wall under the profiler; {shares}")
-            if ov["streams"] != len(FLEET_TOPICS):
+            if ov["streams"] != FLEET_AT_ONCE:
                 fail(f"fleet v5 profiled: the counter kernels ran on {ov['streams']} "
-                     f"streams, not one per topic ({len(FLEET_TOPICS)})")
+                     f"streams, not one per topic admitted at once ({FLEET_AT_ONCE})")
         shutil.rmtree(prof, ignore_errors=True)
 
         # v4 at a smaller depth.

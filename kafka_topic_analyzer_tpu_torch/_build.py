@@ -2,7 +2,9 @@
 
 Each CUDA kernel is one ``csrc/<name>.cu`` file with a plain C interface,
 compiled by ``nvcc`` (found on ``PATH``) for Hopper (``sm_90a``) into a
-shared library and loaded with ``ctypes``.  The host ingest shim,
+shared library and loaded with ``ctypes``; every kernel's source includes
+``csrc/kta_launch.cuh``, the entries' shared prelude, and `Kernel` binds
+and launches its entry.  The host ingest shim,
 ``native/ingest.cpp``, is compiled by ``g++`` (found on ``PATH``) with the
 flags of the reference's ``native/Makefile``; ``io/native.py`` loads it.
 Libraries are built at first use from the sources in the package, into
@@ -20,6 +22,7 @@ import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 from pathlib import Path
@@ -31,6 +34,8 @@ KERNEL_SOURCES = {
     "counters_update": "csrc/counters_update.cu",
     "bitmap_pairs": "csrc/bitmap_pairs.cu",
 }
+#: The header every kernel's source includes, relative to the package.
+LAUNCH_HEADER = "csrc/kta_launch.cuh"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,8 +54,13 @@ def build_dir() -> Path:
 
 
 def library_path(name: str) -> Path:
+    """Kernel ``name``'s library, named by a hash of its source, the shared
+    header and the flags, so an edit to either source rebuilds it."""
     src = (_PKG / KERNEL_SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    header = (_PKG / LAUNCH_HEADER).read_bytes()
+    digest = hashlib.sha256(
+        src + header + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 
@@ -146,3 +156,67 @@ def load(name: str) -> ctypes.PyDLL:
             lib = ctypes.PyDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib
+
+
+#: The C entries' return code for tensors off the current device
+#: (``kWrongDevice`` in ``csrc/kta_launch.cuh``).
+WRONG_DEVICE = -1
+
+
+class Kernel:
+    """One hand-written kernel's C entry, bound at its first launch.
+
+    ``args`` is the entry's argument record (a ``struct.Struct`` of
+    little-endian fields) whose last two fields are the CUDA stream and
+    the device index: `launch` packs the caller's fields with PyTorch's
+    current stream on ``device`` and the device's index, passes the record
+    as one pointer (one ctypes conversion instead of one per argument) and
+    raises on a nonzero return.  The first launch builds and loads the
+    library and sets the C signatures, once per process under one lock:
+    the fleet's concurrent topic scans can reach their first launch
+    together.  Nothing is built or loaded before a launch, so CPU tensors,
+    which the wrappers route to their plain versions, never load one."""
+
+    def __init__(self, name: str, entry: str, args: struct.Struct):
+        self.name = name
+        self.args = args
+        self._entry = entry
+        self._pack = args.pack
+        #: ``(entry, kta_cuda_error_string, raw stream getter)``.
+        self._bound = None
+        self._bind_lock = threading.Lock()
+
+    def _bind(self):
+        import torch  # not at import: io/native loads this module too
+
+        with self._bind_lock:
+            if self._bound is None:
+                lib = load(self.name)
+                fn = getattr(lib, self._entry)
+                fn.argtypes = [ctypes.c_char_p]
+                fn.restype = ctypes.c_int
+                lib.kta_cuda_error_string.argtypes = [ctypes.c_int]
+                lib.kta_cuda_error_string.restype = ctypes.c_char_p
+                # The current stream's handle as an int, without building
+                # a Stream object (CUDA builds of torch only).
+                self._bound = (fn, lib.kta_cuda_error_string,
+                               torch._C._cuda_getCurrentRawStream)
+        return self._bound
+
+    def launch(self, device: "torch.device", *fields) -> None:
+        """Launch on ``device`` (a CUDA device) on its current stream.  A
+        device that is not the current one raises `ValueError`; any other
+        failure raises `RuntimeError` with CUDA's error string."""
+        fn, error_string, raw_stream = self._bound or self._bind()
+        index = device.index
+        err = fn(self._pack(*fields, raw_stream(index), index))
+        if err != 0:
+            text = error_string(err).decode()
+            if err == WRONG_DEVICE:
+                import torch
+
+                raise ValueError(
+                    f"{self.name}: {text} (current device "
+                    f"cuda:{torch.cuda.current_device()}, tensors on {device})"
+                )
+            raise RuntimeError(f"{self.name} kernel launch failed: {text}")

@@ -59,16 +59,24 @@ def apply_pair_table(
             space_index=space_index, space_shards=config.space_shards,
         )
     else:
-        bitmap_apply_pairs(
-            state.alive.words,
-            pairs["alive_slot"],
-            pairs["alive_flag"],
-            pairs["n_pairs"],
-            bits=config.alive_bitmap_bits,
-            space_index=space_index,
-            space_shards=config.space_shards,
-        )
+        _apply_pair_list(state, pairs, config, space_index)
     return state
+
+
+def _apply_pair_list(
+    state: AnalyzerState, pairs: dict, config: AnalyzerConfig, space_index: int
+) -> None:
+    """Apply one (slot, aliveness) pair list — ``alive_slot``,
+    ``alive_flag``, ``n_pairs`` — to the shard's bitmap words, in place."""
+    bitmap_apply_pairs(
+        state.alive.words,
+        pairs["alive_slot"],
+        pairs["alive_flag"],
+        pairs["n_pairs"],
+        bits=config.alive_bitmap_bits,
+        space_index=space_index,
+        space_shards=config.space_shards,
+    )
 
 
 def superbatch_fold(
@@ -118,15 +126,7 @@ def _apply_alive(
     if state.alive is None or "alive_slot" not in arrays:
         return
     for chunk in space_chunks if space_chunks is not None else (arrays,):
-        bitmap_apply_pairs(
-            state.alive.words,
-            chunk["alive_slot"],
-            chunk["alive_flag"],
-            chunk["n_pairs"],
-            bits=config.alive_bitmap_bits,
-            space_index=space_index,
-            space_shards=config.space_shards,
-        )
+        _apply_pair_list(state, chunk, config, space_index)
 
 
 def analyzer_step_v5(

@@ -38,9 +38,7 @@
 // Python wrapper (ops/bitmap.py) checks the tensors and passes raw pointers
 // and PyTorch's current stream.
 
-#include <atomic>
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "kta_launch.cuh"
 
 // The wrapper's argument record: nine little-endian 64-bit fields, packed
 // by ops/bitmap.py with struct format "<QQQQqQQQq".  It lies outside the
@@ -61,12 +59,6 @@ struct KtaPairsArgs {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxDevices = 64;
-// Returned when the tensors' device is not the current device.
-constexpr int kWrongDevice = -1;
-
-// Streaming-multiprocessor count per device, read once (0 = not yet).
-std::atomic<int> g_sms[kMaxDevices];
 
 __global__ void __launch_bounds__(kThreads)
     bitmap_pairs_kernel(unsigned* __restrict__ words,
@@ -95,17 +87,10 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" int kta_bitmap_apply_pairs(const KtaPairsArgs* a) {
   if (a->t <= 0) return 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev != a->device) return kWrongDevice;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  int sms = g_sms[dev].load(std::memory_order_relaxed);
-  if (sms == 0) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    g_sms[dev].store(sms, std::memory_order_relaxed);
-  }
+  int dev = 0, sms = 0;
+  int err = check_device(a->device, &dev);
+  if (err == 0) err = sm_count(dev, &sms);
+  if (err != 0) return err;
   long long blocks = (a->t + kThreads - 1) / kThreads;
   if (blocks > 4LL * sms) blocks = 4LL * sms;
   bitmap_pairs_kernel<<<(unsigned)blocks, kThreads, 0,
@@ -114,9 +99,4 @@ extern "C" int kta_bitmap_apply_pairs(const KtaPairsArgs* a) {
       (const unsigned char*)a->flag, (const int*)a->n_pairs, a->t, a->base,
       a->span);
   return (int)cudaGetLastError();
-}
-
-extern "C" const char* kta_cuda_error_string(int code) {
-  if (code == kWrongDevice) return "the tensors are not on the current device";
-  return cudaGetErrorString((cudaError_t)code);
 }

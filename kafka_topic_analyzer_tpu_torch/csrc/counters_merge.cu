@@ -43,9 +43,7 @@
 // Python wrapper (ops/counters_merge.py) checks the tensors and passes raw
 // pointers and PyTorch's current stream.
 
-#include <atomic>
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "kta_launch.cuh"
 
 // The wrapper's argument record: nine little-endian 64-bit fields, packed
 // by ops/counters_merge.py with struct format "<QQqQQqqQq".  It lies outside
@@ -67,12 +65,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChannels = 7;
-constexpr int kMaxDevices = 64;
-// Returned when the tables' device is not the current device.
-constexpr int kWrongDevice = -1;
-
-// Streaming-multiprocessor count per device, read once (0 = not yet).
-std::atomic<int> g_sms[kMaxDevices];
 
 // Sum of `v` over the block, valid in thread 0.  `scratch` holds one value
 // per warp.
@@ -127,17 +119,10 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" int kta_counters_merge(const KtaMergeArgs* a) {
   if (a->n <= 0) return 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev != a->device) return kWrongDevice;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  int sms = g_sms[dev].load(std::memory_order_relaxed);
-  if (sms == 0) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    g_sms[dev].store(sms, std::memory_order_relaxed);
-  }
+  int dev = 0, sms = 0;
+  int err = check_device(a->device, &dev);
+  if (err == 0) err = sm_count(dev, &sms);
+  if (err != 0) return err;
   long long blocks = (a->n + kThreads - 1) / kThreads;
   if (blocks > 4LL * sms) blocks = 4LL * sms;
   auto* acc = (unsigned long long*)a->acc;
@@ -148,9 +133,4 @@ extern "C" int kta_counters_merge(const KtaMergeArgs* a) {
       (unsigned long long*)a->overall_count, (unsigned)a->count_mask,
       (unsigned)a->size_mask);
   return (int)cudaGetLastError();
-}
-
-extern "C" const char* kta_cuda_error_string(int code) {
-  if (code == kWrongDevice) return "the tables are not on the current device";
-  return cudaGetErrorString((cudaError_t)code);
 }

@@ -81,10 +81,9 @@
 // Python wrapper (ops/counters_update.py) checks the tensors and passes raw
 // pointers and PyTorch's current stream.
 
-#include <atomic>
-#include <cstdint>
 #include <mutex>
-#include <cuda_runtime.h>
+
+#include "kta_launch.cuh"
 
 // The wrapper's argument record: thirteen little-endian 64-bit fields,
 // packed by ops/counters_update.py with struct format "<7Qqq3Qq".  It lies
@@ -111,9 +110,6 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kUnroll = 4;
 constexpr int kChannels = 7;
-constexpr int kMaxDevices = 64;
-// Returned when the table's device is not the current device.
-constexpr int kWrongDevice = -1;
 
 struct Run {
   int p;  // partition of the run, -1 when empty
@@ -347,13 +343,11 @@ cudaError_t init_device(int dev) {
 extern "C" int kta_counters_update(const KtaUpdateArgs* a) {
   if (a->n <= 0) return 0;
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev != a->device) return kWrongDevice;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  int err = check_device(a->device, &dev);
+  if (err != 0) return err;
   if (!g_ready[dev].load(std::memory_order_acquire)) {
     err = init_device(dev);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
   }
   DeviceInfo& d = g_info[dev];
   const int num_parts = (int)a->num_parts;
@@ -398,9 +392,4 @@ extern "C" int kta_counters_update(const KtaUpdateArgs* a) {
         acc, part, klen, vlen, knull, vnull, ok, a->n, num_parts, size, count);
   }
   return (int)cudaGetLastError();
-}
-
-extern "C" const char* kta_cuda_error_string(int code) {
-  if (code == kWrongDevice) return "the table is not on the current device";
-  return cudaGetErrorString((cudaError_t)code);
 }

@@ -29,9 +29,7 @@ full-bitmap masks.
 
 from __future__ import annotations
 
-import ctypes
 import struct
-import threading
 
 import torch
 
@@ -43,10 +41,8 @@ _U8 = torch.uint8
 #: The C entry's argument record (``KtaPairsArgs`` in the source): words,
 #: slot, flag, n_pairs, capacity, the shard's first slot and its slot
 #: count, stream, device.
-_ARGS = struct.Struct("<QQQQqQQQq")
-#: ``kta_bitmap_apply_pairs``'s return code for tensors off the current
-#: device.
-_WRONG_DEVICE = -1
+_KERNEL = _build.Kernel("bitmap_pairs", "kta_bitmap_apply_pairs",
+                        struct.Struct("<QQQQqQQQq"))
 
 
 def bitmap_num_words(bits: int, space_shards: int = 1) -> int:
@@ -87,35 +83,6 @@ def bitmap_apply_pairs_plain(
     cur = words[word]
     delta = torch.where(alive_flag.to(torch.bool), bit & ~cur, -(bit & cur))
     return words.index_add_(0, word, delta)
-
-
-#: ``(kta_bitmap_apply_pairs, kta_cuda_error_string, raw stream getter)``,
-#: bound on first launch.
-_bound = None
-#: Serializes the first binding: the fleet's concurrent topic scans can
-#: reach their first launch together.
-_bind_lock = threading.Lock()
-
-
-def _bind():
-    """Load the kernel's library (building it if missing) and set the C
-    signatures, once per process."""
-    global _bound
-    with _bind_lock:
-        if _bound is None:
-            _bound = _load()
-    return _bound
-
-
-def _load():
-    lib = _build.load("bitmap_pairs")
-    fn = lib.kta_bitmap_apply_pairs
-    # One argument: the packed record, passed as a pointer to its bytes.
-    fn.argtypes = [ctypes.c_char_p]
-    fn.restype = ctypes.c_int
-    lib.kta_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.kta_cuda_error_string.restype = ctypes.c_char_p
-    return fn, lib.kta_cuda_error_string, torch._C._cuda_getCurrentRawStream
 
 
 def _check(words, slot, alive_flag, n_pairs, bits: int, space_index: int,
@@ -201,24 +168,11 @@ def bitmap_apply_pairs(
         return bitmap_apply_pairs_plain(
             words, slot, alive_flag, n_pairs, bits, space_index, space_shards
         )
-    launch, error_string, raw_stream = _bound or _bind()
     span = words.shape[0] * 32
-    index = dev.index
-    err = launch(_ARGS.pack(
-        words.data_ptr(), slot.data_ptr(), alive_flag.data_ptr(),
+    _KERNEL.launch(
+        dev, words.data_ptr(), slot.data_ptr(), alive_flag.data_ptr(),
         n_pairs.data_ptr(), slot.shape[0], span * space_index, span,
-        raw_stream(index), index,
-    ))
-    if err != 0:
-        if err == _WRONG_DEVICE:
-            raise ValueError(
-                f"bitmap_apply_pairs launches on the current device "
-                f"cuda:{torch.cuda.current_device()}, not {dev}"
-            )
-        raise RuntimeError(
-            "bitmap_apply_pairs kernel launch failed: "
-            + error_string(err).decode()
-        )
+    )
     bitmap_apply_pairs.launches += 1
     return words
 

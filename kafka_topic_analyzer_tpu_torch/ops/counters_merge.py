@@ -20,9 +20,7 @@ there is no fallback from one to the other.
 
 from __future__ import annotations
 
-import ctypes
 import struct
-import threading
 
 import torch
 
@@ -41,9 +39,8 @@ _SIZE_MASK = (1 << _SIZE[0]) | (1 << _SIZE[1])
 #: The C entry's argument record (``KtaMergeArgs`` in the source): acc,
 #: delta, n, overall_size, overall_count, count_mask, size_mask, stream,
 #: device.
-_ARGS = struct.Struct("<QQqQQqqQq")
-#: ``kta_counters_merge``'s return code for tables off the current device.
-_WRONG_DEVICE = -1
+_KERNEL = _build.Kernel("counters_merge", "kta_counters_merge",
+                        struct.Struct("<QQqQQqqQq"))
 
 
 def counters_merge_plain(
@@ -61,38 +58,6 @@ def counters_merge_plain(
         overall_size.add_(torch.sum(delta[:, _SIZE[0]] + delta[:, _SIZE[1]]))
         overall_count.add_(torch.sum(delta[:, _COUNT]))
     return per_partition + delta
-
-
-#: ``(kta_counters_merge, kta_cuda_error_string, raw stream getter)``,
-#: bound on first launch.
-_bound = None
-#: Serializes the first binding: the fleet's concurrent topic scans can
-#: reach their first launch together.
-_bind_lock = threading.Lock()
-
-
-def _bind():
-    """Load the kernel's library (building it if missing) and set the C
-    signatures, once per process."""
-    global _bound
-    with _bind_lock:
-        if _bound is None:
-            _bound = _load()
-    return _bound
-
-
-def _load():
-    lib = _build.load("counters_merge")
-    fn = lib.kta_counters_merge
-    # One argument: the packed record, passed as a pointer to its bytes
-    # (one ctypes conversion instead of one per argument).
-    fn.argtypes = [ctypes.c_char_p]
-    fn.restype = ctypes.c_int
-    lib.kta_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.kta_cuda_error_string.restype = ctypes.c_char_p
-    # The current stream's handle as an int, without building a Stream
-    # object (CUDA builds of torch only; reached only for CUDA tensors).
-    return fn, lib.kta_cuda_error_string, torch._C._cuda_getCurrentRawStream
 
 
 def _check(per_partition, delta, overall_size, overall_count) -> torch.device:
@@ -124,29 +89,8 @@ def _check(per_partition, delta, overall_size, overall_count) -> torch.device:
         if not (per_partition.is_cuda or per_partition.is_cpu):
             raise ValueError(f"counters_merge runs on cuda or cpu, not {dev}")
         if overall_size is not None or overall_count is not None:
-            if overall_size is None or overall_count is None:
-                raise ValueError(
-                    "counters_merge takes overall_size and overall_count "
-                    "together"
-                )
-            if not (overall_size.dtype is _I64 and overall_count.dtype is _I64):
-                raise TypeError(
-                    "counters_merge needs overall_size and overall_count as "
-                    f"int64 tensors, got {overall_size.dtype} and "
-                    f"{overall_count.dtype}"
-                )
-            if not (overall_size.dim() == 0 and overall_count.dim() == 0):
-                raise ValueError(
-                    "counters_merge needs overall_size and overall_count as "
-                    f"0-d scalars, got {tuple(overall_size.shape)} and "
-                    f"{tuple(overall_count.shape)}"
-                )
-            if not (overall_size.device == dev and overall_count.device == dev):
-                raise ValueError(
-                    f"counters_merge device mismatch: tables on {dev}, "
-                    f"overall_size on {overall_size.device}, overall_count "
-                    f"on {overall_count.device}"
-                )
+            check_scalars("counters_merge", "tables", dev, overall_size,
+                          overall_count)
     except AttributeError:  # an argument that is not a tensor
         got = [type(a).__name__
                for a in (per_partition, delta, overall_size, overall_count)
@@ -155,6 +99,34 @@ def _check(per_partition, delta, overall_size, overall_count) -> torch.device:
             f"counters_merge takes tensors, got {', '.join(got)}"
         ) from None
     return dev
+
+
+def check_scalars(caller: str, table: str, dev: torch.device, overall_size,
+                  overall_count) -> None:
+    """Raise unless ``overall_size`` and ``overall_count`` are both 0-d
+    int64 tensors on ``dev``, the device of ``caller``'s ``table``; shared
+    by both counter wrappers, whose refusals name them.  A non-tensor
+    raises `AttributeError`, which the caller's `_check` turns into its
+    own refusal."""
+    if overall_size is None or overall_count is None:
+        raise ValueError(
+            f"{caller} takes overall_size and overall_count together"
+        )
+    if not (overall_size.dtype is _I64 and overall_count.dtype is _I64):
+        raise TypeError(
+            f"{caller} needs overall_size and overall_count as int64 tensors, "
+            f"got {overall_size.dtype} and {overall_count.dtype}"
+        )
+    if not (overall_size.dim() == 0 and overall_count.dim() == 0):
+        raise ValueError(
+            f"{caller} needs overall_size and overall_count as 0-d scalars, "
+            f"got {tuple(overall_size.shape)} and {tuple(overall_count.shape)}"
+        )
+    if not (overall_size.device == dev and overall_count.device == dev):
+        raise ValueError(
+            f"{caller} device mismatch: {table} on {dev}, overall_size on "
+            f"{overall_size.device}, overall_count on {overall_count.device}"
+        )
 
 
 def counters_merge(
@@ -175,23 +147,13 @@ def counters_merge(
         return per_partition.copy_(counters_merge_plain(
             per_partition, delta, overall_size, overall_count
         ))
-    launch, error_string, raw_stream = _bound or _bind()
-    index = dev.index
-    err = launch(_ARGS.pack(
-        per_partition.data_ptr(), delta.data_ptr(), 7 * per_partition.shape[0],
+    _KERNEL.launch(
+        dev, per_partition.data_ptr(), delta.data_ptr(),
+        7 * per_partition.shape[0],
         0 if overall_size is None else overall_size.data_ptr(),
         0 if overall_count is None else overall_count.data_ptr(),
-        _COUNT_MASK, _SIZE_MASK, raw_stream(index), index,
-    ))
-    if err != 0:
-        if err == _WRONG_DEVICE:
-            raise ValueError(
-                f"counters_merge launches on the current device "
-                f"cuda:{torch.cuda.current_device()}, not {dev}"
-            )
-        raise RuntimeError(
-            "counters_merge kernel launch failed: " + error_string(err).decode()
-        )
+        _COUNT_MASK, _SIZE_MASK,
+    )
     counters_merge.launches += 1
     return per_partition
 

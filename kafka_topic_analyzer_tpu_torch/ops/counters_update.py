@@ -23,13 +23,12 @@ CPU tensors — there is no fallback from one to the other.
 
 from __future__ import annotations
 
-import ctypes
 import struct
-import threading
 
 import torch
 
 from kafka_topic_analyzer_tpu_torch import _build
+from kafka_topic_analyzer_tpu_torch.ops.counters_merge import check_scalars
 
 _I32, _I64, _BOOL = torch.int32, torch.int64, torch.bool
 #: Record columns of the update: (name, dtype) in argument order.
@@ -44,9 +43,8 @@ _COLUMNS = (
 #: The C entry's argument record (``UpdateArgs`` in the source): the
 #: table's and the six columns' pointers, n, num_parts, overall_size,
 #: overall_count, stream, device.
-_ARGS = struct.Struct("<7Qqq3Qq")
-#: ``kta_counters_update``'s return code for a table off the current device.
-_WRONG_DEVICE = -1
+_KERNEL = _build.Kernel("counters_update", "kta_counters_update",
+                        struct.Struct("<7Qqq3Qq"))
 
 
 def counters_update_plain(
@@ -90,38 +88,6 @@ def counters_update_plain(
     )
     scratch.index_add_(0, idx, contrib)
     return per_partition + scratch[:num_partitions]
-
-
-#: ``(kta_counters_update, kta_cuda_error_string, raw stream getter)``,
-#: bound on first launch.
-_bound = None
-#: Serializes the first binding: the fleet's concurrent topic scans can
-#: reach their first launch together.
-_bind_lock = threading.Lock()
-
-
-def _bind():
-    """Load the kernel's library (building it if missing) and set the C
-    signatures, once per process."""
-    global _bound
-    with _bind_lock:
-        if _bound is None:
-            _bound = _load()
-    return _bound
-
-
-def _load():
-    lib = _build.load("counters_update")
-    fn = lib.kta_counters_update
-    # One argument: the packed record, passed as a pointer to its bytes
-    # (one ctypes conversion instead of one per argument).
-    fn.argtypes = [ctypes.c_char_p]
-    fn.restype = ctypes.c_int
-    lib.kta_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.kta_cuda_error_string.restype = ctypes.c_char_p
-    # The current stream's handle as an int, without building a Stream
-    # object (CUDA builds of torch only; reached only for CUDA tensors).
-    return fn, lib.kta_cuda_error_string, torch._C._cuda_getCurrentRawStream
 
 
 def _check(per_partition, columns, num_partitions: int, overall_size,
@@ -177,29 +143,8 @@ def _check(per_partition, columns, num_partitions: int, overall_size,
                 f"{_describe(c.is_contiguous() for c in columns)}"
             )
         if overall_size is not None or overall_count is not None:
-            if overall_size is None or overall_count is None:
-                raise ValueError(
-                    "counters_update takes overall_size and overall_count "
-                    "together"
-                )
-            if not (overall_size.dtype is _I64 and overall_count.dtype is _I64):
-                raise TypeError(
-                    "counters_update needs overall_size and overall_count as "
-                    f"int64 tensors, got {overall_size.dtype} and "
-                    f"{overall_count.dtype}"
-                )
-            if not (overall_size.dim() == 0 and overall_count.dim() == 0):
-                raise ValueError(
-                    "counters_update needs overall_size and overall_count as "
-                    f"0-d scalars, got {tuple(overall_size.shape)} and "
-                    f"{tuple(overall_count.shape)}"
-                )
-            if not (overall_size.device == dev and overall_count.device == dev):
-                raise ValueError(
-                    f"counters_update device mismatch: table on {dev}, "
-                    f"overall_size on {overall_size.device}, overall_count "
-                    f"on {overall_count.device}"
-                )
+            check_scalars("counters_update", "table", dev, overall_size,
+                          overall_count)
     except AttributeError:  # an argument that is not a tensor
         got = [type(a).__name__
                for a in (per_partition, *columns, overall_size, overall_count)
@@ -243,25 +188,14 @@ def counters_update(
             per_partition, partition, key_len, value_len, key_null, value_null,
             valid, num_partitions, overall_size, overall_count,
         ))
-    launch, error_string, raw_stream = _bound or _bind()
-    index = dev.index
-    err = launch(_ARGS.pack(
-        per_partition.data_ptr(), partition.data_ptr(), key_len.data_ptr(),
-        value_len.data_ptr(), key_null.data_ptr(), value_null.data_ptr(),
-        valid.data_ptr(), partition.shape[0], num_partitions,
+    _KERNEL.launch(
+        dev, per_partition.data_ptr(), partition.data_ptr(),
+        key_len.data_ptr(), value_len.data_ptr(), key_null.data_ptr(),
+        value_null.data_ptr(), valid.data_ptr(), partition.shape[0],
+        num_partitions,
         0 if overall_size is None else overall_size.data_ptr(),
         0 if overall_count is None else overall_count.data_ptr(),
-        raw_stream(index), index,
-    ))
-    if err != 0:
-        if err == _WRONG_DEVICE:
-            raise ValueError(
-                f"counters_update launches on the current device "
-                f"cuda:{torch.cuda.current_device()}, not {dev}"
-            )
-        raise RuntimeError(
-            "counters_update kernel launch failed: " + error_string(err).decode()
-        )
+    )
     counters_update.launches += 1
     return per_partition
 
