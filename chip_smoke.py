@@ -37,7 +37,13 @@ Phases, in order; any failure exits non-zero:
   bit, and its three times at each size beside the plain version's, the
   back-to-back time of the word accumulator it replaced (a yardstick the
   port no longer has), and how long one call of each holds the host
-  while the device spins;
+  while the device spins.  Then the exact alive set's kernels
+  (``alive_set_apply``, ``_rehash``, ``_count``) against their numpy
+  twins and the dense bitmap, bit for bit, over sequences of applies
+  with a rehash inside (2^32 and 2^24 slots; slots 0, 0xFFFFFFFF and
+  two that differ only in bit 31), and the apply's times at T = 262,144
+  on a 2^24-entry table of 8M entries, every slot present and every
+  slot new, beside its bound, the rehash's and the count's;
 - identity: the port's CLI at partitions=4, messages=200000, keys=50000
   with the 2^32-slot alive bitmap: the synthetic source in wire v5 and
   wire v4, each on ``cuda`` and on ``cpu``, and v5 with
@@ -49,7 +55,8 @@ Phases, in order; any failure exits non-zero:
   each ``cuda`` run must launch its wire format's kernel and not the
   other;
 - scan: the full-size synthetic scan (partitions=16, messages=1000000,
-  keys=3000000: 16M records, 512 MiB alive bitmap, per-partition HLL and
+  keys=3000000: 16M records, the 2^32-slot alive keys (an exact set of
+  ~12M slots), per-partition HLL and
   quantiles) on ``cuda`` with ``--native on``, through the CLI's own
   setup, engine and backend, once in wire v5 and once in wire v4; then
   the same spec dumped to ``.ktaseg`` files (480 MB of columns, under
@@ -57,8 +64,9 @@ Phases, in order; any failure exits non-zero:
   ``--source segfile`` (the fused path).  Both kernels' launch counters
   are zeroed just before each scan and read just after: the wire
   format's kernel must have launched once per dispatch of the backend
-  and the other kernel never, and ``bitmap_apply_pairs`` once per
-  dispatch (each carries a pair list).  The alive-key count of each scan must
+  and the other kernel never, and a pair-list apply (``alive_set_apply``
+  on the exact set, ``bitmap_apply_pairs`` on the dense bitmap) once
+  per dispatch (each carries a pair list).  The alive-key count of each scan must
   equal a numpy replay of the spec's records, last writer wins per
   bitmap slot, in the scan's record order: the synthetic source
   interleaves the partitions, the segment files come one partition after
@@ -125,8 +133,9 @@ Phases, in order; any failure exits non-zero:
   inside the topic, the resumed scan must launch the format's kernel
   fewer than 62 times and the other never, and its report must equal
   the uninterrupted scan's.  The segment-file v5 run also prints the
-  snapshot's own cost (the state's device→host copy, the 512 MiB bitmap
-  among it, and the ``.npz`` write).  Then the segment-file v5 scan at
+  snapshot's own cost (the state's device→host copy, the alive set among
+  it, the 512 MiB of words built from it on the host, and the ``.npz``
+  write).  Then the segment-file v5 scan at
   ``--ingest-workers auto``, killed and resumed the same way (each of its
   n streams raises after 31 // n rows of its own): every line
   but the alive keys equals the uninterrupted report, and the alive keys
@@ -183,8 +192,8 @@ Phases, in order; any failure exits non-zero:
   tail passes, the seconds from each head advance to the report at lag 0,
   the p50/p99 of the scrapes, the initial pass's records/s beside the
   7-worker batch scan's, and the finalize seconds per pass (each pass
-  ends in ``run_scan``'s finalize, which copies the state, the 512 MiB
-  bitmap among it, to the host).  Then a v4 follow at 1 worker over a
+  ends in ``run_scan``'s finalize, which copies the small leaves to the
+  host and counts the alive set on the card).  Then a v4 follow at 1 worker over a
   topic of the same templates in windows of 2,500 records (head 4M, 5M,
   then 6M records), launching ``counters_update``, held against a batch
   scan of the same 6M topic and numpy;
@@ -284,7 +293,8 @@ Prints the card's name and power limit (``nvidia-smi``), a ``walls`` line
 JSON line (each kernel's back-to-back ``ms``, ``device_ms`` and
 ``host_us`` beside its plain version, its library call and its bound, and
 for ``counters_merge`` the chain's ``chain_ms``, for ``bitmap_apply_pairs``
-the accumulator's ``accumulator_ms``; ``launches`` counts the
+the accumulator's ``accumulator_ms``, for ``alive_set_apply`` the
+new-slot, rehash and count times; ``launches`` counts the
 16M-record Kafka scan of the kernel's format, the slice's main path, and
 ``launches_by_path`` every full-size scan, the resumed and the N-worker
 scans, the follow services' initial and tail passes, the resumed follow,
@@ -388,6 +398,9 @@ KAFKA_BROKERS = 4
 SCAN_RATES: dict = {}
 #: ``bitmap_apply_pairs`` launches of each full-size scan, by label.
 PAIR_LAUNCHES: dict = {}
+#: The alive set's launches of each full-size scan (apply, rehash and
+#: count, by function name), by label.
+SET_LAUNCHES: dict = {}
 #: The records a space shard of a ``--mesh 2,2`` scan folds per round
 #: (B/S; the kernel phase also checks B/4, a ``--mesh 1,4`` chunk).
 MESH_CHUNK = SCAN_BATCH // 2
@@ -972,6 +985,305 @@ def phase_pairs_kernel(torch, np, bm) -> dict:
     return row
 
 
+#: The exact alive set's table for the demo audit: 2^24 entries holding
+#: its 8M distinct slots (a load of 0.48), and the pair table it applies.
+SET_CAPACITY = 1 << 24
+SET_ENTRIES = 8_000_000
+
+
+def set_pairs(torch, np, rng, pool, t: int, n: int, *extra):
+    """A pair table of capacity ``t`` on the card whose ``n`` live pairs
+    are distinct slots drawn from ``pool`` (plus ``extra`` slots first),
+    random flags, random slots in the padding."""
+    live = np.concatenate([np.array(extra, np.uint32),
+                           rng.choice(pool, size=n - len(extra), replace=False)])
+    assert np.unique(live).size == n
+    slot = rng.integers(0, 1 << 32, size=t, dtype=np.uint64).astype(np.uint32)
+    slot[:n] = live
+    flag = rng.integers(0, 2, size=t).astype(np.uint8)
+    return (torch.from_numpy(slot.view(np.int32)).cuda(),
+            torch.from_numpy(flag).cuda(),
+            torch.tensor(n, dtype=torch.int32, device="cuda"))
+
+
+def set_on_host(st):
+    """A CPU copy of an alive set (a twin's input)."""
+    return type(st)(keys=st.keys.cpu().clone(), alive=st.alive.cpu().clone(),
+                    meta=st.meta.cpu().clone(), bits=st.bits)
+
+
+def set_agrees(np, als, label: str, card, twin, dense) -> None:
+    """Fail unless the set ``card`` (on the card), its numpy twin ``twin``
+    and the dense ``uint32`` words ``dense`` hold the same alive slots, bit
+    for bit, and the count kernel reads the card's set as the plain count
+    of its host copy does, and as the twin's and the words' popcount do."""
+    got, want = card.host_words(), twin.host_words()
+    host = set_on_host(card)
+    counts = {
+        "kernel": als.alive_set_count(card.alive, card.meta).tolist(),
+        "plain": als.alive_set_count_plain(host.alive, host.meta).tolist(),
+        "twin": als.alive_set_count_plain(twin.alive, twin.meta).tolist(),
+    }
+    popcount = int(np.bitwise_count(dense).sum())
+    same = np.array_equal(got, dense) and np.array_equal(want, dense)
+    print(f"kernel: alive_set {label}: words bit-identical to the twin's and the "
+          f"dense bitmap's {same}; count, entries, full {counts} (bitmap "
+          f"{popcount})")
+    if not (same and counts["kernel"] == counts["plain"] == counts["twin"]
+            and counts["kernel"][0] == popcount and counts["kernel"][2] == 0):
+        fail(f"alive_set {label}: disagrees with its twin, its plain count or "
+             "the dense bitmap")
+
+
+def set_fill_pairs(np, rng, fresh, fresh_set, old, never, t: int):
+    """One apply's pair table (host arrays, capacity ``t``): ``fresh``
+    slots (set where ``fresh_set``), ``old`` slots with random flags,
+    ``never`` cleared, in a random order; random slots in the padding."""
+    live = np.concatenate([fresh, old, never])
+    flags = np.concatenate([fresh_set, rng.integers(0, 2, size=old.size),
+                            np.zeros(never.size)]).astype(np.uint8)
+    order = rng.permutation(live.size)
+    slot = rng.integers(0, 1 << 32, size=t, dtype=np.uint64).astype(np.uint32)
+    flag = rng.integers(0, 2, size=t).astype(np.uint8)
+    slot[:live.size], flag[:live.size] = live[order], flags[order]
+    return slot, flag, live.size
+
+
+def set_fill(torch, np, als, bm, rng, cap: int, bits: int, t: int, device: str,
+             twin_each: bool) -> None:
+    """Fill a set of ``cap`` entries to a load of 0.745, near the sizing's
+    3/4 bound, by applies of ``t`` pairs: 3/4 of them fresh slots (9 in 10
+    set), a fifth slots already in the set with random flags, the rest
+    clears of slots never set.  The dense bitmap takes every apply.  With
+    ``twin_each`` the twin replays every apply and each is compared;
+    else the twin replays the last apply from the card set's host copy,
+    at the highest load, where probes run longest."""
+    from kafka_topic_analyzer_tpu_torch.models.state import AliveSetState
+
+    target = cap * 745 // 1000
+    span = min(1 << bits, als.EMPTY)
+    pool = np.unique(rng.integers(0, span, size=target * 3 // 2 + 2 * t,
+                                  dtype=np.uint64)).astype(np.uint32)
+    rng.shuffle(pool)
+    never, pool = pool[:t // 20], pool[t // 20:]
+    card = AliveSetState.empty(cap, bits, device)
+    twin = AliveSetState.empty(cap, bits, "cpu") if twin_each else None
+    words = torch.zeros(bm.bitmap_num_words(bits), dtype=torch.int32, device=device)
+    inserted = np.empty(0, np.uint32)
+    used = applies = 0
+    while inserted.size < target:
+        n_old = min(t // 5, inserted.size)
+        old = np.unique(inserted[rng.integers(0, max(inserted.size, 1),
+                                              size=n_old)])
+        n_fresh = t - old.size - never.size
+        fresh = pool[used:used + n_fresh]
+        used += n_fresh
+        fresh_set = rng.random(n_fresh) < 0.9
+        # No apply takes the set past the target load.
+        fresh_set[np.flatnonzero(fresh_set)[target - inserted.size:]] = False
+        inserted = np.concatenate([inserted, fresh[fresh_set]])
+        last = inserted.size >= target
+        slot, flag, n = set_fill_pairs(np, rng, fresh, fresh_set, old, never, t)
+        pairs = (torch.from_numpy(slot.view(np.int32)).to(device),
+                 torch.from_numpy(flag).to(device),
+                 torch.tensor(n, dtype=torch.int32, device=device))
+        if last and not twin_each:
+            twin = set_on_host(card)
+        als.alive_set_apply(card.keys, card.alive, card.meta, *pairs, bits)
+        bm.bitmap_apply_pairs(words, *pairs, bits)
+        if twin_each or last:
+            als.alive_set_apply(twin.keys, twin.alive, twin.meta,
+                                *(p.cpu() for p in pairs), bits)
+        applies += 1
+        if twin_each or last:
+            set_agrees(np, als, f"2^{bits} slots, {cap} entries filled to "
+                       f"{inserted.size} (load {inserted.size / cap:.4f}) by "
+                       f"{applies} applies of T={t}", card, twin,
+                       words.cpu().numpy().view(np.uint32))
+    if int(card.meta[als.ENTRIES]) != inserted.size:
+        fail(f"alive_set fill: {int(card.meta[als.ENTRIES])} entries, "
+             f"{inserted.size} slots set")
+
+
+def phase_alive_set_kernel(torch, np, als, bm) -> dict:
+    """The exact alive set's kernels (``csrc/alive_set.cu``) against their
+    numpy twins and the dense bitmap, bit for bit: sequences of applies
+    over 2^32 and 2^24 slots (slots 0, 0xFFFFFFFF and two that differ
+    only in bit 31; clears of absent slots; a slot set and cleared in
+    successive applies; partial prefixes; at 2^24 most slots past the
+    span), a rehash in the middle, the device count; sets filled to a
+    load of 0.745 (2^16 entries, every apply compared; 2^24 entries at
+    T = 262,144, the last apply compared).  Then the apply's three times
+    at the demo's T = 262,144 on a 2^24-entry table of 8M entries, with
+    every slot present and with every slot new, each compared once with
+    the twin on the table's host copy and with the dense bitmap of the
+    same slots, its bound, and the rehash (2^23 -> 2^24 entries) and
+    count at that size, compared with their plain twins; the row is the
+    apply's."""
+    from kafka_topic_analyzer_tpu_torch.models.state import AliveSetState
+    from kafka_topic_analyzer_tpu_torch.ops.alive_set import _probe
+
+    rng = np.random.default_rng(20261024)
+    special = (0, 0xFFFFFFFF, 5, 5 | 1 << 31)
+    for bits, cap in ((32, 1 << 16), (32, 1 << 20), (24, 1 << 16)):
+        card = AliveSetState.empty(cap, bits, "cuda")
+        twin = AliveSetState.empty(cap, bits, "cpu")
+        words = torch.zeros(bm.bitmap_num_words(bits), dtype=torch.int32, device="cuda")
+        pool = np.unique(rng.integers(0, 1 << 32, size=cap // 3, dtype=np.uint64)
+                         .astype(np.uint32))
+        pool = pool[~np.isin(pool, special)]
+        launches = als.alive_set_apply.launches
+        for step in range(12):
+            t = int(rng.integers(1, cap // 8))
+            extra = special if step in (0, 5) else ()
+            slot, flag, n = set_pairs(torch, np, rng, pool, t,
+                                      int(rng.integers(len(extra) + 1, t + 1)), *extra)
+            if step == 6:  # a grow between applies
+                grown = AliveSetState.empty(2 * cap, bits, "cuda")
+                als.alive_set_rehash(card.keys, card.alive, grown.keys, grown.alive)
+                grown.meta.copy_(card.meta)
+                card = grown
+            als.alive_set_apply(card.keys, card.alive, card.meta, slot, flag, n, bits)
+            als.alive_set_apply(twin.keys, twin.alive, twin.meta, slot.cpu(),
+                                flag.cpu(), n.cpu(), bits)
+            bm.bitmap_apply_pairs(words, slot, flag, n, bits)
+        launches = als.alive_set_apply.launches - launches
+        set_agrees(np, als, f"2^{bits} slots, {cap} -> {card.capacity} entries, "
+                   f"12 applies ({launches} launches) and a rehash", card, twin,
+                   words.cpu().numpy().view(np.uint32))
+        if launches != 12:
+            fail(f"alive_set_apply: {launches} launches for 12 applies")
+        del card, twin, words
+    set_fill(torch, np, als, bm, rng, 1 << 16, 24, 4096, "cuda", twin_each=True)
+    set_fill(torch, np, als, bm, rng, SET_CAPACITY, 32, 1 << 18, "cuda",
+             twin_each=False)
+    torch.cuda.empty_cache()
+
+    t_cap = 1 << 18
+    pool = np.unique(rng.integers(0, 1 << 32, size=SET_ENTRIES * 5 // 4,
+                                  dtype=np.uint64).astype(np.uint32))[:SET_ENTRIES + t_cap]
+    rng.shuffle(pool)
+    present, fresh = pool[:SET_ENTRIES], pool[SET_ENTRIES:]
+    table = AliveSetState.empty(SET_CAPACITY, 32, "cuda")
+    half = AliveSetState.empty(SET_CAPACITY // 2, 32, "cuda")
+    dense0 = torch.zeros(bm.bitmap_num_words(32), dtype=torch.int32, device="cuda")
+    for lo in range(0, present.size, 1 << 20):
+        chunk = present[lo:lo + (1 << 20)]
+        ones = torch.ones(chunk.size, dtype=torch.uint8, device="cuda")
+        n = torch.tensor(chunk.size, dtype=torch.int32, device="cuda")
+        slot = torch.from_numpy(chunk.view(np.int32)).cuda()
+        als.alive_set_apply(table.keys, table.alive, table.meta, slot, ones, n, 32)
+        bm.bitmap_apply_pairs(dense0, slot, ones, n, 32)
+        if lo < present.size // 2:
+            als.alive_set_apply(half.keys, half.alive, half.meta, slot, ones, n, 32)
+    keys0, alive0, meta0 = table.keys.clone(), table.alive.clone(), table.meta.clone()
+    slot_p, flag_p, n_p = set_pairs(torch, np, rng, present, t_cap, t_cap)
+    slot_f = torch.from_numpy(fresh.view(np.int32)).cuda()
+    flag_f = torch.ones(t_cap, dtype=torch.uint8, device="cuda")
+    n_f = torch.tensor(t_cap, dtype=torch.int32, device="cuda")
+    label = "alive_set_apply"
+
+    def apply_present():
+        als.alive_set_apply(table.keys, table.alive, table.meta, slot_p, flag_p, n_p, 32)
+
+    t = three_times([(f"{label} T={t_cap} present", apply_present, 1)], 500)
+    kernel = t[f"{label} T={t_cap} present"]
+    # New slots: each timed call starts from the 8M-entry table again.
+    ins = []
+    for _ in range(20):
+        table.keys.copy_(keys0)
+        table.alive.copy_(alive0)
+        table.meta.copy_(meta0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        als.alive_set_apply(table.keys, table.alive, table.meta, slot_f, flag_f, n_f, 32)
+        end.record()
+        torch.cuda.synchronize()
+        ins.append(start.elapsed_time(end))
+    inserted = int(table.meta[0]) - int(meta0[0])
+    grown = AliveSetState.empty(SET_CAPACITY, 32, "cuda")
+    rehash = cuda_ms(lambda: als.alive_set_rehash(half.keys, half.alive,
+                                                  grown.keys, grown.alive), 1, warmup=0)
+    count = cuda_ms(lambda: als.alive_set_count(table.alive, table.meta), 200)
+    # Bytes: 5 a live pair and the header; each pair's sector of keys is
+    # read (and written back when it inserts), each touched 32 B sector of
+    # bits read and written.
+    keys_h = table.keys.cpu().numpy().view(np.uint32)
+    entries_p, _, _ = _probe(keys_h.copy(), slot_p.cpu().numpy().view(np.uint32), False)
+    entries_f, _, _ = _probe(keys_h.copy(), fresh, False)
+    bounds = {}
+    for name, entries, key_rw in (("present", entries_p, 1), ("new", entries_f, 2)):
+        nbytes = (5 * t_cap + 4 + 32 * key_rw * np.unique(entries >> 3).size
+                  + 64 * np.unique(entries >> 8).size)
+        bounds[name] = (nbytes,) + bound(nbytes, t_cap)
+    bound_ms = bounds["present"][1]
+    new_ms = statistics.median(ins)
+    # The timed shapes, bit for bit: each pair table applied once to the
+    # 8M-entry table by the kernel, by the twin on the table's host copy,
+    # and to the dense bitmap of the same 8M slots.
+    table0 = AliveSetState(keys=keys0, alive=alive0, meta=meta0, bits=32)
+    for name, pairs in (("present", (slot_p, flag_p, n_p)), ("new", (slot_f, flag_f, n_f))):
+        for dst, src in ((table.keys, keys0), (table.alive, alive0), (table.meta, meta0)):
+            dst.copy_(src)
+        als.alive_set_apply(table.keys, table.alive, table.meta, *pairs, 32)
+        twin = set_on_host(table0)
+        als.alive_set_apply(twin.keys, twin.alive, twin.meta,
+                            *(p.cpu() for p in pairs), 32)
+        dense = dense0.clone()
+        bm.bitmap_apply_pairs(dense, *pairs, 32)
+        set_agrees(np, als, f"T={t_cap} on {SET_CAPACITY} entries holding "
+                   f"{SET_ENTRIES}, every slot {name}", table, twin,
+                   dense.cpu().numpy().view(np.uint32))
+        del dense, twin
+    # The timed grow against its plain twin, and the set it held.
+    grown.meta.copy_(half.meta)
+    host_half = set_on_host(half)
+    twin = AliveSetState.empty(SET_CAPACITY, 32, "cpu")
+    als.alive_set_rehash(host_half.keys, host_half.alive, twin.keys, twin.alive)
+    twin.meta.copy_(host_half.meta)
+    set_agrees(np, als, f"rehash {SET_CAPACITY // 2} -> {SET_CAPACITY} entries "
+               f"holding {int(half.meta[0])}",
+               grown, twin, host_half.host_words())
+    del twin, host_half, dense0
+    print(
+        f"kernel: {label} T={t_cap} on {SET_CAPACITY} entries holding {SET_ENTRIES}: "
+        f"every slot present {kernel['ms']:.6f} ms back to back, device "
+        f"{kernel['device_ms']:.6f} ms = {bound_ms / kernel['device_ms']:.4f} of the "
+        f"bound {bound_ms:.9f} ms ({bounds['present'][0]} B); every slot new "
+        f"{new_ms:.6f} ms (median of 20, {inserted} inserted) = "
+        f"{bounds['new'][1] / new_ms:.4f} of the bound {bounds['new'][1]:.9f} ms "
+        f"({bounds['new'][0]} B); host {kernel['host_us']:.3f} us/call; rehash "
+        f"{int(half.meta[0])} entries {SET_CAPACITY // 2} -> {SET_CAPACITY} "
+        f"{rehash:.6f} ms; count {count:.6f} ms"
+    )
+    if inserted != t_cap:
+        fail(f"{label}: {inserted} of {t_cap} new slots inserted")
+    row = {
+        "name": label,
+        "T": t_cap,
+        "route": "cuda",
+        "source": "kafka_topic_analyzer_tpu_torch/csrc/alive_set.cu",
+        "replaces": "none (the port's own: the dense 2^32-slot bitmap's pair apply)",
+        "launches": 0,
+        "max_abs_err": 0,
+        "ms": kernel["ms"],
+        "plain_ms": None,
+        "bound_ms": bound_ms,
+        "bound_by": bounds["present"][2],
+        "library_ms": None,
+        "device_ms": kernel["device_ms"],
+        "host_us": kernel["host_us"],
+        "new_slots_ms": new_ms,
+        "new_slots_bound_ms": bounds["new"][1],
+        "rehash_ms": rehash,
+        "count_ms": count,
+    }
+    del table, half, grown, keys0, alive0
+    torch.cuda.empty_cache()
+    return row
+
+
 def run_cli(cli, argv):
     """The port's CLI on ``argv`` (``cli.run``, what ``main`` runs, with
     ``--quiet``): (stdout, the scan's result); fails on a non-zero
@@ -1111,8 +1423,18 @@ def phase_scan(torch, np, cli, kernels, label, argv, kernel,
     timing lines, the scan's result)."""
     from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
     from kafka_topic_analyzer_tpu_torch.engine import run_scan
+    from kafka_topic_analyzer_tpu_torch.models.state import AliveSetState
+    from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
+    from kafka_topic_analyzer_tpu_torch.ops.alive_set import (
+        alive_set_apply,
+        alive_set_count,
+        alive_set_rehash,
+    )
     from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_apply_pairs
     from kafka_topic_analyzer_tpu_torch.report import render_report
+
+    def finalizes() -> int:
+        return obs_metrics.BACKEND_FINALIZE_SECONDS.samples()[0]["count"]
 
     args = cli.build_parser().parse_args(
         ["-t", "scan", *argv, *SKETCH_FLAGS, "--native", "on", "--device", "cuda"]
@@ -1122,20 +1444,34 @@ def phase_scan(torch, np, cli, kernels, label, argv, kernel,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero(kernels)
-    bitmap_apply_pairs.launches = 0
+    set_kernels = (alive_set_apply, alive_set_rehash, alive_set_count)
+    for fn in (bitmap_apply_pairs, *set_kernels):
+        fn.launches = 0
+    grows, finals = obs_metrics.ALIVE_SET_GROWS.value, finalizes()
     t0 = time.perf_counter()
     result = run_scan(args.topic, source, backend, args.batch_size)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    grows, finals = obs_metrics.ALIVE_SET_GROWS.value - grows, finalizes() - finals
     launches = {name: fn.launches for name, fn in kernels.items()}
-    PAIR_LAUNCHES[label] = pairs = bitmap_apply_pairs.launches
+    PAIR_LAUNCHES[label] = bitmap_apply_pairs.launches
+    SET_LAUNCHES[label] = {fn.__name__: fn.launches for fn in set_kernels}
+    pairs = bitmap_apply_pairs.launches + alive_set_apply.launches
     m = result.metrics
     records = source.total_records()
-    words = backend.state.alive.words
+    alive = backend.state.alive
+    if isinstance(alive, AliveSetState):
+        form, held = f"an exact set of {alive.capacity} entries", alive.keys
+        width, counts = alive.bits == ALIVE_BITS, finals
+    else:
+        form, held = f"the dense bitmap of {alive.words.numel()} words", alive.words
+        width, counts = alive.words.numel() == 1 << (ALIVE_BITS - 5), 0
     print(f"scan {label}: {records} records in {wall:.3f} s = "
           f"{records / wall:.1f} records/s; {backend.dispatches} dispatches "
           f"(fused rows: {result.fused}), kernel launches {launches}, "
-          f"bitmap_apply_pairs {pairs}; "
+          f"bitmap_apply_pairs {PAIR_LAUNCHES[label]}, alive set "
+          f"{SET_LAUNCHES[label]} ({grows:.0f} grows, {finals} finalizes); alive "
+          f"keys held in {form}; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; pinned "
           f"staging ring {backend.ring_nbytes} B per ingest stream")
     report = render_report(
@@ -1149,17 +1485,22 @@ def phase_scan(torch, np, cli, kernels, label, argv, kernel,
              f"{result.records}, expected {want}")
     if any(m.total(p) != per_partition for p in m.partitions):
         fail(f"scan {label}: a partition total is not {per_partition}")
-    if words.device.type != "cuda" or words.numel() != 1 << (ALIVE_BITS - 5):
-        fail(f"scan {label}: alive bitmap is {words.numel()} words on "
-             f"{words.device}")
+    if held.device.type != "cuda" or not width:
+        fail(f"scan {label}: alive keys held in {form} on {held.device}, not "
+             f"of 2^{ALIVE_BITS} slots")
+    # Each grow is one rehash launch; a finalize counts a set with one
+    # launch and the dense bitmap on the host.
+    if alive_set_rehash.launches != grows or alive_set_count.launches != counts:
+        fail(f"scan {label}: alive set launches {SET_LAUNCHES[label]} for "
+             f"{grows:.0f} grows and {counts} set finalizes")
     n = launches[kernel]
     if not (n > 0 and n == backend.dispatches):
         fail(f"scan {label}: {n} {kernel} launches for {backend.dispatches} "
              "dispatches")
     # At 2^32 slots every dispatch carries a pair list (its compacted
-    # table, or its row's own pairs).
+    # table, or its row's own pairs), applied to the set or the bitmap.
     if pairs != backend.dispatches:
-        fail(f"scan {label}: {pairs} bitmap_apply_pairs launches for "
+        fail(f"scan {label}: {pairs} pair-list applies for "
              f"{backend.dispatches} dispatches")
     if any(v for name, v in launches.items() if name != kernel):
         fail(f"scan {label}: launched a kernel of the other wire format: "
@@ -3242,10 +3583,9 @@ def phase_fleet(np, torch, cli, kernels) -> dict:
               f"{mean['default stream']:.3f} s = {total / mean['default stream']:.1f} "
               f"records/s ({mean['streams'] / mean['default stream']:.3f} x); peak "
               f"allocated B {json.dumps(peaks)}")
-        print(f"fleet v5: peak torch.cuda.max_memory_allocated {peak} B = "
-              f"{peak / (FLEET_AT_ONCE * 512 * 2**20):.3f} x {FLEET_AT_ONCE} x 512 "
-              "MiB (a topic's backend is freed when its pass ends: at most "
-              f"{FLEET_AT_ONCE} 512 MiB bitmaps live at once)")
+        print(f"fleet v5: peak torch.cuda.max_memory_allocated {peak} B (a "
+              "topic's backend is freed when its pass ends: at most "
+              f"{FLEET_AT_ONCE} topics' alive sets live at once)")
         print(f"fleet v5: per-topic doctor verdicts {json.dumps(verdicts)}")
 
         # 8 solo scans at the same workers, and their documents.
@@ -4685,6 +5025,7 @@ def main() -> int:
         from kafka_topic_analyzer_tpu_torch.io import native
         from kafka_topic_analyzer_tpu_torch.io.segfile import SegmentFileSource
         from kafka_topic_analyzer_tpu_torch.ops import counters_merge as cm
+        from kafka_topic_analyzer_tpu_torch.ops import alive_set as als
         from kafka_topic_analyzer_tpu_torch.ops import bitmap as bm
         from kafka_topic_analyzer_tpu_torch.ops import counters_update as cu
     except ImportError as e:
@@ -4728,6 +5069,7 @@ def main() -> int:
     merge_row = phase_kernel(torch, np, cm)
     update_row = phase_update_kernel(torch, np, cu)
     pairs_row = phase_pairs_kernel(torch, np, bm)
+    set_row = phase_alive_set_kernel(torch, np, als, bm)
     walls.mark("kernel")
     phase_identity(cli, kernels)
     walls.mark("identity")
@@ -4939,7 +5281,9 @@ def main() -> int:
         row["launches_by_path"] = launches[row["name"]]
     pairs_row["launches"] = PAIR_LAUNCHES["kafka v5"]
     pairs_row["launches_by_path"] = PAIR_LAUNCHES
-    print(json.dumps({"kernels": [merge_row, update_row, pairs_row]}))
+    set_row["launches"] = SET_LAUNCHES["kafka v5"]["alive_set_apply"]
+    set_row["launches_by_path"] = SET_LAUNCHES
+    print(json.dumps({"kernels": [merge_row, update_row, pairs_row, set_row]}))
     print(json.dumps({
         "ok": True,
         "device": {

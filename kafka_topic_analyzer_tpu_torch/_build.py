@@ -33,6 +33,7 @@ KERNEL_SOURCES = {
     "counters_merge": "csrc/counters_merge.cu",
     "counters_update": "csrc/counters_update.cu",
     "bitmap_pairs": "csrc/bitmap_pairs.cu",
+    "alive_set": "csrc/alive_set.cu",
 }
 #: The header every kernel's source includes, relative to the package.
 LAUNCH_HEADER = "csrc/kta_launch.cuh"

@@ -249,33 +249,51 @@ _resident_lock = threading.RLock()
 _resident_live = 0
 
 
-def book_resident(
-    backend: object, owners: "dict[str, int]"
-) -> "weakref.finalize":
+class ResidentBooking:
+    """One backend's device-resident bytes in the process's live sum
+    (`book_resident`): `grow` adds bytes a backend's state gained after
+    its construction (the alive set's grows, its switch to the dense
+    bitmap); calling the booking releases all of them at once.  The
+    release is a finalizer of the backend too: the backend's `close`
+    calls it, else its collection does (it runs once)."""
+
+    def __init__(self, backend: object, owners: "dict[str, int]"):
+        self._held = [0]
+        self._release = weakref.finalize(backend, _release_resident, self._held)
+        # Nothing to release at the interpreter's exit.
+        self._release.atexit = False
+        for owner, nbytes in owners.items():
+            self.grow(owner, nbytes)
+
+    def grow(self, owner: str, nbytes: int) -> None:
+        """Add ``nbytes`` of ``owner`` (``kta_device_resident_bytes_total``)
+        to the live sum, raising ``kta_device_resident_bytes_max`` to it."""
+        global _resident_live
+        obs_metrics.DEVICE_RESIDENT_BYTES.labels(owner=owner).inc(nbytes)
+        with _resident_lock:
+            self._held[0] += nbytes
+            _resident_live += nbytes
+            if _resident_live > obs_metrics.DEVICE_RESIDENT_MAX.value:
+                obs_metrics.DEVICE_RESIDENT_MAX.set(_resident_live)
+
+    def __call__(self) -> None:
+        self._release()
+
+
+def book_resident(backend: object, owners: "dict[str, int]") -> ResidentBooking:
     """Add a new backend's device-resident bytes by owner
     (``kta_device_resident_bytes_total``), and hold them in the process's
     live sum until ``backend`` is released, raising
-    ``kta_device_resident_bytes_max`` to the sum.  The release is the
-    returned finalizer: the backend's `close` calls it, else its
-    collection does (it runs once)."""
-    global _resident_live
-    for owner, nbytes in owners.items():
-        obs_metrics.DEVICE_RESIDENT_BYTES.labels(owner=owner).inc(nbytes)
-    total = sum(owners.values())
-    with _resident_lock:
-        _resident_live += total
-        if _resident_live > obs_metrics.DEVICE_RESIDENT_MAX.value:
-            obs_metrics.DEVICE_RESIDENT_MAX.set(_resident_live)
-    release = weakref.finalize(backend, _release_resident, total)
-    # Nothing to release at the interpreter's exit.
-    release.atexit = False
-    return release
+    ``kta_device_resident_bytes_max`` to the sum.  The returned booking
+    is the release (`ResidentBooking`)."""
+    return ResidentBooking(backend, owners)
 
 
-def _release_resident(nbytes: int) -> None:
+def _release_resident(held: "list[int]") -> None:
     global _resident_live
     with _resident_lock:
-        _resident_live -= nbytes
+        _resident_live -= held[0]
+        held[0] = 0
 
 
 def resident_bytes_live() -> int:

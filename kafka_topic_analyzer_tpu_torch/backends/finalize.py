@@ -1,6 +1,6 @@
 """Turn host state leaves into TopicMetrics (port of the reference's
-``backends/finalize.py``).  Popcount and the sketch estimates run on the
-host, on the `models.state.state_to_numpy` leaves."""
+``backends/finalize.py``).  The dense bitmap's popcount and the sketch
+estimates run on the host, on the `models.state.state_to_numpy` leaves."""
 
 from __future__ import annotations
 
@@ -18,9 +18,12 @@ from kafka_topic_analyzer_tpu_torch.results import (
 
 
 def metrics_from_state(
-    leaves: "dict[str, np.ndarray]", config: AnalyzerConfig, init_now_s: int
+    leaves: "dict[str, np.ndarray]", config: AnalyzerConfig, init_now_s: int,
+    alive_keys: "int | None" = None,
 ) -> TopicMetrics:
-    """``leaves`` is a `state_to_numpy` dict."""
+    """``leaves`` is a `state_to_numpy` dict; ``alive_keys``, an alive
+    count the caller has read from its state, stands in for the words
+    where ``leaves`` leave them out."""
     earliest_s = leaves["metrics.earliest_s"]
     latest_s = leaves["metrics.latest_s"]
     smallest_s = leaves["metrics.smallest"]
@@ -33,7 +36,6 @@ def metrics_from_state(
         init_now_s,
     )
     extremes = np.stack([earliest_s, latest_s, smallest_s, largest_s], axis=1)
-    alive_keys = None
     if "alive.words" in leaves:
         alive_keys = int(np.bitwise_count(leaves["alive.words"]).sum())
     hll = None

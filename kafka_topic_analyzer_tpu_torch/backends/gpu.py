@@ -77,6 +77,7 @@ host layout.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 import weakref
 
@@ -84,6 +85,7 @@ import numpy as np
 import torch
 
 from kafka_topic_analyzer_tpu_torch._torch_support import resolve_device
+from kafka_topic_analyzer_tpu_torch.backends.alive import AliveTable
 from kafka_topic_analyzer_tpu_torch.backends.base import (
     READY,
     DispatchQueue,
@@ -201,13 +203,16 @@ class StagedBatch:
     the superbatch's table merges (owned by this batch: fresh arrays,
     never views of a buffer the packer reuses); else None."""
 
-    __slots__ = ("row", "pairs", "raw_pairs")
+    __slots__ = ("row", "pairs", "raw_pairs", "n_pairs")
 
     def __init__(self, row: torch.Tensor, pairs: "torch.Tensor | None",
-                 raw_pairs=None):
+                 raw_pairs=None, n_pairs: int = 0):
         self.row = row
         self.pairs = pairs
         self.raw_pairs = raw_pairs
+        #: At most the live alive pairs its fold applies: its pair table's
+        #: (``pairs``), else its row's own (a batch's records).
+        self.n_pairs = n_pairs
 
 
 def _host_view(t: torch.Tensor, dtype) -> np.ndarray:
@@ -335,9 +340,6 @@ class TorchBackend(MetricBackend):
         else:
             self.stream = torch.cuda.current_stream(self.device)
         self.init_now_s = utc_now_seconds() if init_now_s is None else init_now_s
-        with self._on_stream():
-            self_check_unpack(self.device)
-            self.state = AnalyzerState.init(config, self.device)
         b = config.batch_size
         self.dispatch_config = dispatch if dispatch is not None else DispatchConfig()
         #: Rows folded per dispatch (``--superbatch``, resolved).
@@ -349,8 +351,22 @@ class TorchBackend(MetricBackend):
         self._pair_cap = (
             pair_table_capacity(config, b, k) if config.compact_alive else 0
         )
-        self._releases.append(book_resident(self, state_nbytes(self.state)))
+        #: The alive state's form and size (an exact set or the bitmap).
+        self._alive = AliveTable(config, self.device, self._pair_cap)
+        with self._on_stream():
+            self_check_unpack(self.device)
+            self.state = AnalyzerState.init(
+                config, self.device,
+                alive=self._alive.init() if config.count_alive_keys else None,
+            )
+        booking = book_resident(self, state_nbytes(self.state))
+        self._alive.booking = booking
+        self._releases.append(booking)
         self._row_nbytes = packed_nbytes(config, b)
+        #: At most the live pairs a row carries without compaction.
+        self._row_pairs = (
+            b if config.count_alive_keys and not config.compact_alive else 0
+        )
         # The pair table starts on a 16-byte boundary of the staging row.
         # Only at K = 1 does a slot carry one (its own batch's); at K > 1
         # the table spans the superbatch and the stager holds it.
@@ -434,7 +450,8 @@ class TorchBackend(MetricBackend):
             held = self._thread_rings.ring = (self._ring_gen, self._lease_ring())
         return held[1]
 
-    def _send(self, ring: StagingRing, slot: int, raw_pairs=None) -> StagedBatch:
+    def _send(self, ring: StagingRing, slot: int, raw_pairs=None,
+              n_pairs: "int | None" = None) -> StagedBatch:
         """Start the one asynchronous copy of a filled slot to the device,
         and record the event that frees the slot.  Ingest threads issue it
         on the backend's stream: the copy is enqueued before its item is
@@ -453,18 +470,21 @@ class TorchBackend(MetricBackend):
             dev[: self._row_nbytes],
             dev[self._pair_off :] if self._slot_pairs else None,
             raw_pairs,
+            self._row_pairs if n_pairs is None else n_pairs,
         )
 
-    def _pack_pairs(self, pair_lists, out: np.ndarray) -> None:
+    def _pack_pairs(self, pair_lists, out: np.ndarray) -> int:
         """Merge and pack one dispatch's compacted pair table into ``out``
         (a slot's pair region at K = 1, a stager buffer at K > 1),
-        booking the raw→emitted compaction split."""
+        booking the raw→emitted compaction split; returns the pairs
+        emitted."""
         _, raw, emitted = pack_pair_table(
             pair_lists, self.config, self._pair_cap, use_native=self.use_native,
             out=out,
         )
         obs_metrics.ALIVE_PAIRS_RAW.inc(raw)
         obs_metrics.ALIVE_PAIRS_EMITTED.inc(emitted)
+        return emitted
 
     def prepare(self, batch: RecordBatch) -> StagedBatch:
         """Pack a batch into the next slot of the calling thread's ring
@@ -477,13 +497,13 @@ class TorchBackend(MetricBackend):
             batch, self.config, use_native=self.use_native,
             out=view[: self._row_nbytes],
         )
-        pairs = None
+        pairs = n_pairs = None
         if self.config.compact_alive:
             pairs = batch_alive_pairs(batch, self.config, self.use_native)
             if self._slot_pairs:
-                self._pack_pairs([pairs], view[self._pair_off :])
+                n_pairs = self._pack_pairs([pairs], view[self._pair_off :])
                 pairs = None
-        return self._send(ring, slot, pairs)
+        return self._send(ring, slot, pairs, n_pairs)
 
     def make_fused_sink(self, dense_of) -> FusedPackSink:
         """A sink whose rows are packed straight into the slots of a ring
@@ -497,10 +517,11 @@ class TorchBackend(MetricBackend):
 
         def stage(row: np.ndarray, pairs=None) -> StagedBatch:
             slot = ptrs.index(row.ctypes.data)
+            n_pairs = None
             if self._slot_pairs:
-                self._pack_pairs([pairs], ring.views[slot][self._pair_off :])
+                n_pairs = self._pack_pairs([pairs], ring.views[slot][self._pair_off :])
                 pairs = None
-            return self._send(ring, slot, pairs)
+            return self._send(ring, slot, pairs, n_pairs)
 
         return FusedPackSink(
             self.config, self.config.batch_size, dense_of,
@@ -540,6 +561,7 @@ class TorchBackend(MetricBackend):
         self._queue.throttle()
         with self._on_stream():
             start = self._fold_start()
+            self._alive.reserve(state, batch.n_pairs)
             analyzer_step(
                 state, unpack_device(batch.row, self.config), self.config
             )
@@ -549,6 +571,7 @@ class TorchBackend(MetricBackend):
                     unpack_pair_table_device(batch.pairs, self.config, self._pair_cap),
                     self.config,
                 )
+            self._alive.counted(state)
             token = self._completion_token()
         self._queue.launched(token, 1, start)
         self.dispatches += 1
@@ -579,13 +602,15 @@ class TorchBackend(MetricBackend):
             obs_metrics.WIRE_BYTES.inc(int(item.row.numel()))
         with self._on_stream():
             pairs = None
+            n_pairs = sum(item.n_pairs for item in items)
             if self.config.compact_alive:
-                self._pack_pairs(
+                n_pairs = self._pack_pairs(
                     [item.raw_pairs for item in items
                      if item.raw_pairs is not None],
                     self._stager.views[slot],
                 )
             start = self._fold_start()
+            self._alive.reserve(state, n_pairs)
             if self.config.compact_alive:
                 host = self._stager.hosts[slot]
                 dev = torch.empty(host.numel(), dtype=torch.uint8,
@@ -600,6 +625,7 @@ class TorchBackend(MetricBackend):
                 lambda row: unpack_device(row, self.config), self.config,
                 pairs=pairs,
             )
+            self._alive.counted(state)
             token = self._completion_token()
         self._queue.launched(token, len(items), start)
         self.dispatches += len(items)
@@ -648,19 +674,26 @@ class TorchBackend(MetricBackend):
 
     def set_state(self, leaves: "dict[str, np.ndarray]") -> None:
         """Copy a snapshot's leaves into the state's own tensors, on the
-        backend's stream (ahead of every fold enqueued after it)."""
+        backend's stream (ahead of every fold enqueued after it); an exact
+        alive set is rebuilt from the snapshot's words
+        (`alive.AliveTable.load`)."""
         state = self._live_state()
         with self._on_stream():
-            copy_from_numpy_(state, leaves)
+            rest = self._alive.load(state, leaves)
+            copy_from_numpy_(dataclasses.replace(state, alive=None), rest)
 
     def finalize(self) -> TopicMetrics:
         """Retire the in-flight folds, copy the state to the host (waiting
         for the device) and derive the metrics there: `get_state`'s work
-        and the derivation, each phase timed (`base.finalize_phase`)."""
+        and the derivation, each phase timed (`base.finalize_phase`).  The
+        alive keys cross as their count alone: an exact set counts them on
+        the device, the dense bitmap's words are counted on the host."""
         state = self._live_state()
         with finalize_phase("drain"):
             self._queue.drain()
         with finalize_phase("copy"), self._on_stream():
-            leaves = state_to_numpy(state)
+            alive_keys = self._alive.count(state)
+            leaves = state_to_numpy(dataclasses.replace(state, alive=None))
         with finalize_phase("derive"):
-            return metrics_from_state(leaves, self.config, self.init_now_s)
+            return metrics_from_state(leaves, self.config, self.init_now_s,
+                                      alive_keys)

@@ -24,10 +24,7 @@ import torch
 from kafka_topic_analyzer_tpu_torch._torch_support import u32_low_bits
 from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
 from kafka_topic_analyzer_tpu_torch.models.state import AnalyzerState
-from kafka_topic_analyzer_tpu_torch.ops.bitmap import (
-    bitmap_apply_masks,
-    bitmap_apply_pairs,
-)
+from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_apply_masks
 from kafka_topic_analyzer_tpu_torch.ops.counters import extremes_update
 from kafka_topic_analyzer_tpu_torch.ops.counters_merge import counters_merge
 from kafka_topic_analyzer_tpu_torch.ops.counters_update import counters_update
@@ -47,8 +44,9 @@ def apply_pair_table(
 ) -> AnalyzerState:
     """Apply one dispatch's compacted alive table
     (`packing.unpack_pair_table_device`): set/clear word masks merge
-    elementwise; the bounded pair list goes through
-    `ops.bitmap.bitmap_apply_pairs`.  Under a space-sharded
+    elementwise into the dense bitmap; the bounded pair list goes through
+    `ops.bitmap.bitmap_apply_pairs`, or `ops.alive_set.alive_set_apply`
+    where an exact set holds the alive keys.  Under a space-sharded
     mesh every space shard applies its data row's one table to its own
     slot range (``space_index``)."""
     if state.alive is None:
@@ -67,16 +65,10 @@ def _apply_pair_list(
     state: AnalyzerState, pairs: dict, config: AnalyzerConfig, space_index: int
 ) -> None:
     """Apply one (slot, aliveness) pair list — ``alive_slot``,
-    ``alive_flag``, ``n_pairs`` — to the shard's bitmap words, in place."""
-    bitmap_apply_pairs(
-        state.alive.words,
-        pairs["alive_slot"],
-        pairs["alive_flag"],
-        pairs["n_pairs"],
-        bits=config.alive_bitmap_bits,
-        space_index=space_index,
-        space_shards=config.space_shards,
-    )
+    ``alive_flag``, ``n_pairs`` — to the shard's alive state (the bitmap's
+    words, or the exact set that stands in for them), in place."""
+    state.alive.apply_pairs(pairs["alive_slot"], pairs["alive_flag"],
+                            pairs["n_pairs"], config, space_index)
 
 
 def superbatch_fold(

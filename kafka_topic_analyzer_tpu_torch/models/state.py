@@ -2,10 +2,16 @@
 ``models/*.py``).
 
 Same leaves, shapes and dtypes as the reference's ``AnalyzerState``, with
-one exception: alive-bitmap words are ``int32`` bit patterns instead of
-``uint32`` (`_torch_support`).  Optional sub-states are ``None`` when
-their feature is off.  Every leaf is its own tensor on an explicit
-device; the step updates them in place.
+two exceptions: alive-bitmap words are ``int32`` bit patterns instead of
+``uint32`` (`_torch_support`), and the single-device backend may hold the
+alive keys as an exact set of the slots seen (`AliveSetState`,
+``ops/alive_set.py``) instead of the dense bitmap (`AliveBitmapState`);
+its leaf is the bitmap's words all the same.  The two alive forms offer
+one surface (``apply_pairs``, ``host_words``, ``count``), so the step,
+snapshots and finalize read either without asking which it is; the
+backend that holds a set sizes it (``backends/alive.py``).  Optional
+sub-states are ``None`` when their feature is off.  Every leaf is its own tensor on an
+explicit device; the step updates them in place.
 
 `state_to_numpy` / `state_from_numpy` carry a state across the framework
 boundary as a dict of numpy arrays keyed by leaf path
@@ -30,9 +36,20 @@ from kafka_topic_analyzer_tpu_torch._torch_support import (
     u32_to_i32,
 )
 from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
-from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_num_words
+from kafka_topic_analyzer_tpu_torch.ops.alive_set import (
+    EMPTY,
+    META_WORDS,
+    alive_set_apply,
+    alive_set_count,
+    alive_set_words,
+)
+from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_apply_pairs, bitmap_num_words
 from kafka_topic_analyzer_tpu_torch.ops.counters import I64_MAX, I64_MIN
 from kafka_topic_analyzer_tpu_torch.ops.ddsketch import ddsketch_num_buckets
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.to("cpu", copy=True).numpy()
 
 
 @dataclasses.dataclass
@@ -76,6 +93,71 @@ class AliveBitmapState:
         w = bitmap_num_words(config.alive_bitmap_bits)
         return cls(words=torch.zeros((w,), dtype=torch.int32, device=device))
 
+    def apply_pairs(self, slot, alive_flag, n_pairs, config: AnalyzerConfig,
+                    space_index: int = 0) -> None:
+        """Apply a pair list to space shard ``space_index``'s words
+        (`ops.bitmap.bitmap_apply_pairs`)."""
+        bitmap_apply_pairs(self.words, slot, alive_flag, n_pairs,
+                           bits=config.alive_bitmap_bits, space_index=space_index,
+                           space_shards=config.space_shards)
+
+    def host_words(self) -> np.ndarray:
+        """The words on the host, as ``uint32`` (a copy)."""
+        return i32_to_u32(_host(self.words))
+
+    def count(self) -> int:
+        """The alive count: the words' popcount, on the host."""
+        return int(np.bitwise_count(self.host_words()).sum())
+
+
+@dataclasses.dataclass
+class AliveSetState:
+    """The alive keys as an exact set of the slots seen (layout in
+    ``ops/alive_set.py``): the same answer as a ``2^bits``-slot bitmap."""
+
+    keys: torch.Tensor   # int32[C] slot bit patterns, EMPTY (-1) free
+    alive: torch.Tensor  # int32[C / 32] an entry's aliveness bit
+    meta: torch.Tensor   # int32[4] entries, slot 0xFFFFFFFF's bit, full, spare
+    bits: int            # the bitmap's slots are 2^bits
+
+    @classmethod
+    def empty(cls, capacity: int, bits: int, device) -> "AliveSetState":
+        return cls(
+            keys=torch.full((capacity,), EMPTY - (1 << 32), dtype=torch.int32,
+                            device=device),
+            alive=torch.zeros((capacity // 32,), dtype=torch.int32, device=device),
+            meta=torch.zeros((META_WORDS,), dtype=torch.int32, device=device),
+            bits=bits,
+        )
+
+    @property
+    def capacity(self) -> int:
+        return self.keys.shape[0]
+
+    def apply_pairs(self, slot, alive_flag, n_pairs, config: AnalyzerConfig,
+                    space_index: int = 0) -> None:
+        """Apply a pair list (`ops.alive_set.alive_set_apply`); the set
+        stands in for a whole, unsharded bitmap."""
+        if config.space_shards != 1:
+            raise ValueError("an exact alive set holds an unsharded bitmap")
+        alive_set_apply(self.keys, self.alive, self.meta, slot, alive_flag,
+                        n_pairs, self.bits)
+
+    def host_words(self) -> np.ndarray:
+        """The dense bitmap's ``uint32`` words, built on the host from the
+        set's entries (`ops.alive_set.alive_set_words`)."""
+        return alive_set_words(_host(self.keys), _host(self.alive),
+                               _host(self.meta), self.bits)
+
+    def count(self) -> int:
+        """The alive count, counted on the device (24 bytes cross)."""
+        count, _, full = alive_set_count(self.alive, self.meta).tolist()
+        if full:
+            raise RuntimeError(
+                "the exact alive set found no free entry: its sizing failed"
+            )
+        return count
+
 
 @dataclasses.dataclass
 class HLLState:
@@ -103,18 +185,19 @@ class DDSketchState:
 @dataclasses.dataclass
 class AnalyzerState:
     metrics: MessageMetricsState
-    alive: Optional[AliveBitmapState]
+    alive: "AliveBitmapState | AliveSetState | None"
     hll: Optional[HLLState]
     quantiles: Optional[DDSketchState]
 
     @classmethod
-    def init(cls, config: AnalyzerConfig, device) -> "AnalyzerState":
+    def init(cls, config: AnalyzerConfig, device, alive=None) -> "AnalyzerState":
+        """A fresh state; ``alive``, when given, is the alive sub-state to
+        hold (an `AliveSetState`) in place of a new dense bitmap."""
+        if alive is None and config.count_alive_keys:
+            alive = AliveBitmapState.init(config, device)
         return cls(
             metrics=MessageMetricsState.init(config, device),
-            alive=(
-                AliveBitmapState.init(config, device)
-                if config.count_alive_keys else None
-            ),
+            alive=alive,
             hll=HLLState.init(config, device) if config.enable_hll else None,
             quantiles=(
                 DDSketchState.init(config, device)
@@ -126,15 +209,19 @@ class AnalyzerState:
 _METRIC_LEAVES = tuple(f.name for f in dataclasses.fields(MessageMetricsState))
 
 
+def substate_nbytes(sub) -> int:
+    """Bytes of one sub-state's tensors."""
+    return sum(v.nbytes for v in vars(sub).values() if isinstance(v, torch.Tensor))
+
+
 def state_nbytes(state: AnalyzerState) -> Dict[str, int]:
     """Bytes of the state's tensors by sub-state (``metrics``, ``alive``,
     ``hll``, ``quantiles``; those present), read from the tensors."""
-    out = {"metrics": sum(getattr(state.metrics, n).nbytes for n in _METRIC_LEAVES)}
+    out = {"metrics": substate_nbytes(state.metrics)}
     for name, sub in (("alive", state.alive), ("hll", state.hll),
                       ("quantiles", state.quantiles)):
         if sub is not None:
-            out[name] = sum(getattr(sub, f.name).nbytes
-                            for f in dataclasses.fields(sub))
+            out[name] = substate_nbytes(sub)
     return out
 
 #: Each leaf's merge across device rows (the reference's
@@ -195,20 +282,17 @@ def identity_leaves(config: AnalyzerConfig) -> Dict[str, np.ndarray]:
 
 def state_to_numpy(state: AnalyzerState) -> Dict[str, np.ndarray]:
     """Leaf path → host numpy array (a copy), the reference's dtypes
-    (alive words as ``uint32``)."""
-    def host(t: torch.Tensor) -> np.ndarray:
-        return t.to("cpu", copy=True).numpy()
-
+    (alive words as ``uint32``, whichever form holds them)."""
     out = {
-        f"metrics.{name}": host(getattr(state.metrics, name))
+        f"metrics.{name}": _host(getattr(state.metrics, name))
         for name in _METRIC_LEAVES
     }
     if state.alive is not None:
-        out["alive.words"] = i32_to_u32(host(state.alive.words))
+        out["alive.words"] = state.alive.host_words()
     if state.hll is not None:
-        out["hll.regs"] = host(state.hll.regs)
+        out["hll.regs"] = _host(state.hll.regs)
     if state.quantiles is not None:
-        out["quantiles.counts"] = host(state.quantiles.counts)
+        out["quantiles.counts"] = _host(state.quantiles.counts)
     return out
 
 

@@ -465,8 +465,8 @@ FINALIZE_PHASE_SECONDS = _REG.counter(
 DEVICE_RESIDENT_BYTES = _REG.counter(
     "kta_device_resident_bytes_total",
     "Bytes each backend keeps on its device for its life, added at its "
-    "construction, by owner: metrics, alive, hll and quantiles (the "
-    "state's tensors)",
+    "construction and as its alive state grows, by owner: metrics, alive, "
+    "hll and quantiles (the state's tensors)",
     labelnames=("owner",))
 DEVICE_RESIDENT_MAX = _REG.gauge(
     "kta_device_resident_bytes_max",
@@ -475,6 +475,19 @@ DEVICE_RESIDENT_MAX = _REG.gauge(
     "a backend's construction and falls at its release, and this keeps "
     "its high-water mark (a batch fleet's admitted topics' backends are "
     "live together)")
+ALIVE_SET_ENTRIES = _REG.gauge(
+    "kta_alive_set_entries",
+    "Distinct alive-bitmap slots an exact alive set held at its last "
+    "count read back (the single-device backend's set in place of the "
+    "dense bitmap; the last backend to read sets it)")
+ALIVE_SET_GROWS = _REG.counter(
+    "kta_alive_set_grows_total",
+    "Rehashes of an exact alive set into a table of twice (or more) its "
+    "entries, before an apply could take it past its load limits")
+ALIVE_DENSE_CONVERSIONS = _REG.counter(
+    "kta_alive_dense_conversions_total",
+    "Exact alive sets switched to the dense bitmap, because the next grow "
+    "would pass a quarter of the bitmap's bytes")
 
 # -- follow-mode service (serve/follow.py + io/kafka_wire.py) -----------------
 

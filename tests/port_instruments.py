@@ -2,7 +2,8 @@
 the port measures inside its own layers (worker and drive-loop CPU, the
 fetch rounds' wait, finalize's phases, the device-resident bytes and
 their high-water mark, each fold's device span, the fleet's admission
-waits, passes and released backends).  Name → (kind, label names)."""
+waits, passes and released backends, the exact alive set's entries,
+grows and switches to the dense bitmap).  Name → (kind, label names)."""
 
 PORT_ONLY = {
     "kta_stage_cpu_seconds_total": ("counter", ("stage",)),
@@ -15,6 +16,9 @@ PORT_ONLY = {
     "kta_fleet_admission_wait_seconds_total": ("counter", ()),
     "kta_fleet_pass_seconds_total": ("counter", ()),
     "kta_fleet_backends_released_total": ("counter", ()),
+    "kta_alive_set_entries": ("gauge", ()),
+    "kta_alive_set_grows_total": ("counter", ()),
+    "kta_alive_dense_conversions_total": ("counter", ()),
 }
 
 

@@ -299,7 +299,10 @@ SCAN_PATHS = {
 def test_cuda_scan_launches_once_per_dispatch_with_a_pair_list(path):
     """A scan on the card launches the kernel once per dispatch that
     carries a pair list (a compacted table in its list form, or a row's
-    own pairs), and leaves the bitmap the host's scan leaves."""
+    own pairs), and leaves the bitmap the host's scan leaves.  At 2^22
+    slots the backend holds the dense bitmap (an exact set may not pass a
+    quarter of its bytes, ``ops/alive_set.capacity_limit``), and a
+    4096-record table is a list."""
     cuda_or_skip()
     from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
     from kafka_topic_analyzer_tpu_torch.config import AnalyzerConfig
@@ -308,17 +311,17 @@ def test_cuda_scan_launches_once_per_dispatch_with_a_pair_list(path):
     from kafka_topic_analyzer_tpu_torch.models.state import state_to_numpy
     from kafka_topic_analyzer_tpu_torch.packing import alive_table_mode, pair_table_capacity
 
-    cfg = AnalyzerConfig(num_partitions=3, batch_size=8192, count_alive_keys=True,
-                         alive_bitmap_bits=24, **SCAN_PATHS[path])
+    cfg = AnalyzerConfig(num_partitions=3, batch_size=4096, count_alive_keys=True,
+                         alive_bitmap_bits=22, **SCAN_PATHS[path])
     if cfg.compact_alive:
-        assert alive_table_mode(cfg, pair_table_capacity(cfg, 8192, 1)) == 1
+        assert alive_table_mode(cfg, pair_table_capacity(cfg, 4096, 1)) == 1
     spec = SyntheticSpec(num_partitions=3, messages_per_partition=20_000,
                          keys_per_partition=500, tombstone_permille=150, seed=3)
     words = {}
     for device in ("cuda", "cpu"):
         backend = TorchBackend(cfg, init_now_s=10**10, device=device)
         bitmap_apply_pairs.launches = 0
-        result = run_scan("t", SyntheticSource(spec), backend, 8192)
+        result = run_scan("t", SyntheticSource(spec), backend, 4096)
         words[device] = state_to_numpy(backend.state)["alive.words"]
         if device == "cuda":
             assert bitmap_apply_pairs.launches == backend.dispatches > 0

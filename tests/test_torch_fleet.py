@@ -645,11 +645,13 @@ def _unclocked_rollup(doc: dict) -> dict:
 
 def _unclocked_table(text: str) -> str:
     """The status table without its verdict column (the doctor's verdict
-    reads stage timings)."""
+    reads stage timings), its cells and its rules' last segment alike
+    (the column's width is the verdict's)."""
     out = []
     for line in text.splitlines():
-        cells = line.split("|")
-        out.append("|".join(cells[:-2]) if len(cells) > 3 else line)
+        sep = "+" if line.startswith("+") else "|"
+        cells = line.split(sep)
+        out.append(sep.join(cells[:-2]) if len(cells) > 3 else line)
     return "\n".join(out)
 
 

@@ -241,8 +241,8 @@ def test_pooled_backends_reuse_a_freed_stream_and_its_memory():
     a.close()
     torch.cuda.synchronize()
     reserved = torch.cuda.memory_reserved()
-    # Two passes in turn: the same stream, and the 128 MiB bitmap lands in
-    # the block the first one freed.
+    # Two passes in turn: the same stream, and the state (an exact alive
+    # set at 2^30 slots) lands in the blocks the first one freed.
     b = backend()
     assert b.stream is stream
     assert torch.cuda.memory_reserved() == reserved
