@@ -1,0 +1,7 @@
+"""Device: one minus the union of the device's activity over the traced
+window, as ``device_idle_share.scan`` reads it, in the published-keys cell
+(the switch's host round trip and the dense finalize's copy included)."""
+
+from benchmark.run import load_reader
+
+read = load_reader("device_idle_share.scan")

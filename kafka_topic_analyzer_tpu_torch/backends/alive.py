@@ -31,7 +31,15 @@ resident booking (``kta_device_resident_bytes_total{owner="alive"}`` and
 the live sum behind ``kta_device_resident_bytes_max``), which its close
 takes off whole; they are counted on ``kta_alive_set_grows_total`` and
 ``kta_alive_dense_conversions_total``, and each count read sets
-``kta_alive_set_entries``.
+``kta_alive_set_entries``.  Each grow is span ``alive-grow`` (``from`` and
+``to`` capacity in its args; ``kta_alive_grow_seconds_total``: the host's
+allocation and launch, the rehash runs on the stream after), each switch
+span ``alive-switch`` (``kta_alive_switch_seconds_total``) around its
+phases ``copy`` (the set to the host, which waits for the stream),
+``slots`` (its alive slots, on the host) and ``load`` (their chunks into
+the bitmap).  ``kta_alive_dense_pairs_total`` counts the pairs a dense
+bitmap takes through `bitmap_apply_pairs`: each compacted pair list's and
+the switch's loaded slots.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from kafka_topic_analyzer_tpu_torch.models.state import (
     substate_nbytes,
 )
 from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
+from kafka_topic_analyzer_tpu_torch.obs import trace as obs_trace
 from kafka_topic_analyzer_tpu_torch.ops.alive_set import (
     ENTRIES,
     MIN_CAPACITY,
@@ -89,6 +98,9 @@ class AliveTable:
         #: the dense form, as a carry from the reference does.
         self.starts_exact = (config.count_alive_keys and not mask_form
                              and capacity_limit(self.bits) >= MIN_CAPACITY)
+        #: Whether each apply is a compacted pair list whose pairs the host
+        #: counted: what a dense bitmap's pairs are booked from.
+        self._lists = config.compact_alive and not mask_form
         #: The backend's resident booking (`base.ResidentBooking`).
         self.booking = None
         self._pairs = 0       # live pairs sent to the set, all applies
@@ -107,9 +119,14 @@ class AliveTable:
 
     def reserve(self, state: AnalyzerState, n_pairs: int) -> None:
         """Make room, on the current stream, for an apply of at most
-        ``n_pairs`` live pairs: grow the set, or switch to the bitmap."""
-        if not _exact(state):
-            return
+        ``n_pairs`` live pairs: grow the set, or switch to the bitmap.
+        Books the pairs a dense bitmap takes."""
+        if _exact(state):
+            self._make_room(state, n_pairs)
+        if self._lists and isinstance(state.alive, AliveBitmapState):
+            obs_metrics.ALIVE_DENSE_PAIRS.inc(n_pairs)
+
+    def _make_room(self, state: AnalyzerState, n_pairs: int) -> None:
         self._harvest()
         self._pairs += n_pairs
         bound = self._entries + self._pairs - self._pairs_at
@@ -160,28 +177,35 @@ class AliveTable:
 
     def _grow(self, state: AnalyzerState, capacity: int) -> None:
         old = state.alive
-        new = AliveSetState.empty(capacity, self.bits, self.device)
-        alive_set_rehash(old.keys, old.alive, new.keys, new.alive)
-        new.meta.copy_(old.meta)
-        self._replace(state, new)
+        with obs_trace.timed("alive-grow", obs_metrics.ALIVE_GROW_SECONDS,
+                             **{"from": old.capacity, "to": capacity}):
+            new = AliveSetState.empty(capacity, self.bits, self.device)
+            alive_set_rehash(old.keys, old.alive, new.keys, new.alive)
+            new.meta.copy_(old.meta)
+            self._replace(state, new)
         obs_metrics.ALIVE_SET_GROWS.inc()
 
     def _to_dense(self, state: AnalyzerState, slots=None) -> None:
         """Switch to the dense bitmap holding the set's alive slots (or
         ``slots``, a snapshot's), never holding both on the device."""
-        old = state.alive
-        if slots is None:
-            slots = alive_set_slots(old.keys.cpu().numpy(), old.alive.cpu().numpy(),
-                                    old.meta.cpu().numpy(), self.bits)
-        gained = -substate_nbytes(old)
-        state.alive = old = None
-        dense = AliveBitmapState.init(self.config, self.device)
-        self._load(dense, slots)
-        state.alive = dense
-        if self.booking is not None:
-            self.booking.grow("alive", gained + substate_nbytes(dense))
-        self._forget_reads()
+        with obs_trace.timed("alive-switch", obs_metrics.ALIVE_SWITCH_SECONDS):
+            old = state.alive
+            if slots is None:
+                with obs_trace.timed("copy"):
+                    host = [t.cpu().numpy() for t in (old.keys, old.alive, old.meta)]
+                with obs_trace.timed("slots"):
+                    slots = alive_set_slots(*host, self.bits)
+            gained = -substate_nbytes(old)
+            state.alive = old = None
+            dense = AliveBitmapState.init(self.config, self.device)
+            with obs_trace.timed("load"):
+                self._load(dense, slots)
+            state.alive = dense
+            if self.booking is not None:
+                self.booking.grow("alive", gained + substate_nbytes(dense))
+            self._forget_reads()
         obs_metrics.ALIVE_DENSE_CONVERSIONS.inc()
+        obs_metrics.ALIVE_DENSE_PAIRS.inc(slots.size)
 
     def _forget_reads(self) -> None:
         """Drop the count reads in flight (the stream has passed them)."""

@@ -488,6 +488,21 @@ ALIVE_DENSE_CONVERSIONS = _REG.counter(
     "kta_alive_dense_conversions_total",
     "Exact alive sets switched to the dense bitmap, because the next grow "
     "would pass a quarter of the bitmap's bytes")
+ALIVE_GROW_SECONDS = _REG.counter(
+    "kta_alive_grow_seconds_total",
+    "Host seconds of the exact alive set's grows (span alive-grow): the "
+    "larger table's allocation and its rehash's launch on the backend's "
+    "stream")
+ALIVE_SWITCH_SECONDS = _REG.counter(
+    "kta_alive_switch_seconds_total",
+    "Seconds of the exact alive set's switches to the dense bitmap (span "
+    "alive-switch: the set's copy to the host, which waits for the "
+    "stream, its alive slots derived there, and their load into the "
+    "bitmap)")
+ALIVE_DENSE_PAIRS = _REG.counter(
+    "kta_alive_dense_pairs_total",
+    "Compacted alive pairs applied to a dense bitmap through its pair "
+    "kernel (bitmap_pairs), the pairs a switch loads included")
 
 # -- follow-mode service (serve/follow.py + io/kafka_wire.py) -----------------
 

@@ -456,7 +456,10 @@ def test_the_set_counters_are_in_metrics_and_port_only():
     text = render_prometheus(default_registry().snapshot())
     for name, kind in (("kta_alive_set_entries", "gauge"),
                        ("kta_alive_set_grows_total", "counter"),
-                       ("kta_alive_dense_conversions_total", "counter")):
+                       ("kta_alive_dense_conversions_total", "counter"),
+                       ("kta_alive_grow_seconds_total", "counter"),
+                       ("kta_alive_switch_seconds_total", "counter"),
+                       ("kta_alive_dense_pairs_total", "counter")):
         assert f"# TYPE {name} {kind}" in text
         assert PORT_ONLY[name] == (kind, ())
     assert obs_metrics.ALIVE_SET_ENTRIES.value == int(backend.state.alive.meta[als.ENTRIES])
