@@ -1421,6 +1421,7 @@ def phase_scan(torch, np, cli, kernels, label, argv, kernel,
     """One full-size scan on the card of ``per_partition`` records in each
     partition; returns (launches of ``kernel``, the report without its
     timing lines, the scan's result)."""
+    from kafka_topic_analyzer_tpu_torch.backends.alive import GROW_CHUNK
     from kafka_topic_analyzer_tpu_torch.backends.gpu import TorchBackend
     from kafka_topic_analyzer_tpu_torch.engine import run_scan
     from kafka_topic_analyzer_tpu_torch.models.state import AliveSetState
@@ -1448,11 +1449,13 @@ def phase_scan(torch, np, cli, kernels, label, argv, kernel,
     for fn in (bitmap_apply_pairs, *set_kernels):
         fn.launches = 0
     grows, finals = obs_metrics.ALIVE_SET_GROWS.value, finalizes()
+    staged = obs_metrics.ALIVE_GROW_STAGED_BYTES.value
     t0 = time.perf_counter()
     result = run_scan(args.topic, source, backend, args.batch_size)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     grows, finals = obs_metrics.ALIVE_SET_GROWS.value - grows, finalizes() - finals
+    staged = obs_metrics.ALIVE_GROW_STAGED_BYTES.value - staged
     launches = {name: fn.launches for name, fn in kernels.items()}
     PAIR_LAUNCHES[label] = bitmap_apply_pairs.launches
     SET_LAUNCHES[label] = {fn.__name__: fn.launches for fn in set_kernels}
@@ -1488,11 +1491,18 @@ def phase_scan(torch, np, cli, kernels, label, argv, kernel,
     if held.device.type != "cuda" or not width:
         fail(f"scan {label}: alive keys held in {form} on {held.device}, not "
              f"of 2^{ALIVE_BITS} slots")
-    # Each grow is one rehash launch; a finalize counts a set with one
+    # A grow stages its old table's keys and bits (33/8 B an entry)
+    # through the host and rehashes them back one launch a chunk of up to
+    # GROW_CHUNK entries.  The old capacities are distinct powers of two,
+    # so their sum gives each of them.  A finalize counts a set with one
     # launch and the dense bitmap on the host.
-    if alive_set_rehash.launches != grows or alive_set_count.launches != counts:
+    froms = [1 << i for i in range(64) if int(staged) * 8 // 33 >> i & 1]
+    rehashes = sum(max(1, c // GROW_CHUNK) for c in froms)
+    if len(froms) != grows or alive_set_rehash.launches != rehashes \
+            or alive_set_count.launches != counts:
         fail(f"scan {label}: alive set launches {SET_LAUNCHES[label]} for "
-             f"{grows:.0f} grows and {counts} set finalizes")
+             f"{grows:.0f} grows from {froms} entries ({staged:.0f} B staged) "
+             f"and {counts} set finalizes")
     n = launches[kernel]
     if not (n > 0 and n == backend.dispatches):
         fail(f"scan {label}: {n} {kernel} launches for {backend.dispatches} "

@@ -25,19 +25,32 @@ slots, the pair table's form, and the set's inserted count.
   the dense bitmap for good: the set is copied to the host and freed, the
   bitmap is allocated, and the alive slots go back in pair-list chunks
   through `bitmap_apply_pairs`, so the two are never held at once.
+- A grow never holds the old table and the new one on the device at
+  once.  The old keys and bits are copied to pinned host memory (on the
+  host, the CPU tensors themselves) and dropped, the new table is
+  allocated, and the old entries come back in chunks of `GROW_CHUNK`
+  through one device staging pair, each chunk rehashed into the new
+  table as an old table of its own.  All of it is enqueued on the
+  backend's stream, where the old table was allocated and used, so the
+  caching allocator hands its freed blocks only to later work there;
+  the host waits for nothing, and torch's host allocator keeps a pinned
+  buffer until the copies that use it have run.
 
 Every grow and the switch add the bytes the state gained to the backend's
 resident booking (``kta_device_resident_bytes_total{owner="alive"}`` and
 the live sum behind ``kta_device_resident_bytes_max``), which its close
 takes off whole; they are counted on ``kta_alive_set_grows_total`` and
-``kta_alive_dense_conversions_total``, and each count read sets
+``kta_alive_dense_conversions_total``, a grow's old keys and bits on
+``kta_alive_grow_staged_bytes_total``, and each count read sets
 ``kta_alive_set_entries``.  Each grow is span ``alive-grow`` (``from`` and
 ``to`` capacity in its args; ``kta_alive_grow_seconds_total``: the host's
-allocation and launch, the rehash runs on the stream after), each switch
-span ``alive-switch`` (``kta_alive_switch_seconds_total``) around its
-phases ``copy`` (the set to the host, which waits for the stream),
-``slots`` (its alive slots, on the host) and ``load`` (their chunks into
-the bitmap).  ``kta_alive_dense_pairs_total`` counts the pairs a dense
+enqueue, the copies and rehashes run on the stream after) around its
+phases ``stage`` (the pinned buffers' allocation and the copy to them)
+and ``reinsert`` (the chunks' copies and rehash launches, after the new
+table's allocation), each switch span ``alive-switch``
+(``kta_alive_switch_seconds_total``) around its phases ``copy`` (the set
+to the host, which waits for the stream), ``slots`` (its alive slots, on
+the host) and ``load`` (their chunks into the bitmap).  ``kta_alive_dense_pairs_total`` counts the pairs a dense
 bitmap takes through `bitmap_apply_pairs`: each compacted pair list's and
 the switch's loaded slots.
 """
@@ -67,6 +80,7 @@ from kafka_topic_analyzer_tpu_torch.ops.alive_set import (
     alive_slots,
     capacity_for,
     capacity_limit,
+    set_nbytes,
 )
 from kafka_topic_analyzer_tpu_torch.ops.bitmap import bitmap_num_words
 from kafka_topic_analyzer_tpu_torch.packing import alive_table_mode
@@ -76,10 +90,43 @@ READBACKS = 4
 #: Slots a pair-list chunk carries when a switch or a snapshot's load
 #: puts alive slots back.
 LOAD_CHUNK = 1 << 20
+#: Entries of the old table a grow copies back and rehashes a launch:
+#: 1 MiB of keys and 32 KiB of bits on the device beside the new table.
+GROW_CHUNK = 1 << 18
 
 
 def _exact(state: AnalyzerState) -> bool:
     return isinstance(state.alive, AliveSetState)
+
+
+def _staged(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host: a pinned copy enqueued on the current stream
+    for a CUDA tensor, a CPU tensor itself."""
+    if t.device.type != "cuda":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+def _reinsert(keys: torch.Tensor, alive: torch.Tensor, new: AliveSetState) -> None:
+    """Rehash the host table ``keys``/``alive`` into the empty, larger
+    ``new`` in chunks of `GROW_CHUNK` entries (a power of two of at least
+    32), each an old table of its own: on a card copied into one device
+    staging pair first, on the host rehashed in place."""
+    step = min(GROW_CHUNK, keys.numel())
+    device = new.keys.device
+    stage = None
+    if keys.device != device:
+        stage = (torch.empty(step, dtype=keys.dtype, device=device),
+                 torch.empty(step // 32, dtype=alive.dtype, device=device))
+    for lo in range(0, keys.numel(), step):
+        chunk = (keys[lo:lo + step], alive[lo // 32:(lo + step) // 32])
+        if stage is not None:
+            for dst, src in zip(stage, chunk):
+                dst.copy_(src, non_blocking=True)
+            chunk = stage
+        alive_set_rehash(*chunk, new.keys, new.alive)
 
 
 class AliveTable:
@@ -176,14 +223,26 @@ class AliveTable:
             self.booking.grow("alive", gained)
 
     def _grow(self, state: AnalyzerState, capacity: int) -> None:
+        """Rehash the set into ``capacity`` entries through the host, so
+        the old table leaves the device before the new one is allocated
+        (see the module)."""
         old = state.alive
+        gained = set_nbytes(capacity) - substate_nbytes(old)
         with obs_trace.timed("alive-grow", obs_metrics.ALIVE_GROW_SECONDS,
                              **{"from": old.capacity, "to": capacity}):
+            with obs_trace.timed("stage"):
+                keys, alive = _staged(old.keys), _staged(old.alive)
+            meta = old.meta
+            state.alive = old = None
             new = AliveSetState.empty(capacity, self.bits, self.device)
-            alive_set_rehash(old.keys, old.alive, new.keys, new.alive)
-            new.meta.copy_(old.meta)
-            self._replace(state, new)
+            new.meta.copy_(meta)
+            with obs_trace.timed("reinsert"):
+                _reinsert(keys, alive, new)
+            state.alive = new
+            if self.booking is not None:
+                self.booking.grow("alive", gained)
         obs_metrics.ALIVE_SET_GROWS.inc()
+        obs_metrics.ALIVE_GROW_STAGED_BYTES.inc(keys.nbytes + alive.nbytes)
 
     def _to_dense(self, state: AnalyzerState, slots=None) -> None:
         """Switch to the dense bitmap holding the set's alive slots (or

@@ -491,8 +491,15 @@ ALIVE_DENSE_CONVERSIONS = _REG.counter(
 ALIVE_GROW_SECONDS = _REG.counter(
     "kta_alive_grow_seconds_total",
     "Host seconds of the exact alive set's grows (span alive-grow): the "
-    "larger table's allocation and its rehash's launch on the backend's "
-    "stream")
+    "old table's copy to pinned host memory enqueued (phase stage), then "
+    "the larger table's allocation, and the old entries' chunks copied "
+    "back and rehashed into it (phase reinsert), all on the backend's "
+    "stream; nothing waits for the stream")
+ALIVE_GROW_STAGED_BYTES = _REG.counter(
+    "kta_alive_grow_staged_bytes_total",
+    "Bytes of the old tables' keys and bits that the exact alive set's "
+    "grows staged through host memory, so that the old table and the "
+    "new one are never on the device at once")
 ALIVE_SWITCH_SECONDS = _REG.counter(
     "kta_alive_switch_seconds_total",
     "Seconds of the exact alive set's switches to the dense bitmap (span "

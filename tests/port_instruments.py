@@ -3,8 +3,9 @@ the port measures inside its own layers (worker and drive-loop CPU, the
 fetch rounds' wait, finalize's phases, the device-resident bytes and
 their high-water mark, each fold's device span, the fleet's admission
 waits, passes and released backends, the exact alive set's entries,
-grows and switches to the dense bitmap, their seconds, and the pairs a
-dense bitmap takes).  Name → (kind, label names)."""
+grows and switches to the dense bitmap, their seconds, the bytes a grow
+stages through the host, and the pairs a dense bitmap takes).
+Name → (kind, label names)."""
 
 PORT_ONLY = {
     "kta_stage_cpu_seconds_total": ("counter", ("stage",)),
@@ -21,6 +22,7 @@ PORT_ONLY = {
     "kta_alive_set_grows_total": ("counter", ()),
     "kta_alive_dense_conversions_total": ("counter", ()),
     "kta_alive_grow_seconds_total": ("counter", ()),
+    "kta_alive_grow_staged_bytes_total": ("counter", ()),
     "kta_alive_switch_seconds_total": ("counter", ()),
     "kta_alive_dense_pairs_total": ("counter", ()),
 }

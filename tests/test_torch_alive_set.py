@@ -8,16 +8,21 @@ the host from the set's entries.  At 2^32 slots the dense side is a few
 space shards of the bitmap (the whole is 512 MiB), the shards that hold
 slots 0, 5, 5 | 2^31 and 0xFFFFFFFF.  Then the backend: its grows, its
 switch to the dense bitmap at the threshold, snapshots through a
-set-backed state, the resident bytes it books, and the counters.  The
-``cuda``-marked twins run the kernels on a card and skip here.
+set-backed state, the resident bytes it books, and the counters; its
+grow, staged through the host in chunks, against one rehash of the whole
+table.  The ``cuda``-marked twins run the kernels on a card and skip
+here; one of them holds the grow to one table on the card at a time and
+to no wait for the stream.
 """
 
 import gc
+import time
 
 import numpy as np
 import pytest
 import torch
 
+from kafka_topic_analyzer_tpu_torch.backends import alive as alive_mod
 from kafka_topic_analyzer_tpu_torch.backends.alive import READBACKS, AliveTable
 from kafka_topic_analyzer_tpu_torch.backends.base import resident_bytes_live
 from kafka_topic_analyzer_tpu_torch.backends.cpu import CpuExactBackend
@@ -170,6 +175,22 @@ def run_sequence(seq, bits: int, device: str, grow_at: int, kernel=False):
         assert full == 0
         if bits < 32:
             assert count == int(np.bitwise_count(want[0]).sum())
+    return st
+
+
+def entries(st: AliveSetState) -> dict:
+    """The set's entries, on the host: slot → its alive bit."""
+    keys = st.keys.cpu().numpy().view(np.uint32)
+    bits = st.alive.cpu().numpy().view(np.uint32)
+    idx = np.flatnonzero(keys != als.EMPTY)
+    on = (bits[idx >> 5] >> (idx & 31).astype(np.uint32)) & 1
+    return dict(zip(keys[idx].tolist(), on.tolist()))
+
+
+def holder(alive) -> object:
+    """What `AliveTable` sizes: an object with an ``alive`` sub-state."""
+    st = type("S", (), {})()
+    st.alive = alive
     return st
 
 
@@ -446,6 +467,73 @@ def test_reserve_reads_counts_without_waiting(monkeypatch):
     assert st.alive.capacity == 1 << 17
 
 
+@pytest.mark.parametrize("chunk", [32, 1 << 10, 1 << 13, 1 << 15])
+def test_a_staged_grow_leaves_what_one_rehash_of_the_table_leaves(chunk, monkeypatch):
+    """A grow rehashes the old table back in chunks of `GROW_CHUNK`
+    entries, each an old table of its own.  Below, at and above the old
+    table's 2^13 entries, it leaves the slots, the bit of each, the meta
+    and the count that one rehash of the whole table leaves: cleared
+    entries and slot 0xFFFFFFFF's own bit included."""
+    monkeypatch.setattr(alive_mod, "GROW_CHUNK", chunk)
+    old = AliveSetState.empty(1 << 13, 32, "cpu")
+    top = (np.array([0xFFFFFFFF], np.uint32), np.ones(1, np.uint8))
+    for slots, flags in sequence(5, 32) + [top]:
+        als.alive_set_apply(old.keys, old.alive, old.meta,
+                            *pair_table(slots, flags, len(slots)), 32)
+    held = entries(old)
+    assert set(held.values()) == {0, 1} and int(old.meta[als.TOP_BIT]) == 1
+    assert 4 * len(held) <= 3 * old.capacity and int(old.meta[als.FULL]) == 0
+    want = AliveSetState.empty(1 << 15, 32, "cpu")
+    als.alive_set_rehash_plain(old.keys, old.alive, want.keys, want.alive)
+    want.meta.copy_(old.meta)
+    st = holder(old)
+    AliveTable(config(32), torch.device("cpu"), 4096)._grow(st, 1 << 15)
+    assert st.alive.capacity == 1 << 15
+    assert entries(st.alive) == entries(want) == held
+    assert torch.equal(st.alive.meta, want.meta)
+    assert als.alive_set_count(st.alive.alive, st.alive.meta).tolist() == \
+        als.alive_set_count(want.alive, want.meta).tolist()
+    assert counter("kta_alive_grow_staged_bytes_total") == \
+        old.keys.nbytes + old.alive.nbytes
+
+
+def test_grows_through_reserve_keep_the_dense_answer_and_book_the_staged_bytes(
+        monkeypatch):
+    """Driven by `AliveTable.reserve`, a 2^26-slot set grows more than
+    once in chunks of 2^12 entries, gives the dense bitmap's words and
+    count after every apply, and books each old table's keys and bits on
+    ``kta_alive_grow_staged_bytes_total``."""
+    monkeypatch.setattr(alive_mod, "GROW_CHUNK", 1 << 12)
+    bits = 26
+    table = AliveTable(config(bits), torch.device("cpu"), 4096)
+    st = holder(table.init())
+    dense = Dense(bits)
+    rng = np.random.default_rng(26)
+    seen = np.zeros(0, np.uint32)
+    olds = []
+    for step in range(6):
+        fresh = rng.integers(0, 1 << bits, size=30_000, dtype=np.uint64)
+        again = seen[rng.random(seen.size) < 0.3]
+        slots = np.unique(np.concatenate([fresh.astype(np.uint32), again]))
+        # A fifth cleared: some of them present, some never set.
+        flags = (rng.random(slots.size) < 0.8).astype(np.uint8)
+        capacity = st.alive.capacity
+        table.reserve(st, slots.size)
+        if st.alive.capacity != capacity:
+            olds.append(capacity)
+        pairs = pair_table(slots, flags, slots.size + 7)
+        st.alive.apply_pairs(*pairs, table.config)
+        table.counted(st)
+        dense.apply(*pairs)
+        want = dense.host()[0]
+        np.testing.assert_array_equal(st.alive.host_words(), want, err_msg=f"apply {step}")
+        assert st.alive.count() == int(np.bitwise_count(want).sum())
+        seen = np.union1d(seen, slots)
+    assert len(olds) >= 2 and counter("kta_alive_set_grows_total") == len(olds)
+    assert counter("kta_alive_grow_staged_bytes_total") == sum(
+        als.set_nbytes(c) - 4 * als.META_WORDS for c in olds)
+
+
 def test_the_set_counters_are_in_metrics_and_port_only():
     from kafka_topic_analyzer_tpu_torch.obs.registry import render_prometheus
 
@@ -458,6 +546,7 @@ def test_the_set_counters_are_in_metrics_and_port_only():
                        ("kta_alive_set_grows_total", "counter"),
                        ("kta_alive_dense_conversions_total", "counter"),
                        ("kta_alive_grow_seconds_total", "counter"),
+                       ("kta_alive_grow_staged_bytes_total", "counter"),
                        ("kta_alive_switch_seconds_total", "counter"),
                        ("kta_alive_dense_pairs_total", "counter")):
         assert f"# TYPE {name} {kind}" in text
@@ -508,8 +597,9 @@ def test_cuda_backend_grows_or_switches_and_equals_the_host(bits, keys, dense):
         result = run_scan("t", SyntheticSource(sp), backend, cfg.batch_size)
         assert isinstance(backend.state.alive, AliveBitmapState) == dense
         if device == "cuda":
-            # Every grow is one rehash launch; the one finalize counts a
-            # set with one launch, and the dense bitmap with none.
+            # Every grow (of a table of at most `GROW_CHUNK` entries here)
+            # is one rehash launch; the one finalize counts a set with one
+            # launch, and the dense bitmap with none.
             assert als.alive_set_rehash.launches - before[als.alive_set_rehash] \
                 == obs_metrics.ALIVE_SET_GROWS.value - grows
             assert als.alive_set_count.launches - before[als.alive_set_count] \
@@ -520,3 +610,59 @@ def test_cuda_backend_grows_or_switches_and_equals_the_host(bits, keys, dense):
     assert counts["cuda"] == counts["cpu"] == oracle_alive(cfg, sp)
     if bits < 32:
         np.testing.assert_array_equal(words["cuda"], words["cpu"])
+
+
+#: Cycles of a device spin of about 0.1 s at an H100's clocks
+#: (``torch.cuda._sleep``).
+SPIN_CYCLES = 200_000_000
+
+
+@pytest.mark.cuda
+def test_cuda_grow_holds_one_table_at_a_time_and_never_waits_for_the_stream():
+    """A 2^22-entry set holding 2^21 slots (a fifth cleared) grows to 2^23
+    entries.  The allocator's peak rises over the bytes live before by at
+    most the new table less the old one, one staging chunk and 1 MiB, so
+    the two tables were never on the card together; the grow returns
+    while a spin queued before it still runs; the grown set equals the
+    host's rehash of the same table."""
+    cuda_or_skip()
+    table = AliveTable(config(32), torch.device("cuda"), 4096)
+    # A first grow builds the kernel and the host allocator's first buffers.
+    st = holder(AliveSetState.empty(1 << 16, 32, "cuda"))
+    table._grow(st, 1 << 17)
+    rng = np.random.default_rng(2026)
+    slots = np.unique(rng.integers(0, 1 << 32, size=(1 << 21) + (1 << 16),
+                                   dtype=np.uint64).astype(np.uint32))
+    slots = rng.permutation(slots[slots != als.EMPTY])[:1 << 21]
+    st = holder(AliveSetState.empty(1 << 22, 32, "cuda"))
+    for flags in (np.ones(slots.size, np.uint8),
+                  (rng.random(slots.size) < 0.8).astype(np.uint8)):
+        st.alive.apply_pairs(*pair_table(slots, flags, slots.size, "cuda"),
+                             table.config)
+    host = AliveSetState(keys=st.alive.keys.cpu(), alive=st.alive.alive.cpu(),
+                         meta=st.alive.meta.cpu(), bits=32)
+    assert len(entries(host)) == 1 << 21
+    want = AliveSetState.empty(1 << 23, 32, "cpu")
+    als.alive_set_rehash_plain(host.keys, host.alive, want.keys, want.alive)
+    want.meta.copy_(host.meta)
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda._sleep(SPIN_CYCLES)
+    spun = torch.cuda.Event()
+    spun.record()
+    t0 = time.perf_counter()
+    table._grow(st, 1 << 23)
+    held = time.perf_counter() - t0
+    ahead = not spun.query()
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+
+    chunk = als.set_nbytes(alive_mod.GROW_CHUNK) - 4 * als.META_WORDS
+    assert rise <= als.set_nbytes(1 << 23) - als.set_nbytes(1 << 22) + chunk + (1 << 20)
+    assert ahead and held < 0.05, f"the grow held the host {held:.4f} s"
+    assert entries(st.alive) == entries(want)
+    assert st.alive.meta.tolist() == want.meta.tolist()
+    assert als.alive_set_count(st.alive.alive, st.alive.meta).tolist() == \
+        als.alive_set_count(want.alive, want.meta).tolist()

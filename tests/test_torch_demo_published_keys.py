@@ -11,8 +11,9 @@ holds the dense bitmap from the start.  Each audit, through the port's CLI
 (``--json``) against the benchmark's template broker, is held to the
 benchmark's plain numpy reference (exact counters, extremes and alive
 keys; bit-identical sketches); its counters to the grows and the switch
-it made, to the pairs the dense bitmap's kernel took and to the spans'
-own durations in ``--trace-json``.  A switch whose load drops its last
+it made, to the bytes its grows staged through the host, to the pairs
+the dense bitmap's kernel took and to the spans' own durations and
+phases in ``--trace-json``.  A switch whose load drops its last
 chunk of slots fails on the alive keys."""
 
 from __future__ import annotations
@@ -158,15 +159,19 @@ def test_audit_equals_the_reference_across_grows_and_the_switch(
     assert (len(grown), len(switched)) == (grows, switches)
     for e in grown:
         assert (e["args"]["from"], e["args"]["to"]) == (1 << 16, 1 << 17)
+    # Each grow stages the 2^16-entry table's keys and bits through the host.
+    assert counter("kta_alive_grow_staged_bytes_total") == grows * (4 + 1 / 8) * (1 << 16)
     # Each counter books its spans' own durations.
     for name, spans_of in (("kta_alive_grow_seconds_total", grown),
                            ("kta_alive_switch_seconds_total", switched)):
         assert counter(name) == pytest.approx(sum(e["dur"] for e in spans_of) / 1e6,
                                               rel=1e-9, abs=1e-12)
-    for e in switched:
-        inner = [c for c in events if c.get("args", {}).get("parent") == e["args"]["id"]]
-        assert [c["name"] for c in sorted(inner, key=lambda c: c["ts"])] == [
-            "copy", "slots", "load"]
+    for span_of, phases in ((grown, ["stage", "reinsert"]),
+                            (switched, ["copy", "slots", "load"])):
+        for e in span_of:
+            inner = [c for c in events
+                     if c.get("args", {}).get("parent") == e["args"]["id"]]
+            assert [c["name"] for c in sorted(inner, key=lambda c: c["ts"])] == phases
 
 
 def test_a_switch_that_drops_its_last_chunk_fails_on_the_alive_keys(served, monkeypatch):
