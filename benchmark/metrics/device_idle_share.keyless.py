@@ -1,0 +1,7 @@
+"""Device: one minus the union of the device's activity over the traced
+window, as ``device_idle_share.follow`` reads it, in the keyless follow
+cell."""
+
+from benchmark.run import load_reader
+
+read = load_reader("device_idle_share.follow")

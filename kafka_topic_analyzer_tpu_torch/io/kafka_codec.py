@@ -1756,10 +1756,8 @@ def _decode_legacy_entry(
         raise MalformedHeaderError("nested compressed wrapper messages")
     if value is None:
         raise MalformedHeaderError("compressed wrapper message with null value")
-    from kafka_topic_analyzer_tpu_torch.io.compression import decompress
-
     try:
-        inner_buf = decompress(codec, value)
+        inner_buf = _decompress(codec, value)
     except CorruptFrameError:
         raise
     except Exception as e:
@@ -1840,6 +1838,33 @@ def preferred_skip_offset(
 _MIN_V2_BATCH_LENGTH = 4 + 1 + 4 + 2 + 4 + 8 + 8 + 8 + 2 + 4 + 4
 #: Minimum plausible legacy message_size: crc+magic+attrs+klen+vlen.
 _MIN_LEGACY_MESSAGE_SIZE = 4 + 1 + 1 + 4 + 4
+
+
+#: Kafka's codec ids (the low three bits of a batch's attributes) by name,
+#: as the decompression counters label them.
+CODEC_NAMES = {COMPRESSION_GZIP: "gzip", COMPRESSION_SNAPPY: "snappy",
+               COMPRESSION_LZ4: "lz4", COMPRESSION_ZSTD: "zstd"}
+
+
+def _decompress(codec: int, payload) -> bytes:
+    """`compression.decompress` in a span ``decompress`` (args ``codec``,
+    ``in`` and ``out`` bytes): its duration books
+    ``kta_decompress_seconds_total`` and, once it succeeds, its bytes
+    ``kta_decompress_{in,out}_bytes_total``, each by codec."""
+    from kafka_topic_analyzer_tpu_torch.io.compression import decompress
+    from kafka_topic_analyzer_tpu_torch.obs import metrics as obs_metrics
+    from kafka_topic_analyzer_tpu_torch.obs import trace as obs_trace
+
+    name = CODEC_NAMES.get(codec, str(codec))
+    with obs_trace.timed(
+        "decompress", obs_metrics.DECOMPRESS_SECONDS.labels(codec=name),
+        cat="io", codec=name, **{"in": len(payload)},
+    ) as span:
+        out = decompress(codec, payload)
+        span.args["out"] = len(out)
+    obs_metrics.DECOMPRESS_IN_BYTES.labels(codec=name).inc(len(payload))
+    obs_metrics.DECOMPRESS_OUT_BYTES.labels(codec=name).inc(len(out))
+    return out
 
 
 def _parse_frame_at(
@@ -1930,10 +1955,8 @@ def _parse_frame_at(
         )
     codec = attributes & 0x07
     if codec != COMPRESSION_NONE:
-        from kafka_topic_analyzer_tpu_torch.io.compression import decompress
-
         try:
-            payload = decompress(codec, payload)
+            payload = _decompress(codec, payload)
         except Exception as e:
             # Unknown codec or corrupt codec stream: classify so callers
             # (and the CLI) report one clean line — or skip/quarantine.

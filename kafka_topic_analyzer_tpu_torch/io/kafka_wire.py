@@ -59,6 +59,7 @@ available (numpy fallback otherwise).  Payload bytes never leave this module
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import socket
@@ -2169,84 +2170,104 @@ class KafkaWireSource(RecordSource):
                         progressed = True
                         return True
 
-                    for item in kc.salvage_batch_frames(
-                        data, verify_crc=self.verify_crc
-                    ):
-                        if isinstance(item, kc.CorruptSpan):
-                            salvaged = True
-                            if not book_corruption(
-                                item.error,
-                                item.claimed_end,
-                                item.resume_offset,
-                                item.num_records,
-                                bytes(data[item.start : item.end]),
-                            ):
-                                corrupt_stop = True
-                                break
-                            continue
-                        frame = item
-                        reason = _fallback_reason(frame, data, salvaged)
-                        max_frame_end = max(max_frame_end, frame.end_offset)
-                        chunk = (
-                            native.decode_records_native(frame)
-                            if use_native_decode
-                            else None
+                    # The per-frame chain, one span a record set that has
+                    # bytes left after the native prefix.
+                    n_frames = n_chained = 0
+                    chain = (
+                        obs_trace.timed(
+                            "frame-fallback",
+                            obs_metrics.FRAME_FALLBACK_SECONDS,
+                            cat="io",
                         )
-                        if chunk is not None:
-                            # Keep records in [next_offset, end): compressed
-                            # batches can start earlier; records past the
-                            # snapshot watermark are out of scope.
-                            cnt = accept_records(chunk, p, reason)
-                            if cnt:
-                                consumed += cnt
-                                progressed = True
-                            continue
-                        # Python fallback (no shim, or malformed frame — the
-                        # reference decoder raises the precise error).
-                        # Rows commit only after the frame decodes fully, so
-                        # a record-body corruption mid-frame cannot leave a
-                        # half-accepted frame behind.
-                        rows = []
-                        row_offs = []
-                        frame_next = next_offset[p]
-                        try:
-                            for off, (ts_ms, key, value) in kc.decode_frame_records(
-                                frame
-                            ):
-                                if off < frame_next:
-                                    continue
-                                if off >= end[p]:
+                        if data
+                        else contextlib.nullcontext()
+                    )
+                    with chain as span:
+                        for item in kc.salvage_batch_frames(
+                            data, verify_crc=self.verify_crc
+                        ):
+                            if isinstance(item, kc.CorruptSpan):
+                                salvaged = True
+                                if not book_corruption(
+                                    item.error,
+                                    item.claimed_end,
+                                    item.resume_offset,
+                                    item.num_records,
+                                    bytes(data[item.start : item.end]),
+                                ):
+                                    corrupt_stop = True
                                     break
-                                rows.append((p, ts_ms, key, value))
-                                row_offs.append(off)
-                                frame_next = off + 1
-                        except kc.CorruptFrameError as ce:
-                            salvaged = True
-                            raw = (
-                                bytes(data[frame.byte_start : frame.byte_end])
-                                if frame.byte_start >= 0
-                                else b""
+                                continue
+                            frame = item
+                            n_frames += 1
+                            reason = _fallback_reason(frame, data, salvaged)
+                            max_frame_end = max(max_frame_end, frame.end_offset)
+                            chunk = (
+                                native.decode_records_native(frame)
+                                if use_native_decode
+                                else None
                             )
-                            if not book_corruption(
-                                ce, frame.end_offset, -1,
-                                frame.num_records, raw,
-                            ):
-                                corrupt_stop = True
-                                break
-                            continue  # poisoned frame's rows are dropped
-                        if rows:
-                            batch = records_to_batch(
-                                rows, use_native=self.use_native_hashing
+                            if chunk is not None:
+                                # Keep records in [next_offset, end): compressed
+                                # batches can start earlier; records past the
+                                # snapshot watermark are out of scope.
+                                cnt = accept_records(chunk, p, reason)
+                                n_chained += cnt
+                                if cnt:
+                                    consumed += cnt
+                                    progressed = True
+                                continue
+                            # Python fallback (no shim, or malformed frame — the
+                            # reference decoder raises the precise error).
+                            # Rows commit only after the frame decodes fully, so
+                            # a record-body corruption mid-frame cannot leave a
+                            # half-accepted frame behind.
+                            rows = []
+                            row_offs = []
+                            frame_next = next_offset[p]
+                            try:
+                                for off, (ts_ms, key, value) in kc.decode_frame_records(
+                                    frame
+                                ):
+                                    if off < frame_next:
+                                        continue
+                                    if off >= end[p]:
+                                        break
+                                    rows.append((p, ts_ms, key, value))
+                                    row_offs.append(off)
+                                    frame_next = off + 1
+                            except kc.CorruptFrameError as ce:
+                                salvaged = True
+                                raw = (
+                                    bytes(data[frame.byte_start : frame.byte_end])
+                                    if frame.byte_start >= 0
+                                    else b""
+                                )
+                                if not book_corruption(
+                                    ce, frame.end_offset, -1,
+                                    frame.num_records, raw,
+                                ):
+                                    corrupt_stop = True
+                                    break
+                                continue  # poisoned frame's rows are dropped
+                            if rows:
+                                batch = records_to_batch(
+                                    rows, use_native=self.use_native_hashing
+                                )
+                                batch.offsets = np.array(row_offs, dtype=np.int64)
+                                push_chunk(
+                                    batch,
+                                    "legacy" if reason == "legacy"
+                                    else "python-decode",
+                                )
+                                next_offset[p] = frame_next
+                                consumed += len(rows)
+                                n_chained += len(rows)
+                                progressed = True
+                        if span is not None:
+                            span.args.update(
+                                frames=n_frames, records=n_chained
                             )
-                            batch.offsets = np.array(row_offs, dtype=np.int64)
-                            push_chunk(
-                                batch,
-                                "legacy" if reason == "legacy"
-                                else "python-decode",
-                            )
-                            next_offset[p] = frame_next
-                            consumed += len(rows)
-                            progressed = True
                     if corrupt_stop:
                         # The partition's round ended at a poisoned span:
                         # either its identical re-fetch happens next round,

@@ -320,8 +320,29 @@ DECODE_SECONDS = _REG.counter(
     "kta_decode_seconds_total",
     "Seconds spent in record-set decode: the native whole-response "
     "pre-decode pass and the fused decode→pack appends (booked per fetch "
-    "round; python per-frame fallback decoding is not timed — it shares "
-    "the round with masking/state bookkeeping)")
+    "round; the per-frame chain that takes the frames they stop at is "
+    "booked on kta_frame_fallback_seconds_total)")
+FRAME_FALLBACK_SECONDS = _REG.counter(
+    "kta_frame_fallback_seconds_total",
+    "Seconds a wire stream spent in the per-frame chain (span "
+    "frame-fallback, args frames and records, once a record set with "
+    "bytes left over): the frames the fused decode→pack walk and the "
+    "whole-response native decode stop at (compressed, legacy, truncated, "
+    "poisoned), each parsed, decompressed, decoded and pushed into rows")
+DECOMPRESS_SECONDS = _REG.counter(
+    "kta_decompress_seconds_total",
+    "Seconds spent decompressing record batches, by codec (span "
+    "decompress around each frame's decompression, args codec, in and out "
+    "bytes)",
+    labelnames=("codec",))
+DECOMPRESS_IN_BYTES = _REG.counter(
+    "kta_decompress_in_bytes_total",
+    "Compressed bytes of the record batches decompressed, by codec",
+    labelnames=("codec",))
+DECOMPRESS_OUT_BYTES = _REG.counter(
+    "kta_decompress_out_bytes_total",
+    "Bytes the record batches decompressed to, by codec",
+    labelnames=("codec",))
 INGEST_ROUND_WAIT_SECONDS = _REG.counter(
     "kta_ingest_round_wait_seconds_total",
     "Seconds a wire stream's own thread spent blocked on its fetch "

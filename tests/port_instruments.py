@@ -4,7 +4,9 @@ fetch rounds' wait, finalize's phases, the device-resident bytes and
 their high-water mark, each fold's device span, the fleet's admission
 waits, passes and released backends, the exact alive set's entries,
 grows and switches to the dense bitmap, their seconds, the bytes a grow
-stages through the host, and the pairs a dense bitmap takes).
+stages through the host, the pairs a dense bitmap takes, the seconds and
+bytes of each codec's decompression, and the seconds of the per-frame
+chain).
 Name → (kind, label names)."""
 
 PORT_ONLY = {
@@ -25,13 +27,25 @@ PORT_ONLY = {
     "kta_alive_grow_staged_bytes_total": ("counter", ()),
     "kta_alive_switch_seconds_total": ("counter", ()),
     "kta_alive_dense_pairs_total": ("counter", ()),
+    "kta_decompress_seconds_total": ("counter", ("codec",)),
+    "kta_decompress_in_bytes_total": ("counter", ("codec",)),
+    "kta_decompress_out_bytes_total": ("counter", ("codec",)),
+    "kta_frame_fallback_seconds_total": ("counter", ()),
+}
+
+
+#: Instruments of the reference's catalog whose help the port words
+#: otherwise, because the port times what the reference leaves untimed:
+#: name → what the port's help names and the reference's does not.
+PORT_HELP = {
+    "kta_decode_seconds_total": "kta_frame_fallback_seconds_total",
 }
 
 
 def drop_port_only(exposition: bytes) -> bytes:
     """A Prometheus text exposition without the lines of the `PORT_ONLY`
-    families: what the reference's exporter serves for the same
-    registry."""
+    families and the help lines of the `PORT_HELP` ones: what the port's
+    exporter and the reference's serve alike for the same registry."""
 
     def family(line: bytes) -> bytes:
         if line.startswith((b"# HELP ", b"# TYPE ")):
@@ -39,5 +53,7 @@ def drop_port_only(exposition: bytes) -> bytes:
         return line.split(b"{")[0].split(b" ")[0]
 
     names = {name.encode() for name in PORT_ONLY}
+    helps = {name.encode() for name in PORT_HELP}
     return b"".join(line for line in exposition.splitlines(keepends=True)
-                    if family(line) not in names)
+                    if family(line) not in names
+                    and not (line.startswith(b"# HELP ") and family(line) in helps))
